@@ -1,0 +1,10 @@
+from .blocks import BlockStructure, build_blocks, scale_inputs
+from .kernels_math import KernelParams, cast_params, cov_matrix, matern
+from .packing import PackedBlocks, PackedPrediction, pack_blocks, pack_prediction
+from .pipeline import SBVConfig, preprocess
+
+__all__ = [
+    "BlockStructure", "build_blocks", "scale_inputs", "KernelParams", "cast_params",
+    "cov_matrix", "matern", "PackedBlocks", "PackedPrediction", "pack_blocks",
+    "pack_prediction", "SBVConfig", "preprocess",
+]
