@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from src/repro_torch/csrc, holds each one
-against its plain PyTorch version at the main path's shapes (f64 and f32),
-times both, then drives the main path once through the user entry points:
-``fit_sbv`` (2 structure rounds x 3 Adam steps, f64) on 200,000 points of
-the paper's 10-d synthetic GP, and ``predict_sbv`` on 50,000 held-out points
-of the same realization. It checks that every kernel of the path launched,
-that the outputs are finite and right, and prints per-kernel numbers as one
-JSON line and, last, ``{"ok": true, "device": {...}}``.
+against its plain PyTorch version at its path's shapes (f64 and f32), times
+both, and drives each path once through the user entry points:
+
+* single output: ``fit_sbv`` (2 structure rounds x 3 Adam steps, f64) on
+  200,000 points of the paper's 10-d synthetic GP, and ``predict_sbv`` on
+  50,000 held-out points of the same realization;
+* multi-output (VPPE): ``fit_sbv`` (2 x 3) on 200,000 MetaRVM trajectories
+  with 32 outputs, and ``predict_sbv`` on 20,000 held-out ones;
+* the batched covariance kernel through ``kernels.ops.matern_cov``, its only
+  entry point (the JAX package calls it from tests alone).
+
+Launch counts are set to 0 just before each path and read just after it.
+It checks that every kernel of each path launched, that the outputs are
+finite and right, and prints per-kernel numbers as one JSON line and, last,
+``{"ok": true, "device": {...}}``.
 
 Exits non-zero, with no result line, when no CUDA device is visible, when
 the repository's sources are not beside this file, or when any check fails.
@@ -38,6 +46,9 @@ BS_PRED, M_PRED, N_SIMS, CHUNK = 25, 200, 1000, 25_000
 OUTER, INNER = 2, 3
 SEED = 0
 DEVICE = "cuda"
+# The multi-output path: MetaRVM trajectories at the repo's 32 outputs
+# (fig7_metarvm --outputs 32), at the single-output path's n and m.
+P_OUT, N_MULTI_TEST, MULTI_CHUNK = 32, 20_000, 10_000
 
 # Published H100 SXM peaks (NVIDIA data sheet): f64 on the tensor cores, HBM3.
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
@@ -98,6 +109,26 @@ def predict_work(packed_np) -> tuple[float, float]:
     return flops, nbytes + 2 * 8 * packed_np.q_mask.size
 
 
+def multi_work(packed_np) -> tuple[float, float]:
+    """(flops, bytes) of the multi-output stats: the single-output chain
+    with p right-hand sides instead of one, from the real per-block counts;
+    each input read once, (1 + p) values out per block."""
+    m_b = packed_np.nn_mask.sum(axis=1).astype(float)
+    bs_b = packed_np.blk_mask.sum(axis=1).astype(float)
+    p = packed_np.blk_y.shape[2]
+    flops = float(np.sum(m_b ** 3 / 3 + m_b ** 2 * (bs_b + p) + m_b * bs_b ** 2
+                         + 2 * m_b * bs_b * p + bs_b ** 3 / 3 + bs_b ** 2 * p))
+    nbytes = float(sum(a.size * 8 for a in (packed_np.blk_x, packed_np.blk_y, packed_np.blk_mask,
+                                            packed_np.nn_x, packed_np.nn_y, packed_np.nn_mask)))
+    return flops, nbytes + 8 * packed_np.blk_x.shape[0] * (1 + p)
+
+
+def cov_work(b: int, na: int, nb: int, d: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) of the batched covariance: 2d for the distance and
+    ~15 for the Matern polynomial per entry; inputs read once, output once."""
+    return float(b * na * nb * (2 * d + 15)), float(itemsize * b * ((na + nb) * d + na * nb))
+
+
 def bound_ms(flops: float, nbytes: float, peaks) -> tuple[float, str]:
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
@@ -127,12 +158,15 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
 
     from repro_torch.core import KernelParams, SBVConfig, preprocess
+    from repro_torch.core import multioutput as mo
     from repro_torch.core import predict as tpredict
     from repro_torch.core import vecchia
     from repro_torch.core.fit import fit_sbv, neg_loglik_fn
-    from repro_torch.data.gp_sim import paper_synthetic_chunks
+    from repro_torch.data.gp_sim import metarvm_field_dataset, paper_synthetic_chunks
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain
     from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
+    from repro_torch.kernels.sbv_multi_stats import sbv_multi_stats_cuda, sbv_multi_stats_plain
     from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
 
     t_start = time.perf_counter()
@@ -222,9 +256,10 @@ def main() -> int:
         pl_ms = cuda_ms(lambda: sbv_loglik_plain(*par(p0, torch.float64), *arrs0), reps=3)
     flops, nbytes = loglik_work(packed0)
     b_ms, b_by = bound_ms(flops, nbytes, peaks)
+    per_sm = _build.load("sbv_loglik").sbv_loglik_ctas_per_sm(packed0.bs_max, packed0.m, D, 1)
     log(f"loglik time at bc={packed0.n_blocks} bs={packed0.bs_max} m={packed0.m}: kernel f64 "
         f"{k_ms:.3f} ms, f32 {k32_ms:.3f} ms; plain f64 {pl_ms:.3f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
+        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B); {per_sm} resident CTAs per SM (f64)")
     results["sbv_loglik"] = dict(max_abs_err=full_err, ms=k_ms, plain_ms=pl_ms, bound_ms=b_ms,
                                  bound_by=b_by, f32_ms=k32_ms)
 
@@ -375,16 +410,242 @@ def main() -> int:
                                     device=dev)
     log(f"MSPE at the fitted params {float(np.mean((pred_fit.mean - y_te) ** 2)):.5f} "
         "(not checked: six Adam steps)")
+    del pred, pred_fit, fit
+    torch.cuda.empty_cache()
+
+    # 8. The multi-output (VPPE) path: MetaRVM trajectories at 32 outputs.
+    t = time.perf_counter()
+    xm, ym = metarvm_field_dataset(SEED, N_TRAIN + N_MULTI_TEST, P_OUT)
+    xm_tr, ym_tr = xm[:N_TRAIN], ym[:N_TRAIN]
+    xm_te, ym_te = xm[N_TRAIN:], ym[N_TRAIN:]
+    log(f"phase multi generate: {time.perf_counter() - t:.2f} s (n={len(xm)}, d={xm.shape[1]}, "
+        f"p={P_OUT})")
+    init_m = mo.MultiOutputParams.create(sigma2=np.maximum(np.var(ym_tr, axis=0), 1e-12),
+                                         beta=0.5, tau2=1e-3, d=xm.shape[1], p=P_OUT)
+    t = time.perf_counter()
+    packed_m, _ = preprocess(xm_tr, ym_tr, init_m.beta.numpy(), cfg)
+    log(f"phase multi preprocess: {time.perf_counter() - t:.2f} s (bc={packed_m.n_blocks}, "
+        f"bs_max={packed_m.bs_max}, m={packed_m.m}, p={packed_m.n_outputs})")
+    pm0 = init_m.to(device=dev)
+    s0 = pm0.structure_params()
+
+    # 9. Multi-output stats kernel against its plain version.
+    full_m = slice_blocks(packed_m, packed_m.bs_max, M_FIT, 256)
+    ragged_m = slice_blocks(packed_m, 37, 61, 256)
+    ragged_m.blk_y, ragged_m.nn_y = ragged_m.blk_y[..., :3], ragged_m.nn_y[..., :3]
+    multi_err = None
+    for label, pk in (("full", full_m), ("ragged", ragged_m)):
+        arrs = vecchia.packed_arrays(pk, dev)
+        want = sbv_multi_stats_plain(*par(s0, torch.float64), *arrs)
+        got = sbv_multi_stats_cuda(*par(s0, torch.float64), *arrs)
+        got32 = sbv_multi_stats_cuda(*par(s0, torch.float32), *cast(arrs, torch.float32))
+        torch.cuda.synchronize()
+        dif = (got - want).abs()
+        rel = float((dif / want.abs()).max())
+        rel32 = float(((got32.double().sum(0) - want.sum(0)).abs() / want.sum(0).abs()).max())
+        log(f"multi_stats {label}: bc={pk.n_blocks} bs={pk.bs_max} m={pk.m} p={pk.n_outputs} "
+            f"f64 max_abs_err={float(dif.max()):.3e} max_rel_err={rel:.3e} (logdet0 "
+            f"{float((dif[:, 0] / want[:, 0].abs()).max()):.3e}, q "
+            f"{float((dif[:, 1:] / want[:, 1:].abs()).max()):.3e}); f32 vs f64 totals max "
+            f"rel gap {rel32:.3e} (printed, not checked)")
+        check(bool(torch.isfinite(got).all()), f"multi_stats {label}: non-finite kernel output")
+        check(rel <= 1e-9, f"multi_stats {label}: f64 kernel vs plain rel err {rel:.3e} > 1e-9")
+        if label == "full":
+            multi_err = float(dif.max())
+        del arrs, want, got, got32
+
+    # p = 1 against the single-output kernel at sigma2 = 1, nugget = tau2.
+    arrs = vecchia.packed_arrays(full_m, dev)
+    st1 = sbv_multi_stats_cuda(*par(s0, torch.float64), arrs[0], arrs[1][..., :1], arrs[2],
+                               arrs[3], arrs[4][..., :1], arrs[5])
+    ll1 = sbv_loglik_cuda(*par(s0, torch.float64), arrs[0], arrs[1][..., 0].contiguous(),
+                          arrs[2], arrs[3], arrs[4][..., 0].contiguous(), arrs[5])
+    n_b = arrs[2].sum(dim=1).double()
+    ll_st = -0.5 * n_b * vecchia._LOG2PI - 0.5 * st1[:, 0] - 0.5 * st1[:, 1]
+    rel1 = float(((ll_st - ll1).abs() / ll1.abs()).max())
+    log(f"multi_stats p1 vs the single-output kernel: max rel err {rel1:.3e}")
+    check(rel1 <= 1e-12, f"multi_stats p=1 vs single-output kernel rel err {rel1:.3e} > 1e-12")
+
+    # Gradient of the pooled objective: autograd.Function vs the plain version.
+    n_full = full_m.n_points
+
+    def pooled_grad(backend):
+        lv = [t_.clone().requires_grad_(True) for t_ in pm0]
+        ld, q = mo.packed_multi_stats(mo.MultiOutputParams(*lv), full_m, backend=backend,
+                                      arrays=arrs)
+        return torch.autograd.grad(mo.pooled_objective(ld, q, n_full), lv[1:])
+
+    g_k, g_p = pooled_grad("auto"), pooled_grad("ref")
+    g_rel = max(float(((a - b).abs() / b.abs().clamp_min(1e-300)).max()) for a, b in zip(g_k, g_p))
+    log(f"multi gradient at bc={full_m.n_blocks}: max rel err {g_rel:.3e}")
+    check(g_rel <= 1e-8, f"multi gradient rel err {g_rel:.3e} > 1e-8")
+    del arrs, st1, ll1, g_k, g_p
+    torch.cuda.empty_cache()
+
+    # Times at the path's shape: one evaluation of round 0's stats.
+    arrs_m = vecchia.packed_arrays(packed_m, dev)
+    mk_ms = cuda_ms(lambda: sbv_multi_stats_cuda(*par(s0, torch.float64), *arrs_m))
+    mk32_ms = cuda_ms(lambda: sbv_multi_stats_cuda(*par(s0, torch.float32),
+                                                   *cast(arrs_m, torch.float32)))
+    with torch.no_grad():
+        mp_ms = cuda_ms(lambda: sbv_multi_stats_plain(*par(s0, torch.float64), *arrs_m), reps=3)
+    flops, nbytes = multi_work(packed_m)
+    mb_ms, mb_by = bound_ms(flops, nbytes, peaks)
+    per_sm = _build.load("sbv_multi_stats").sbv_multi_stats_ctas_per_sm(
+        packed_m.bs_max, packed_m.m, xm.shape[1], P_OUT, 1)
+    log(f"multi_stats time at bc={packed_m.n_blocks} bs={packed_m.bs_max} m={packed_m.m} "
+        f"p={P_OUT}: kernel f64 {mk_ms:.3f} ms, f32 {mk32_ms:.3f} ms; plain f64 {mp_ms:.3f} ms; "
+        f"bound {mb_ms:.4f} ms ({mb_by}; {flops:.3e} flop, {nbytes:.3e} B); {per_sm} resident "
+        f"CTAs per SM (f64)")
+    results["sbv_multi_stats"] = dict(max_abs_err=multi_err, ms=mk_ms, plain_ms=mp_ms,
+                                      bound_ms=mb_ms, bound_by=mb_by, f32_ms=mk32_ms)
+
+    # 10. One multi step: pooled-objective value and gradient at the full bc.
+    loss_m = mo.multi_profile_neg_loglik_fn(packed_m, 3.5, "auto", device=dev)
+    lv = [t_.clone().requires_grad_(True) for t_ in pm0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mloss0 = loss_m(mo.MultiOutputParams(*lv))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t
+    torch.autograd.grad(mloss0, lv[1:])
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t - t_fwd
+    mloss0 = float(mloss0.detach())
+    with torch.no_grad():
+        ld_p = q_p = 0
+        for s0_ in range(0, packed_m.n_blocks, 500):
+            ld_c, q_c = mo.block_multi_stats(*par(s0, torch.float64),
+                                             *(a[s0_:s0_ + 500] for a in arrs_m))
+            ld_p, q_p = ld_p + ld_c.sum(), q_p + q_c.sum(dim=0)
+        mplain0 = float(mo.pooled_objective(ld_p, q_p, packed_m.n_points))
+    log(f"phase multi step: forward {t_fwd:.3f} s (kernel {mk_ms:.1f} ms), chunked backward "
+        f"{t_bwd:.3f} s (chunk {ops.BACKWARD_CHUNK}); first loss kernel {mloss0:.12f} "
+        f"plain {mplain0:.12f}")
+    check(abs(mloss0 - mplain0) <= 1e-9 * abs(mplain0), "multi first-step loss: kernel vs plain")
+    del arrs_m, loss_m
+    torch.cuda.empty_cache()
+
+    # 11. The multi-output path through the user entry points.
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit_m = fit_sbv(xm_tr, ym_tr, cfg, inner_steps=INNER, outer_rounds=OUTER, device=dev)
+    torch.cuda.synchronize()
+    t_fit_m = time.perf_counter() - t
+    m_losses = [h[2] for h in fit_m.history]
+    s2_fit = fit_m.params.sigma2.detach().cpu().numpy()
+    log(f"phase multi fit: {t_fit_m:.2f} s for {OUTER} rounds x {INNER} steps; losses "
+        f"{m_losses}; profiled sigma2 range [{s2_fit.min():.4g}, {s2_fit.max():.4g}], "
+        f"tau2 {float(fit_m.params.tau2):.4g}")
+    check(len(m_losses) == OUTER * INNER and all(math.isfinite(v) for v in m_losses),
+          "multi fit: missing or non-finite losses")
+    check(abs(m_losses[0] - mloss0) <= 1e-12 * abs(m_losses[0]),
+          "multi fit: first loss differs from the checked first step")
+    check(s2_fit.shape == (P_OUT,) and bool(np.isfinite(s2_fit).all()) and bool((s2_fit > 0).all()),
+          "multi fit: non-finite profiled sigma2")
+
+    t = time.perf_counter()
+    pred_m = tpredict.predict_sbv(fit_m.params, xm_tr, ym_tr, xm_te, bs_pred=BS_PRED,
+                                  m_pred=M_PRED, n_sims=N_SIMS, chunk_size=MULTI_CHUNK, seed=SEED,
+                                  device=dev)
+    torch.cuda.synchronize()
+    t_pred_m = time.perf_counter() - t
+    multi_launches = ops.launch_counts()
+    log(f"phase multi predict: {t_pred_m:.2f} s for {N_MULTI_TEST} points x {P_OUT} outputs in "
+        f"{math.ceil(N_MULTI_TEST / MULTI_CHUNK)} chunks (torch.linalg conditional, as in the "
+        "reference)")
+    log(f"launches on the multi-output path: {multi_launches}")
+    check(multi_launches["sbv_multi_stats"] == OUTER * INNER + 1,
+          f"multi_stats kernel launched {multi_launches['sbv_multi_stats']} times, expected "
+          f"{OUTER * INNER + 1} (steps + final profile)")
+    for f in ("mean", "var", "sim_mean", "ci_low", "ci_high"):
+        a = getattr(pred_m, f)
+        check(a.shape == (N_MULTI_TEST, P_OUT) and bool(np.isfinite(a).all()),
+              f"multi predict: bad {f}")
+    check(bool((pred_m.var > 0).all()), "multi predict: non-positive variance")
+    mspe_j = np.mean((pred_m.mean - ym_te) ** 2, axis=0)
+    var_j = np.var(ym, axis=0)
+    ratio = mspe_j / var_j
+    log(f"multi MSPE_j / var(y_j): max {ratio.max():.4g} (output {int(ratio.argmax())}), "
+        f"median {float(np.median(ratio)):.4g}")
+    check(bool((mspe_j < 0.5 * var_j).all()),
+          f"multi MSPE not below 0.5 var(y_j) for outputs {np.flatnonzero(mspe_j >= 0.5 * var_j)}")
+    # Where the predict time goes: the training index and one chunk's host
+    # packing (host clock) against that chunk's device conditional and
+    # simulation (CUDA events).
+    t = time.perf_counter()
+    index_m = tpredict.build_train_index(xm_tr, ym_tr, fit_m.params.beta.detach().cpu().numpy(),
+                                         M_PRED, seed=SEED)
+    t_index = time.perf_counter() - t
+    t = time.perf_counter()
+    _, chunk_m = next(tpredict.iter_query_chunks(index_m, xm_te, BS_PRED, M_PRED, seed=SEED,
+                                                 chunk_size=MULTI_CHUNK))
+    t_pack = time.perf_counter() - t
+    arrs_p = tuple(torch.as_tensor(a).to(dev) for a in chunk_m.arrays())
+    dev_ms = cuda_ms(lambda: tpredict._predict_and_simulate(fit_m.params, *arrs_p, nu=3.5,
+                                                            backend="auto", n_sims=N_SIMS),
+                     reps=3)
+    log(f"multi predict split: training index {t_index:.2f} s; one chunk (bc={chunk_m.n_blocks}, "
+        f"bs={chunk_m.bs_pred}, m={chunk_m.m_pred}): host packing {t_pack:.2f} s, device "
+        f"conditional + {N_SIMS} simulations {dev_ms:.1f} ms")
+    del pred_m, fit_m, arrs_p
+    torch.cuda.empty_cache()
+
+    # 12. The batched covariance kernel, on the joint points of 256 real
+    # blocks of the multi-output structure (na = nb = m + bs_max).
+    xj = torch.as_tensor(np.concatenate([full_m.nn_x, full_m.blk_x], axis=1), device=dev)
+    kp = KernelParams.create(sigma2=1.0, beta=0.5, nugget=1e-3, d=xj.shape[2], device=dev)
+    cov_err = None
+    for label, (xa, xb) in (("full", (xj, xj)), ("ragged", (xj[:, :37], xj[:, 37:98]))):
+        want = matern_cov_plain(xa, xb, kp.beta, kp.sigma2)
+        got = matern_cov_cuda(xa, xb, kp.beta, kp.sigma2)
+        got32 = matern_cov_cuda(xa.float(), xb.float(), kp.beta, kp.sigma2)
+        torch.cuda.synchronize()
+        dif = (got - want).abs()
+        rel = float((dif / want.abs()).max())
+        err32 = float((got32.double() - want).abs().max())
+        log(f"matern_cov {label}: B={xa.shape[0]} na={xa.shape[1]} nb={xb.shape[1]} "
+            f"d={xa.shape[2]} f64 max_abs_err={float(dif.max()):.3e} max_rel_err={rel:.3e}; "
+            f"f32 max_abs_err={err32:.3e}")
+        check(rel <= 1e-12, f"matern_cov {label}: f64 kernel vs plain rel err {rel:.3e} > 1e-12")
+        check(err32 <= 1e-5, f"matern_cov {label}: f32 kernel vs f64 err {err32:.3e} > 1e-5")
+        if label == "full":
+            cov_err = float(dif.max())
+        del want, got, got32
+    ck_ms = cuda_ms(lambda: matern_cov_cuda(xj, xj, kp.beta, kp.sigma2))
+    ck32_ms = cuda_ms(lambda: matern_cov_cuda(xj.float(), xj.float(), kp.beta, kp.sigma2))
+    cp_ms = cuda_ms(lambda: matern_cov_plain(xj, xj, kp.beta, kp.sigma2), reps=3)
+    flops, nbytes = cov_work(xj.shape[0], xj.shape[1], xj.shape[1], xj.shape[2], 8)
+    cb_ms, cb_by = bound_ms(flops, nbytes, peaks)
+    log(f"matern_cov time at B={xj.shape[0]} na=nb={xj.shape[1]}: kernel f64 {ck_ms:.3f} ms, "
+        f"f32 {ck32_ms:.3f} ms; plain f64 {cp_ms:.3f} ms; bound {cb_ms:.4f} ms ({cb_by}; "
+        f"{flops:.3e} flop, {nbytes:.3e} B)")
+    results["matern_cov"] = dict(max_abs_err=cov_err, ms=ck_ms, plain_ms=cp_ms, bound_ms=cb_ms,
+                                 bound_by=cb_by, f32_ms=ck32_ms)
+    # Its path: the public entry point, once.
+    ops.reset_launch_counts()
+    cov = ops.matern_cov(xj, xj, kp)
+    torch.cuda.synchronize()
+    cov_launches = ops.launch_counts()
+    log(f"launches on the matern_cov path (ops.matern_cov): {cov_launches}")
+    check(cov_launches["matern_cov"] == 1 and cov.shape == (xj.shape[0],) + (xj.shape[1],) * 2
+          and bool(torch.isfinite(cov).all()), "matern_cov path: no launch or bad output")
+    del cov, xj
 
     kernels = []
-    for kname, src, replaces in (
+    for kname, src, replaces, count in (
             ("sbv_loglik", "src/repro_torch/csrc/sbv_loglik.cu",
-             "src/repro/kernels/sbv_loglik.py:289"),
+             "src/repro/kernels/sbv_loglik.py:289", launches),
             ("sbv_predict", "src/repro_torch/csrc/sbv_predict.cu",
-             "src/repro/kernels/sbv_predict.py:82")):
+             "src/repro/kernels/sbv_predict.py:82", launches),
+            ("sbv_multi_stats", "src/repro_torch/csrc/sbv_multi_stats.cu",
+             "src/repro/kernels/sbv_loglik.py:247", multi_launches),
+            ("matern_cov", "src/repro_torch/csrc/matern_cov.cu",
+             "src/repro/kernels/matern_cov.py:49", cov_launches)):
         r = results[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": launches[kname], "max_abs_err": r["max_abs_err"],
+                        "launches": count[kname], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": None})
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,6 @@
 """Block prediction with conditional simulation (paper Eq. 3 + §5.1.5).
 
-Counterpart of ``repro.core.predict`` for the in-core, single-output,
-uniform layout:
+Counterpart of ``repro.core.predict`` for the in-core, uniform layout:
 
     pack    -- test points are clustered into prediction blocks (bs_pred);
                each block conditions on its m_pred nearest TRAINING points
@@ -11,6 +10,12 @@ uniform layout:
                version on the CPU), then the per-point simulation draws
                (paper §5.1.5: n_sims samples of N(mu_j, sigma_j^2)).
     scatter -- padded per-block results land back in test-point order.
+
+Multi-output (an (n, p) training ``y``, ``MultiOutputParams``): one
+training index and one Cholesky of the shared unit-variance conditioning
+covariance per block serve all p outputs, through ``torch.linalg`` (cuSOLVER
+on the GPU) as in the reference, where the fused predict kernels stay
+single-output. An (n, 1) ``y`` squeezes to the single-output path.
 
 The reference draws its simulation noise from ``jax.random``; that stream
 cannot be reproduced here, so ``predict_sbv`` takes an injected ``eps`` for
@@ -28,6 +33,7 @@ from repro_torch.device import resolve_device
 
 from .blocks import BlockStructure, build_blocks, scale_inputs
 from .kernels_math import KernelParams, cast_params
+from .multioutput import MultiOutputParams, as_multi_params
 from .nns import _FlatBlocks, filtered_knn_points
 from .packing import PackedPrediction, pack_prediction, round_up
 from .vecchia import _cholesky, _masked_cov, _solve_lower
@@ -145,14 +151,44 @@ def block_predict(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask, nu: fl
     return mu, torch.clamp(var, min=1e-12)
 
 
-def batched_block_predict(params: KernelParams, q_x, q_mask, nn_x, nn_y, nn_mask,
-                          nu: float = 3.5, backend: str = "auto"):
+def block_predict_multi(beta, tau2, sigma2, q_x, q_mask, nn_x, nn_y, nn_mask,
+                        nu: float = 3.5):
+    """Batched multi-output block conditional: ``(mu, var)``, each (bc, bs, p).
+
+    The counterpart of the reference's vmapped ``_predict_multi_one``. One
+    Cholesky of the shared unit-variance conditioning covariance serves all
+    outputs: the mean is sigma2-free, so the p means are extra solve
+    columns of ``nn_y`` (bc, m, p); the variance scales the shared
+    unit-variance conditional by each output's ``sigma2`` (p,)."""
+    q_mask = q_mask.bool()
+    nn_mask = nn_mask.bool()
+    one = torch.ones((), dtype=nn_y.dtype, device=nn_y.device)
+    sigma_con = _masked_cov(nn_x, nn_x, nn_mask, nn_mask, beta, one, tau2, nu, identity=True)
+    sigma_cross = _masked_cov(nn_x, q_x, nn_mask, q_mask, beta, one, tau2, nu, identity=False)
+    ynn = torch.where(nn_mask[..., None], nn_y, torch.zeros((), dtype=nn_y.dtype,
+                                                             device=nn_y.device))
+    chol = _cholesky(sigma_con)
+    a = _solve_lower(chol, sigma_cross)                  # (bc, m, bs)
+    z = _solve_lower(chol, ynn)                          # (bc, m, p)
+    mu = a.transpose(-1, -2) @ z                         # (bc, bs, p)
+    var0 = (1.0 + tau2) - torch.sum(a * a, dim=-2)       # (bc, bs)
+    return mu, torch.clamp(var0[..., None] * sigma2, min=1e-12)
+
+
+def batched_block_predict(params: KernelParams | MultiOutputParams, q_x, q_mask, nn_x, nn_y,
+                          nn_mask, nu: float = 3.5, backend: str = "auto"):
     """Conditional mean/variance of every prediction block: (bc, bs) each.
     Padded query slots carry mu=0 / var=prior; drop them with the mask.
 
     ``auto`` runs the fused kernel on CUDA tensors and the plain version
     on CPU tensors (``kernels.ops.sbv_predict``); ``ref`` runs the plain
-    version directly (differentiable)."""
+    version directly (differentiable). ``MultiOutputParams`` with
+    (bc, m, p) ``nn_y`` take the shared-Cholesky multi-output conditional
+    under every backend and give (bc, bs, p) each."""
+    if isinstance(params, MultiOutputParams):
+        p = MultiOutputParams(*(a.to(nn_y.dtype) for a in params))
+        return block_predict_multi(p.beta, p.tau2, p.sigma2, q_x, q_mask, nn_x, nn_y, nn_mask,
+                                   nu=nu)
     if backend == "auto":
         from repro_torch.kernels import ops
 
@@ -168,7 +204,7 @@ def _predict_and_simulate(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float, b
                           n_sims: int, eps=None, generator: torch.Generator | None = None):
     """Per-chunk math: block conditionals + conditional simulation.
 
-    ``eps`` (n_sims, bc, bs) is the standard-normal noise; when it is None
+    ``eps`` (n_sims, bc, bs[, p]) is the standard-normal noise; when it is None
     it is drawn from ``generator`` on the device of the operands."""
     mu, var = batched_block_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu=nu,
                                     backend=backend)
@@ -192,7 +228,7 @@ def _chunk_generator(seed: int, chunk_id: int, device: torch.device) -> torch.Ge
 
 
 def predict_sbv(
-    params: KernelParams,
+    params: KernelParams | MultiOutputParams,
     x_train: np.ndarray,
     y_train: np.ndarray,
     x_test: np.ndarray,
@@ -221,39 +257,55 @@ def predict_sbv(
     ``device='cpu'``). ``beta_struct`` overrides the scaling used for
     clustering/NNS only. ``chunk_size`` streams the test set through
     fixed-shape chunks so device memory stays bounded. ``eps``, when given,
-    is a callable ``eps(chunk_id, shape)`` returning the (n_sims, bc, bs)
+    is a callable ``eps(chunk_id, shape)`` returning the (n_sims, bc, bs[, p])
     standard-normal draws of that chunk (tests inject the reference's
     draws); otherwise each chunk draws from its own device generator.
 
+    An (n, p) ``y_train`` predicts all p outputs from one training index
+    with ``MultiOutputParams`` (a ``KernelParams`` is broadcast over the
+    outputs); every result is then (n_test, p). An (n, 1) ``y_train`` runs
+    the single-output path and returns (n_test, 1) results.
+
     Bucketed layouts, streaming indexes, the precision ladder, tuning
-    records, multi-host sharding and multi-output observations are not
-    ported yet and raise ``NotImplementedError``."""
+    records and multi-host sharding are not ported yet and raise
+    ``NotImplementedError``."""
     for name, val in (("n_buckets", n_buckets), ("stream_chunk", stream_chunk),
                       ("precision", precision), ("tuning", tuning),
                       ("multihost", multihost)):
         if val is not None:
             raise NotImplementedError(f"predict_sbv({name}=) is not ported yet")
     y_train = np.asarray(y_train)
-    if y_train.ndim != 1:
-        raise NotImplementedError("multi-output prediction is not ported yet")
+    n_outputs = 1
+    squeeze_back = y_train.ndim == 2 and y_train.shape[1] == 1
+    if squeeze_back:
+        y_train = y_train[:, 0]
+    elif y_train.ndim == 2:
+        n_outputs = y_train.shape[1]
     dev = resolve_device(device)
-    params = KernelParams(*(torch.as_tensor(a).to(dev) for a in params))
+    params = type(params)(*(torch.as_tensor(a).to(dev) for a in params))
+    if n_outputs > 1:
+        params = as_multi_params(params, n_outputs, params.log_beta.shape[0])
+    elif isinstance(params, MultiOutputParams):
+        params = params.output_params(0)
     beta = params.beta.detach().cpu().numpy() if beta_struct is None else beta_struct
     x_test = np.asarray(x_test, dtype=np.float64)
     n_test = x_test.shape[0]
     index = build_train_index(x_train, y_train, np.asarray(beta), m_pred, n_workers, seed)
 
-    mean, var, sim_mean, sim_std = (np.zeros(n_test) for _ in range(4))
+    out_shape = (n_test,) if n_outputs == 1 else (n_test, n_outputs)
+    mean, var, sim_mean, sim_std = (np.zeros(out_shape) for _ in range(4))
     for ci, packed in iter_query_chunks(index, x_test, bs_pred, m_pred, alpha=alpha,
                                         seed=seed, n_workers=n_workers,
                                         chunk_size=chunk_size, dtype=dtype):
         arrs = tuple(torch.as_tensor(a).to(dev) for a in packed.arrays())
-        shape = (n_sims,) + packed.q_mask.shape
+        shape = (n_sims,) + packed.q_mask.shape + out_shape[1:]
         eps_c = None if eps is None else eps(ci, shape)
         gen = None if eps_c is not None else _chunk_generator(seed, ci, dev)
         mu_b, var_b, sm_b, ss_b = _predict_and_simulate(
             params, *arrs, nu=nu, backend=backend, n_sims=n_sims, eps=eps_c, generator=gen)
         scatter_packed(packed, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
                        (ss_b, sim_std))
+    if squeeze_back:
+        mean, var, sim_mean, sim_std = (a[:, None] for a in (mean, var, sim_mean, sim_std))
     return Prediction(mean=mean, var=var, sim_mean=sim_mean,
                       ci_low=sim_mean - Z975 * sim_std, ci_high=sim_mean + Z975 * sim_std)

@@ -34,7 +34,13 @@ _LOG2PI = math.log(2.0 * math.pi)
 def _masked_cov(xa, xb, mask_a, mask_b, beta, sigma2, nugget, nu, *, identity: bool):
     """Batched covariance (..., na, nb) with masked rows/cols zeroed;
     optionally unit diagonal on padded entries (only valid when xa is xb
-    and the masks coincide)."""
+    and the masks coincide).
+
+    With ``identity`` a point's distance to itself is exactly 0, as in the
+    CUDA kernels; the matmul form below rounds it to ~1e-16, which the
+    nu = 0.5 kernel exp(-r) does not forgive (sqrt lifts it to r ~ 1e-8).
+    The diagonal is replaced by ``torch.where``, so its gradient is 0 and
+    never 0 * inf."""
     za = xa / beta
     zb = xb / beta
     d2 = (
@@ -43,6 +49,9 @@ def _masked_cov(xa, xb, mask_a, mask_b, beta, sigma2, nugget, nu, *, identity: b
         - 2.0 * za @ zb.transpose(-1, -2)
     )
     d2 = torch.clamp(d2, min=0.0)
+    if identity:
+        diag = torch.eye(xa.shape[-2], dtype=torch.bool, device=d2.device)
+        d2 = torch.where(diag, torch.zeros((), dtype=d2.dtype, device=d2.device), d2)
     # The sqrt-at-zero gradient guard must not underflow to 0.0 in the
     # dtype computing (1e-300 does in f32, giving 0 * inf = NaN).
     eps = 1e-300 if d2.dtype == torch.float64 else 1e-30

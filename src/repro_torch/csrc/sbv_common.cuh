@@ -4,19 +4,21 @@
 // covariance PANEL held in a device-memory scratch slice owned by the CTA:
 //
 //     rows    0 .. m-1      the m conditioning neighbours
-//     rows    m .. m+bs-1   the bs block (or query) points
-//     row     m+bs          the observations y (masked), as one extra row
+//     rows    m .. P-1      the bs block (or query) points, P = m + bs
+//     rows    P .. N-1      the observations (masked), one extra row per
+//                           output: N = P + 1, or P + p for p outputs
 //
-// stored column-major with leading dimension N = m + bs + 1. Only the lower
-// triangle (row >= column) of the first `ncols` columns is formed. A
-// right-looking Cholesky over those columns then yields, in place,
+// stored column-major with leading dimension N. Only the lower triangle
+// (row >= column) of the first `ncols` columns is formed. A right-looking
+// Cholesky over those columns then yields, in place,
 //   * the factor of K(NN, NN) in columns < m,
-//   * A^T = (L^-1 K(NN, B))^T in rows m..m+bs-1 of columns < m,
-//   * z^T = (L^-1 y_NN)^T in the last row of columns < m,
-// and, when ncols = m + bs (likelihood), the factor of the Schur complement
-// K(B, B) - A^T A in the block rows and v = L'^-1 (y_B - mu) in the last row.
-// That is the Pallas kernels' chain chol -> joint solve -> Schur -> chol ->
-// solve, done as one elimination over the joint matrix.
+//   * A^T = (L^-1 K(NN, B))^T in rows m..P-1 of columns < m,
+//   * z^T = (L^-1 y_NN)^T in each observation row of columns < m,
+// and, when ncols = P (likelihood, multi-output stats), the factor of the
+// Schur complement K(B, B) - A^T A in the block rows and
+// v = L'^-1 (y_B - mu) in each observation row. That is the Pallas kernels'
+// chain chol -> joint solve -> Schur -> chol -> solve, done as one
+// elimination over the joint matrix.
 //
 // Identity padding: a masked point has zero covariance with every other
 // point, a unit diagonal and y = 0, so it factors as the identity with no
@@ -68,7 +70,9 @@ struct Smem {
 
 // Load the two point sets of one block: set 0 (n0 points) then set 1
 // (n1 points). Coordinates are scaled by beta, transposed into zt (d x P);
-// masks and masked observations go to msk / ys (ys1 may be null: zeros).
+// masks go to msk and masked single-output observations to ys (y1 may be
+// null: zeros). With ys null no observation is staged: a multi-output
+// kernel reads its p observation rows from device memory in `assemble`.
 template <typename T>
 __device__ void load_points(const T* __restrict__ x0, const T* __restrict__ m0,
                             const T* __restrict__ y0, int n0,
@@ -83,9 +87,11 @@ __device__ void load_points(const T* __restrict__ x0, const T* __restrict__ m0,
   }
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     T mk = i < n0 ? m0[i] : m1[i - n0];
-    T y = i < n0 ? y0[i] : (y1 ? y1[i - n0] : T(0));
     msk[i] = mk;
-    ys[i] = y * mk;
+    if (ys) {
+      T y = i < n0 ? y0[i] : (y1 ? y1[i - n0] : T(0));
+      ys[i] = y * mk;
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
@@ -96,18 +102,19 @@ __device__ void load_points(const T* __restrict__ x0, const T* __restrict__ m0,
   __syncthreads();
 }
 
-// Form the lower triangle of the first ncols columns of the augmented panel.
-template <typename T>
-__device__ void assemble(T* __restrict__ A, int N, int ncols, int d, const T* zt,
-                         const T* nrm, const T* msk, const T* ys, T sigma2, T nugget,
+// Form the lower triangle of the first ncols columns of the augmented panel:
+// the covariance of the P points in rows < P, and in row P + r, column j,
+// the value obs(r, j) of observation row r at point j (masked by the caller).
+template <typename T, typename Obs>
+__device__ void assemble(T* __restrict__ A, int N, int P, int ncols, int d, const T* zt,
+                         const T* nrm, const T* msk, Obs obs, T sigma2, T nugget,
                          int nu_code) {
-  const int P = N - 1;
   for (int e = threadIdx.x; e < N * ncols; e += blockDim.x) {
     int i = e % N, j = e / N;
     if (i < j) continue;
     T v;
-    if (i == P) {
-      v = ys[j];
+    if (i >= P) {
+      v = obs(i - P, j);
     } else {
       T dot = T(0);
       for (int k = 0; k < d; ++k) dot += zt[k * P + i] * zt[k * P + j];

@@ -51,7 +51,8 @@ sbv_loglik_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
     sbv::load_points<T>(nn_x + (size_t)b * m * d, nn_m + (size_t)b * m, nn_y + (size_t)b * m, m,
                         blk_x + (size_t)b * bs * d, blk_m + (size_t)b * bs,
                         blk_y + (size_t)b * bs, bs, d, beta_s, work, nrm, msk, ys);
-    sbv::assemble<T>(A, N, P, d, work, nrm, msk, ys, sigma2, nugget, nu_code);
+    sbv::assemble<T>(A, N, P, P, d, work, nrm, msk,
+                     [=](int, int j) { return ys[j]; }, sigma2, nugget, nu_code);
     sbv::panel_cholesky<T>(A, N, P, work, T(1e-30));
 
     T logdet = T(0), quad = T(0), n_real = T(0);

@@ -49,7 +49,8 @@ sbv_predict_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
     sbv::load_points<T>(nn_x + (size_t)b * m * d, nn_m + (size_t)b * m, nn_y + (size_t)b * m, m,
                         q_x + (size_t)b * bs * d, q_m + (size_t)b * bs, nullptr, bs, d, beta_s,
                         work, nrm, msk, ys);
-    sbv::assemble<T>(A, N, m, d, work, nrm, msk, ys, sigma2, nugget, nu_code);
+    sbv::assemble<T>(A, N, P, m, d, work, nrm, msk,
+                     [=](int, int j) { return ys[j]; }, sigma2, nugget, nu_code);
     sbv::panel_cholesky<T>(A, N, m, work, T(1e-30));
 
     // Row m + t of the factored panel is A[:, t]^T, row P is z^T.

@@ -1,10 +1,15 @@
-"""Synthetic anisotropic GP draws of the paper's §6.1 experiments.
+"""Dataset generators of the paper's three experiment families.
 
-Counterpart of the synthetic part of ``repro.data.gp_sim``, numpy-seeded
-the same way: exact Cholesky draws for small n, random-Fourier-feature
-(RFF) draws for large n. The Matérn spectral density is a multivariate
-Student-t with 2*nu dof, so RFF frequencies are z / sqrt(g),
-z ~ N(0, I_d), g ~ Gamma(nu, 1/nu), scaled dimension-wise by 1/beta.
+Counterpart of ``repro.data.gp_sim``, numpy-seeded the same way:
+
+* synthetic anisotropic GP draws (§6.1): exact Cholesky draws for small n,
+  random-Fourier-feature (RFF) draws for large n. The Matérn spectral
+  density is a multivariate Student-t with 2*nu dof, so RFF frequencies are
+  z / sqrt(g), z ~ N(0, I_d), g ~ Gamma(nu, 1/nu), scaled dimension-wise
+  by 1/beta;
+* the satellite-drag-like surrogate (§6.2);
+* the MetaRVM-like compartmental simulator (§6.3) and its multi-output
+  trajectory form, bitwise the reference's arrays.
 """
 from __future__ import annotations
 
@@ -85,3 +90,148 @@ def paper_synthetic_chunks(seed: int, n: int, d: int = 10, gen_rows: int = 65536
         y = y + np.sqrt(nugget) * rng.standard_normal(k)
         yield x, y
         done += k
+
+
+def satellite_drag_like(seed: int, n: int):
+    """8-d drag-coefficient surrogate: smooth, anisotropic, 3 dominant dims
+    (the paper's Fig. 6 finding that the last 3 dims dominate)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, 8))
+    vel, t_srf, t_atm, yaw, pitch, acc1, acc2, extra = [x[:, i] for i in range(8)]
+    y = (
+        2.2
+        + 1.5 * np.cos(np.pi * pitch) ** 2
+        + 1.2 * acc1 * (1.0 - 0.5 * acc2)
+        + 0.8 * np.exp(-2.0 * (acc2 - 0.5) ** 2)
+        + 0.08 * np.sin(2 * np.pi * yaw)
+        + 0.05 * vel * t_atm
+        + 0.02 * t_srf
+        + 0.0 * extra
+    )
+    y = y + 0.01 * rng.standard_normal(n)
+    return x, y
+
+
+# The MetaRVM-like simulator of paper §6.3: Table-4 parameter bounds.
+METARVM_BOUNDS = {
+    "ts": (0.1, 0.9), "tv": (0.1, 0.9), "dv": (30.0, 90.0), "de": (1.0, 5.0),
+    "dp": (1.0, 3.0), "da": (1.0, 9.0), "ds": (1.0, 9.0), "dh": (1.0, 5.0),
+    "dr": (30.0, 90.0), "ve": (0.3, 0.8),
+}
+
+
+def metarvm_sample_inputs(seed: int, n: int) -> np.ndarray:
+    """Uniform draws inside the Table-4 bounds, columns in Table-4 order."""
+    rng = np.random.default_rng(seed)
+    lo = np.array([b[0] for b in METARVM_BOUNDS.values()])
+    hi = np.array([b[1] for b in METARVM_BOUNDS.values()])
+    return lo + (hi - lo) * rng.uniform(size=(n, 10))
+
+
+def _metarvm_run(th: np.ndarray, snap_days: np.ndarray) -> np.ndarray:
+    """Accumulated hospital admissions (n, len(snap_days)) after each
+    snapshot day, from ONE daily sweep of the compartmental model.
+
+    A run stopped at day k has taken exactly the first k steps of a longer
+    run, so every column is bitwise what a separate run of k days gives."""
+    ts, tv, dv, de, dp, da, ds, dh, dr, ve = [th[:, i] for i in range(10)]
+    nb = th.shape[0]
+
+    contact = 0.55      # fixed daily contact rate
+    p_asym = 0.4        # P -> A split
+    p_hosp = 0.12       # I -> H split
+    vax_rate = 0.01     # S -> V per day
+
+    s = np.full(nb, 0.989)
+    v = np.zeros(nb)
+    e = np.full(nb, 0.001)
+    p = np.zeros(nb)
+    a = np.zeros(nb)
+    i_ = np.full(nb, 0.01)
+    h = np.zeros(nb)
+    r = np.zeros(nb)
+    cum_h = np.zeros(nb)
+    out = np.zeros((nb, len(snap_days)))
+
+    for day in range(1, int(np.max(snap_days, initial=0)) + 1):
+        infectious = p + a + i_
+        foi_s = 1.0 - np.exp(-contact * ts * infectious)
+        foi_v = 1.0 - np.exp(-contact * tv * (1.0 - ve) * infectious)
+        new_e = s * foi_s + v * foi_v
+        e_out = e / de
+        p_out = p / dp
+        a_out = a / da
+        i_out = i_ / ds
+        h_out = h / dh
+        r_out = r / dr
+        v_wane = v / dv
+        new_v = vax_rate * s
+        new_h = p_hosp * i_out
+
+        s = s - s * foi_s - new_v + r_out + v_wane
+        v = v + new_v - v * foi_v - v_wane
+        e = e + new_e - e_out
+        p = p + e_out - p_out
+        a = a + p_asym * p_out - a_out
+        i_ = i_ + (1.0 - p_asym) * p_out - i_out
+        h = h + new_h - h_out
+        r = r + a_out + (1.0 - p_hosp) * i_out + h_out - r_out
+        cum_h = cum_h + new_h
+        hit = snap_days == day
+        if hit.any():
+            out[:, hit] = cum_h[:, None]
+    return out
+
+
+def metarvm_simulate(theta: np.ndarray, days: int = 100) -> np.ndarray:
+    """Deterministic compartmental respiratory-virus model (vectorized).
+
+    Compartments (fractions of one population): S susceptible, V vaccinated,
+    E exposed, P infectious presymptomatic, A infectious asymptomatic,
+    I infectious symptomatic, H hospitalized, R recovered.
+    Output: accumulated hospital admissions over ``days``.
+    """
+    th = np.atleast_2d(np.asarray(theta, dtype=np.float64))
+    cum_h = _metarvm_run(th, np.array([days]))[:, 0]
+    return cum_h if theta.ndim > 1 else cum_h[0]
+
+
+def metarvm_dataset(seed: int, n: int, normalize: bool = True):
+    """(X in [0,1]^10, y) pairs per paper §6.3 (inputs scaled to the unit
+    cube, output normalized to mean 1)."""
+    theta = metarvm_sample_inputs(seed, n)
+    y = metarvm_simulate(theta)
+    lo = np.array([b[0] for b in METARVM_BOUNDS.values()])
+    hi = np.array([b[1] for b in METARVM_BOUNDS.values()])
+    x01 = (theta - lo) / (hi - lo)
+    if normalize:
+        y = y / max(y.mean(), 1e-12)
+    return x01, y
+
+
+def metarvm_field_simulate(theta: np.ndarray, p: int, days: int = 100) -> np.ndarray:
+    """The epidemic trajectory: accumulated hospital admissions at ``p``
+    evenly spaced days, (n, p). Column j is the total through day
+    ``round((j+1) * days / p)``; the last column is exactly
+    ``metarvm_simulate(theta, days)``."""
+    if p < 1:
+        raise ValueError(f"need p >= 1 output snapshots, got {p}")
+    th = np.atleast_2d(np.asarray(theta, dtype=np.float64))
+    snap_days = np.rint(np.arange(1, p + 1) * days / p).astype(int)
+    snap_days[-1] = days
+    return _metarvm_run(th, snap_days)
+
+
+def metarvm_field_dataset(seed: int, n: int, p: int, days: int = 100,
+                          normalize: bool = True):
+    """Multi-output MetaRVM: (X in [0,1]^10, Y (n, p)), each column
+    normalized to mean 1 (the per-output scale is what the multi-output
+    per-output sigma2 absorbs)."""
+    theta = metarvm_sample_inputs(seed, n)
+    y = metarvm_field_simulate(theta, p, days=days)
+    lo = np.array([b[0] for b in METARVM_BOUNDS.values()])
+    hi = np.array([b[1] for b in METARVM_BOUNDS.values()])
+    x01 = (theta - lo) / (hi - lo)
+    if normalize:
+        y = y / np.maximum(y.mean(axis=0), 1e-12)
+    return x01, y

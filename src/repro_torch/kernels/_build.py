@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("sbv_loglik", "sbv_predict")
+KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -103,6 +103,18 @@ _SIGNATURES = {
         "sbv_predict_scratch_per_cta": (_LL, [_I, _I]),
         "sbv_predict_smem_bytes": (_LL, [_I, _I, _I, _I]),
         "sbv_predict_ctas_per_sm": (_I, [_I, _I, _I, _I]),
+    },
+    "sbv_multi_stats": {
+        "sbv_multi_stats_f64": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
+        "sbv_multi_stats_f32": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
+        "sbv_multi_stats_scratch_per_cta": (_LL, [_I, _I, _I]),
+        "sbv_multi_stats_smem_bytes": (_LL, [_I] * 5),
+        "sbv_multi_stats_ctas_per_sm": (_I, [_I] * 5),
+    },
+    "matern_cov": {
+        "matern_cov_f64": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
+        "matern_cov_f32": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
+        "matern_cov_smem_bytes": (_LL, [_I, _I]),
     },
 }
 

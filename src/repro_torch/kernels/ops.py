@@ -1,13 +1,14 @@
 """Public wrappers around the fused kernels.
 
-``sbv_loglik`` is differentiable: the forward pass runs the fused kernel
-(the plain version on CPU tensors); the backward pass recomputes the plain
-version under autograd and scales by the incoming cotangent, as the
-reference's ``custom_vjp`` does (src/repro/kernels/ops.py). Unlike the
-reference, the backward pass runs in chunks of blocks: autograd through
-the plain version keeps about a dozen (bc, ., .) tensors alive, which at
-the paper's per-GPU sizes outgrows device memory. The loss is a sum over
-independent blocks, so the chunked gradient equals the unchunked one.
+``sbv_loglik`` and ``sbv_multi_stats`` are differentiable: the forward pass
+runs the fused kernel (the plain version on CPU tensors); the backward pass
+recomputes the plain version under autograd and contracts it with the
+incoming cotangents, as the reference's ``custom_vjp``s do
+(src/repro/kernels/ops.py). Unlike the reference, the backward pass runs in
+chunks of blocks: autograd through the plain version keeps about a dozen
+(bc, ., .) tensors alive, which at the paper's per-GPU sizes outgrows
+device memory. Both outputs are sums over independent blocks, so the
+chunked gradient equals the unchunked one.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import torch
 from repro_torch.core.kernels_math import KernelParams
 
 from . import _build
+from .matern_cov import matern_cov_blocks
 from .sbv_loglik import sbv_loglik_blocks, sbv_loglik_plain
+from .sbv_multi_stats import sbv_multi_stats_blocks, sbv_multi_stats_plain
 from .sbv_predict import sbv_predict_blocks
 
 # Blocks recomputed per backward chunk: at m = 200, bs ~ 290 in f64 a block
@@ -32,6 +35,39 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _build.LAUNCHES:
         _build.LAUNCHES[k] = 0
+
+
+def _chunked_vjp(per_block_fn, cotangent, params, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                 nn_mask, need, chunk: int):
+    """Gradients of ``sum(cotangent * per_block_fn(...))`` in chunks of
+    ``chunk`` blocks: ``(g_log_sigma2, g_log_beta, g_log_nugget, g_blk_y,
+    g_nn_y)``, the observation gradients only where ``need`` asks. Each
+    chunk recomputes the plain version under autograd and frees it."""
+    acc = blk_y.dtype
+    leaves = [t.detach().requires_grad_(True) for t in params]
+    gp = [torch.zeros_like(t) for t in leaves]
+    g_by = torch.zeros_like(blk_y) if need[0] else None
+    g_ny = torch.zeros_like(nn_y) if need[1] else None
+    bc = blk_x.shape[0]
+    for s in range(0, bc, chunk):
+        sl = slice(s, min(bc, s + chunk))
+        by = blk_y[sl].detach().requires_grad_(need[0])
+        ny = nn_y[sl].detach().requires_grad_(need[1])
+        with torch.enable_grad():
+            out = per_block_fn(torch.exp(leaves[1]).to(acc), torch.exp(leaves[0]).to(acc),
+                               torch.exp(leaves[2]).to(acc), blk_x[sl], by, blk_mask[sl],
+                               nn_x[sl], ny, nn_mask[sl])
+            total = torch.sum(out * cotangent)
+            wrt = leaves + [t for t in (by, ny) if t.requires_grad]
+            grads = torch.autograd.grad(total, wrt)
+        for acc_g, gi in zip(gp, grads[:3]):
+            acc_g += gi
+        rest = list(grads[3:])
+        if need[0]:
+            g_by[sl] = rest.pop(0)
+        if need[1]:
+            g_ny[sl] = rest.pop(0)
+    return gp[0], gp[1], gp[2], g_by, g_ny
 
 
 class _SbvLoglik(torch.autograd.Function):
@@ -51,33 +87,40 @@ class _SbvLoglik(torch.autograd.Function):
     def backward(ctx, g):
         ls2, lb, ln, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask = ctx.saved_tensors
         need = ctx.needs_input_grad
+        plain = lambda *a: sbv_loglik_plain(*a, nu=ctx.nu)
+        g_s2, g_b, g_n, g_by, g_ny = _chunked_vjp(
+            plain, g.to(blk_y.dtype), (ls2, lb, ln), blk_x, blk_y, blk_mask, nn_x, nn_y,
+            nn_mask, (need[4], need[7]), ctx.chunk)
+        return (g_s2, g_b, g_n, None, g_by, None, None, g_ny, None, None, None)
+
+
+class _SbvMultiStats(torch.autograd.Function):
+    """(logdet0, q0 (p,)) of the unit-variance multi-output stats."""
+
+    @staticmethod
+    def forward(ctx, log_sigma2, log_beta, log_nugget, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                nn_mask, nu, chunk):
         acc = blk_y.dtype
-        leaves = [t.detach().requires_grad_(True) for t in (ls2, lb, ln)]
-        gp = [torch.zeros_like(t) for t in leaves]
-        g_by = torch.zeros_like(blk_y) if need[4] else None
-        g_ny = torch.zeros_like(nn_y) if need[7] else None
-        bc = blk_x.shape[0]
-        for s in range(0, bc, ctx.chunk):
-            sl = slice(s, min(bc, s + ctx.chunk))
-            by = blk_y[sl].detach().requires_grad_(need[4])
-            ny = nn_y[sl].detach().requires_grad_(need[7])
-            with torch.enable_grad():
-                ll = sbv_loglik_plain(
-                    torch.exp(leaves[1]).to(acc), torch.exp(leaves[0]).to(acc),
-                    torch.exp(leaves[2]).to(acc), blk_x[sl], by, blk_mask[sl], nn_x[sl], ny,
-                    nn_mask[sl], nu=ctx.nu).sum()
-                wrt = leaves + [t for t in (by, ny) if t.requires_grad]
-                grads = torch.autograd.grad(ll, wrt)
-            for acc_g, gi in zip(gp, grads[:3]):
-                acc_g += gi
-            rest = list(grads[3:])
-            if need[4]:
-                g_by[sl] = rest.pop(0)
-            if need[7]:
-                g_ny[sl] = rest.pop(0)
-        scale = lambda t: None if t is None else t * g
-        return (scale(gp[0]), scale(gp[1]), scale(gp[2]), None, scale(g_by), None, None,
-                scale(g_ny), None, None, None)
+        per_block = sbv_multi_stats_blocks(
+            torch.exp(log_beta).to(acc), torch.exp(log_sigma2).to(acc),
+            torch.exp(log_nugget).to(acc), blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask, nu=nu)
+        ctx.save_for_backward(log_sigma2, log_beta, log_nugget, blk_x, blk_y, blk_mask,
+                              nn_x, nn_y, nn_mask)
+        ctx.nu, ctx.chunk = nu, chunk
+        return per_block[:, 0].sum(), per_block[:, 1:].sum(dim=0)
+
+    @staticmethod
+    def backward(ctx, g_ld, g_q):
+        ls2, lb, ln, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        acc = blk_y.dtype
+        # Per block [logdet0, q_1 .. q_p] against the cotangent row [g_ld, g_q].
+        cot = torch.cat([g_ld.reshape(1), g_q.reshape(-1)]).to(acc)
+        plain = lambda *a: sbv_multi_stats_plain(*a, nu=ctx.nu)
+        g_s2, g_b, g_n, g_by, g_ny = _chunked_vjp(
+            plain, cot, (ls2, lb, ln), blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+            (need[4], need[7]), ctx.chunk)
+        return (g_s2, g_b, g_n, None, g_by, None, None, g_ny, None, None, None)
 
 
 def sbv_loglik(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
@@ -89,6 +132,19 @@ def sbv_loglik(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask
                             blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask, nu, int(chunk))
 
 
+def sbv_multi_stats(params0: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                    nu: float = 3.5, chunk: int = BACKWARD_CHUNK):
+    """Multi-output dataset stats ``(logdet0, q0 (p,))`` through the fused
+    kernel: one Cholesky per block, the p outputs as extra right-hand sides.
+
+    ``params0`` is the UNIT-VARIANCE correlation (sigma2 = 1, nugget = tau2;
+    ``MultiOutputParams.structure_params``). Differentiable in the params
+    and the observations; coordinates and masks get no gradient. ``chunk``
+    is the number of blocks per backward chunk."""
+    return _SbvMultiStats.apply(params0.log_sigma2, params0.log_beta, params0.log_nugget,
+                                blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask, nu, int(chunk))
+
+
 def sbv_predict(params: KernelParams, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float = 3.5):
     """Batched block conditional mean/variance through the fused kernel:
     ``(mu, var)`` each (bc, bs_pred). Padded query slots carry mu=0 /
@@ -98,3 +154,11 @@ def sbv_predict(params: KernelParams, q_x, q_mask, nn_x, nn_y, nn_mask, nu: floa
         return sbv_predict_blocks(params.beta.to(acc), params.sigma2.to(acc),
                                   params.nugget.to(acc), q_x, q_mask, nn_x, nn_y, nn_mask,
                                   nu=nu)
+
+
+def matern_cov(xa, xb, params: KernelParams, nu: float = 3.5) -> torch.Tensor:
+    """Batched scaled-Matérn covariance (B, na, nb) through the kernel (the
+    plain version on CPU tensors). Not differentiable."""
+    acc = xa.dtype
+    with torch.no_grad():
+        return matern_cov_blocks(xa, xb, params.beta.to(acc), params.sigma2.to(acc), nu=nu)

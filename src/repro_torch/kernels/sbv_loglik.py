@@ -24,12 +24,13 @@ def sbv_loglik_plain(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, n
                         nn_x, nn_y, nn_mask.bool(), nu=nu)
 
 
-def _grid(lib, prefix: str, bc: int, bs: int, m: int, d: int, f64: bool,
-          device: torch.device) -> int:
-    per_sm = getattr(lib, f"{prefix}_ctas_per_sm")(bs, m, d, int(f64))
+def _grid(lib, prefix: str, bc: int, device: torch.device, *shape: int) -> int:
+    """CTAs to launch: as many as fit on the card at once, at most ``bc``.
+    ``shape`` is the kernel's ``(bs, m, d, [p,] f64)``."""
+    per_sm = getattr(lib, f"{prefix}_ctas_per_sm")(*shape)
     if per_sm <= 0:
-        smem = getattr(lib, f"{prefix}_smem_bytes")(bs, m, d, int(f64))
-        raise RuntimeError(f"{prefix}: no CTA fits on an SM at bs={bs}, m={m}, d={d} "
+        smem = getattr(lib, f"{prefix}_smem_bytes")(*shape)
+        raise RuntimeError(f"{prefix}: no CTA fits on an SM at (bs, m, d, ..., f64)={shape} "
                            f"({smem} bytes of shared memory; code {per_sm})")
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(bc, per_sm * sms))
@@ -77,7 +78,7 @@ def sbv_loglik_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn
     lib = _build.load("sbv_loglik")
     f64 = dtype == torch.float64
     with torch.cuda.device(device):
-        grid = _grid(lib, "sbv_loglik", bc, bs, m, d, f64, device)
+        grid = _grid(lib, "sbv_loglik", bc, device, bs, m, d, int(f64))
         scratch = torch.empty(grid * lib.sbv_loglik_scratch_per_cta(bs, m), dtype=dtype,
                               device=device)
         fn = lib.sbv_loglik_f64 if f64 else lib.sbv_loglik_f32

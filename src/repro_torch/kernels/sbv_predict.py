@@ -49,7 +49,7 @@ def sbv_predict_cuda(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask,
     lib = _build.load("sbv_predict")
     f64 = dtype == torch.float64
     with torch.cuda.device(device):
-        grid = _grid(lib, "sbv_predict", bc, bs, m, d, f64, device)
+        grid = _grid(lib, "sbv_predict", bc, device, bs, m, d, int(f64))
         scratch = torch.empty(grid * lib.sbv_predict_scratch_per_cta(bs, m), dtype=dtype,
                               device=device)
         fn = lib.sbv_predict_f64 if f64 else lib.sbv_predict_f32

@@ -14,10 +14,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import KernelParams, SBVConfig, preprocess  # noqa: E402
+from repro_torch.core import multioutput as mo  # noqa: E402
 from repro_torch.core import predict as tpredict  # noqa: E402
 from repro_torch.core import vecchia  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain  # noqa: E402
 from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain  # noqa: E402
+from repro_torch.kernels.sbv_multi_stats import (sbv_multi_stats_cuda,  # noqa: E402
+                                                 sbv_multi_stats_plain)
 from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -59,12 +63,10 @@ def test_loglik_kernel_matches_plain(dev, nu, dtype):
     assert _build.LAUNCHES["sbv_loglik"] == before + 1
     assert got.dtype == dtype
     if dtype == torch.float64:
-        # nu = 0.5: the kernel's distance of a point to itself is exactly 0
-        # (norm and dot product summed in the same order); the plain version
-        # takes the dot product from a matmul, which rounds it to ~1e-16,
-        # sqrt lifts that to r ~ 1e-8, and exp(-r) passes it on (~1e-7 in
-        # the likelihood). The smoother kernels are flat at r = 0.
-        torch.testing.assert_close(got, want, rtol=1e-6 if nu == 0.5 else 1e-9, atol=0)
+        # Every nu at 1e-9: the kernel's distance of a point to itself is
+        # exactly 0 (norm and dot product summed in the same order), and the
+        # plain version sets it to 0 too (ROADMAP fault 1, repaired).
+        torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
     np.testing.assert_allclose(float(got.double().sum()), float(want.sum()), rtol=5e-4)
 
 
@@ -125,5 +127,122 @@ def test_entry_points_run_on_cuda_and_match_cpu(dev):
     a = tpredict.predict_sbv(on_cpu.params, x, y, xt, **kw)
     assert ops.launch_counts()["sbv_predict"] == 3
     b = tpredict.predict_sbv(on_cpu.params, x, y, xt, device="cpu", **kw)
+    np.testing.assert_allclose(a.mean, b.mean, rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(a.var, b.var, rtol=1e-9, atol=1e-12)
+
+
+def _multi_data(n=900, d=4, p=3, seed=6):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, d))
+    y = np.stack([np.sin(x @ rng.uniform(1.0, 3.0, size=d)) + 0.01 * rng.standard_normal(n)
+                  for _ in range(p)], axis=1)
+    return x, y, np.linspace(0.3, 1.5, d)
+
+
+def _multi_params(beta, p, device):
+    return mo.MultiOutputParams.create(sigma2=np.linspace(0.5, 1.5, p), beta=beta, tau2=1e-2,
+                                       d=len(beta), p=p, device=device)
+
+
+def _slice(arrs, bs, m):
+    bx, by, bm, nx, ny, nm = arrs
+    return bx[:, :bs], by[:, :bs], bm[:, :bs], nx[:, :m], ny[:, :m], nm[:, :m]
+
+
+@pytest.mark.parametrize("nu", [0.5, 3.5])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_multi_stats_kernel_matches_plain(dev, nu, ragged):
+    x, y, beta = _multi_data()
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=24, m=30))
+    arrs = vecchia.packed_arrays(packed, dev)
+    if ragged:
+        arrs = _slice(arrs, 13, 17)
+    p0 = _multi_params(beta, 3, dev).structure_params()
+    want = sbv_multi_stats_plain(p0.beta, p0.sigma2, p0.nugget, *arrs, nu=nu)
+    before = _build.LAUNCHES["sbv_multi_stats"]
+    got = sbv_multi_stats_cuda(p0.beta, p0.sigma2, p0.nugget, *arrs, nu=nu)
+    got32 = sbv_multi_stats_cuda(*_cast((p0.beta, p0.sigma2, p0.nugget), torch.float32),
+                                 *_cast(arrs, torch.float32), nu=nu)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sbv_multi_stats"] == before + 2
+    assert got.shape == (arrs[0].shape[0], 4) and got32.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
+    # f32 against f64 on the dataset totals, the reference's 5e-4 rule.
+    torch.testing.assert_close(got32.double().sum(0), want.sum(0), rtol=5e-4, atol=0)
+
+
+def test_multi_stats_p1_matches_single_output_kernel(dev):
+    """At p = 1, sigma2 = 1 and nugget = tau2, the single-output block
+    log-density is -n/2 log 2 pi - logdet0 / 2 - q0 / 2."""
+    x, y, beta = _multi_data(p=1)
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=24, m=30))
+    arrs = vecchia.packed_arrays(packed, dev)
+    p0 = _multi_params(beta, 1, dev).structure_params()
+    stats = sbv_multi_stats_cuda(p0.beta, p0.sigma2, p0.nugget, *arrs)
+    ll = sbv_loglik_cuda(p0.beta, p0.sigma2, p0.nugget, arrs[0], arrs[1][..., 0], *arrs[2:4],
+                         arrs[4][..., 0], arrs[5])
+    n_b = arrs[2].sum(dim=1).double()
+    from_stats = -0.5 * n_b * vecchia._LOG2PI - 0.5 * stats[:, 0] - 0.5 * stats[:, 1]
+    torch.testing.assert_close(from_stats, ll, rtol=1e-12, atol=0)
+
+
+def test_multi_stats_gradient_matches_plain_autograd(dev):
+    x, y, beta = _multi_data(seed=7)
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=24, m=30))
+    arrs = vecchia.packed_arrays(packed, dev)
+    p = _multi_params(beta, 3, dev)
+
+    def grads(backend):
+        leaves = [t.clone().requires_grad_(True) for t in p]
+        ld, q = mo.packed_multi_stats(mo.MultiOutputParams(*leaves), packed, backend=backend,
+                                      arrays=arrs)
+        loss = mo.pooled_objective(ld, q, packed.n_points)
+        return torch.autograd.grad(loss, leaves[1:])
+
+    for a, b in zip(grads("auto"), grads("ref")):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=0)
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 3.5])
+@pytest.mark.parametrize("shape", [(3, 70, 90, 4), (2, 37, 61, 10), (1, 1, 129, 2)])
+def test_matern_cov_kernel_matches_plain(dev, nu, shape):
+    b, na, nb, d = shape
+    rng = np.random.default_rng(8)
+    xa = torch.as_tensor(rng.uniform(size=(b, na, d)), device=dev)
+    xb = torch.as_tensor(rng.uniform(size=(b, nb, d)), device=dev)
+    beta = torch.linspace(0.5, 1.5, d, dtype=torch.float64, device=dev)
+    s2 = torch.tensor(0.7, dtype=torch.float64, device=dev)
+    want = matern_cov_plain(xa, xb, beta, s2, nu=nu)
+    before = _build.LAUNCHES["matern_cov"]
+    got = matern_cov_cuda(xa, xb, beta, s2, nu=nu)
+    got32 = matern_cov_cuda(xa.float(), xb.float(), beta, s2, nu=nu)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["matern_cov"] == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-15)
+    torch.testing.assert_close(got32.double(), want, rtol=1e-5, atol=1e-5)
+    # A point set against itself: the kernel's self-distance is exactly 0.
+    same = matern_cov_cuda(xa, xa, beta, s2, nu=nu)
+    torch.testing.assert_close(torch.diagonal(same, dim1=-2, dim2=-1),
+                               torch.full((b, na), 0.7, dtype=torch.float64, device=dev),
+                               rtol=1e-14, atol=0)
+
+
+def test_multi_entry_points_run_on_cuda_and_match_cpu(dev):
+    from repro_torch.core.fit import fit_sbv
+
+    x, y, _ = _multi_data(n=600, seed=9)
+    cfg = SBVConfig(n_blocks=20, m=16)
+    ops.reset_launch_counts()
+    on_gpu = fit_sbv(x, y, cfg, inner_steps=3, outer_rounds=2)
+    # 2 rounds x 3 steps, and the final profile of sigma2.
+    assert ops.launch_counts()["sbv_multi_stats"] == 7
+    on_cpu = fit_sbv(x, y, cfg, inner_steps=3, outer_rounds=2, device="cpu")
+    np.testing.assert_allclose([h[2] for h in on_gpu.history],
+                               [h[2] for h in on_cpu.history], rtol=1e-6)
+    xt = np.random.default_rng(10).uniform(size=(90, 4))
+    kw = dict(bs_pred=5, m_pred=24, n_sims=50, chunk_size=40)
+    a = tpredict.predict_sbv(on_cpu.params, x, y, xt, **kw)
+    b = tpredict.predict_sbv(on_cpu.params, x, y, xt, device="cpu", **kw)
+    assert a.mean.shape == (90, 3)
     np.testing.assert_allclose(a.mean, b.mean, rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(a.var, b.var, rtol=1e-9, atol=1e-12)

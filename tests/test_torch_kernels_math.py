@@ -60,3 +60,39 @@ def test_params_round_trip_and_properties():
         np.testing.assert_array_equal(a, np.asarray(b))
     c = km.KernelParams.create(sigma2=2.0, beta=0.5, nugget=1e-4, d=3)
     assert c.log_beta.shape == (3,) and c.log_beta.dtype == torch.float64
+
+
+@pytest.mark.parametrize("nu", [0.5, 3.5])
+def test_self_distance_is_exact_in_the_plain_covariance(nu):
+    """ROADMAP fault 1: with ``identity`` a point's distance to itself is
+    exactly 0 (as in the CUDA kernels), the diagonal is exactly
+    sigma2 + nugget, gradients stay finite, and the port still agrees with
+    the reference, whose diagonal keeps its own rounding (1e-7 at nu = 0.5,
+    as above)."""
+    from repro.core import vecchia as ref_vecchia
+    from repro_torch.core import vecchia
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(2, 9, 4))
+    mask = np.ones((2, 9), dtype=bool)
+    mask[1, 6:] = False
+    ref_p = ref_km.KernelParams.create(sigma2=1.3, beta=np.linspace(0.2, 1.5, 4), nugget=1e-2)
+    p = params_from_reference(*(np.asarray(a) for a in ref_p))
+    leaves = [t.clone().requires_grad_(True) for t in p]
+    q = km.KernelParams(*leaves)
+    tx, tm = torch.as_tensor(x), torch.as_tensor(mask)
+    k = vecchia._masked_cov(tx, tx, tm, tm, q.beta, q.sigma2, q.nugget, nu, identity=True)
+    diag = torch.diagonal(k, dim1=-2, dim2=-1).detach()
+    want_diag = torch.where(tm, p.sigma2 + p.nugget, torch.ones((), dtype=torch.float64))
+    assert torch.equal(diag, want_diag)
+    grads = torch.autograd.grad(torch.linalg.cholesky(k).diagonal(dim1=-2, dim2=-1).log().sum(),
+                                leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    for b in range(2):
+        want = np.asarray(ref_vecchia._masked_cov(jnp.asarray(x[b]), jnp.asarray(x[b]),
+                                                  jnp.asarray(mask[b]), jnp.asarray(mask[b]),
+                                                  ref_p, nu, identity=True))
+        got = k[b].detach().numpy()
+        off = ~np.eye(9, dtype=bool)
+        np.testing.assert_allclose(got[off], want[off], rtol=1e-12, atol=1e-15)
+        np.testing.assert_allclose(np.diag(got), np.diag(want), rtol=1e-7 if nu == 0.5 else 1e-12)

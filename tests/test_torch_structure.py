@@ -78,3 +78,40 @@ def test_packing_rejects_sentinel_neighbors():
     with pytest.raises(ValueError):
         _check_neighbors(np.array([3, 3]), 0, 10)
     np.testing.assert_array_equal(_check_neighbors(np.array([1, 2]), 0, 10), [1, 2])
+
+
+@pytest.mark.parametrize("p,days", [(1, 100), (7, 100), (32, 100), (250, 100), (5, 0)])
+def test_metarvm_field_generators_bitwise(p, days):
+    """The port takes all p snapshots from one daily sweep; every column is
+    bitwise the reference's separate run of that many days."""
+    from repro.data import gp_sim as ref_sim
+    from repro_torch.data import gp_sim
+
+    theta = gp_sim.metarvm_sample_inputs(3, 40)
+    np.testing.assert_array_equal(theta, ref_sim.metarvm_sample_inputs(3, 40))
+    np.testing.assert_array_equal(gp_sim.metarvm_field_simulate(theta, p, days=days),
+                                  ref_sim.metarvm_field_simulate(theta, p, days=days))
+    gx, gy = gp_sim.metarvm_field_dataset(4, 60, p, days=days)
+    rx, ry = ref_sim.metarvm_field_dataset(4, 60, p, days=days)
+    np.testing.assert_array_equal(gx, rx)
+    np.testing.assert_array_equal(gy, ry)
+
+
+def test_metarvm_and_satellite_generators_bitwise():
+    from repro.data import gp_sim as ref_sim
+    from repro_torch.data import gp_sim
+
+    theta = gp_sim.metarvm_sample_inputs(5, 30)
+    np.testing.assert_array_equal(gp_sim.metarvm_simulate(theta),
+                                  ref_sim.metarvm_simulate(theta))
+    np.testing.assert_array_equal(gp_sim.metarvm_simulate(theta[0], days=37),
+                                  ref_sim.metarvm_simulate(theta[0], days=37))
+    for normalize in (True, False):
+        for a, b in zip(gp_sim.metarvm_dataset(6, 50, normalize=normalize),
+                        ref_sim.metarvm_dataset(6, 50, normalize=normalize)):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(gp_sim.satellite_drag_like(7, 80), ref_sim.satellite_drag_like(7, 80)):
+        np.testing.assert_array_equal(a, b)
+    assert gp_sim.METARVM_BOUNDS == ref_sim.METARVM_BOUNDS
+    with pytest.raises(ValueError):
+        gp_sim.metarvm_field_simulate(theta, 0)
