@@ -1,0 +1,622 @@
+// Flash attention (forward) for Hopper (sm_90a), f32 and bf16.
+//
+// Replaces `flash_attention` / `_flash_kernel` in
+// src/repro/kernels/flash_attention.py. For q (B, H, S, hd) and k, v
+// (B, Hkv, T, hd), Hkv | H, it returns (B, H, S, hd) in q's dtype:
+//
+//   s   = (q * hd^-0.5 in f32) . k            per query row and key
+//   s   = softcap * tanh(s / softcap)         if softcap > 0, before the mask
+//   s   = allowed ? s : -1e30                 dist = q_pos - k_pos, both from 0
+//                                             (top-left aligned): causal ->
+//                                             dist >= 0; window > 0 -> dist < window
+//   out = softmax(s) . v, accumulated in f32, written as acc / max(l, 1e-30)
+//
+// with the reference's online-softmax recurrence (running max m, normaliser
+// l, accumulator acc; m starts at -1e30, so a row with no allowed key at all
+// averages V exactly as the reference does). Query head h reads KV head
+// h / (H / Hkv): GQA without a repeated copy of K and V. Any S >= 1, T >= 1:
+// the ragged last tiles are masked (keys past T get weight exactly 0), not
+// padded. Any strides over (B, H, S) with hd contiguous, so the model's
+// (B, S, H, hd) projections go in without a transpose.
+//
+// Two kernels compute it, chosen by dtype and head_dim:
+//
+// * bf16, hd in {32, 64, 80, 128} (every configuration on the serving path):
+//   `flash_fwd_mma_kernel`, on the tensor cores through `mma.sync`
+//   m16n8k16 (bf16 operands, f32 accumulation). One CTA of 4 warps per
+//   (b * h, 64 query rows), 16 rows per warp; Q stays in registers as A
+//   fragments, each 64-key tile of K and V is copied into shared memory with
+//   `cp.async` while the previous one is used (two stages) and read with
+//   `ldmatrix` (V transposed), the scores stay in registers, the
+//   4 lanes of a row reduce its max and sum with shuffles, and P goes back
+//   into the tensor cores as bf16 A fragments without touching shared
+//   memory (the FlashAttention-2 register layout). Only tiles that cross
+//   the causal diagonal, the window's edge or the last key are masked.
+//   Numerics: Q K^T is
+//   exact products summed in f32, then scaled by hd^-0.5 in f32 (the
+//   reference scales q first; the two differ by f32 rounding); P is
+//   rounded to bf16 before P . V, where the reference multiplies f32 P by
+//   V widened to f32: about 4e-3 relative, inside the reference's own bf16
+//   tolerance of 3e-2; exp is the hardware's ex2.approx (`__expf`).
+// * f32 at every hd, and bf16 at hd = 256: `flash_fwd_kernel`, scalar f32
+//   FMAs on the CUDA cores (bf16 inputs are widened when staged), so P . V
+//   takes P in f32 as the reference does. One CTA of 128 threads per
+//   (b * h, BQ query rows); Q (pre-scaled by hd^-0.5, transposed) stays in
+//   shared memory, each KV tile of BK keys is staged (K transposed, V as
+//   is), each thread keeps an RM x (BK / 8) score micro-tile and an
+//   RM x (hd / 8) output micro-tile in registers, the 8 threads of a row
+//   reduce with shuffles, and P goes through shared memory; exp is the
+//   accurate expf.
+//
+// tanh is the accurate tanhf in both. For the causal mask
+// and the window, KV tiles that no row of the CTA may see are skipped,
+// unless some row of the CTA has no allowed key at all (then every tile
+// counts, as in the reference).
+//
+// Bound on an H100: at prefill shapes (S = T = 4096, hd = 128) the work is
+// 2 B H S^2 hd flop (causal half of Q K^T and P V) against reading Q, K, V
+// and writing O once, so the card's bound is its bf16 tensor rate
+// (989 TFLOP/s dense). The bf16 kernel runs on the tensor cores but with
+// `mma.sync`, no `wgmma` and no TMA; the f32 kernel runs on the CUDA cores (67 TFLOP/s peak). Their
+// times stand beside the bound in PERF.md.
+//
+// Plain C interface for ctypes: every entry point returns the CUDA error code
+// of the launch (0 on success).
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kTY = 16;  // thread rows of the CTA
+constexpr int kTX = 8;   // threads sharing one query row (adjacent lanes of a warp)
+constexpr int kPad = 4;  // floats of padding on the transposed tiles' rows
+constexpr float kNeg = -1e30f;
+
+// Query rows (BQ) and keys (BK) per tile, chosen per head_dim so that Q, K,
+// V and the P tile fit in shared memory at hd = 256 (111 KB) and so that
+// each thread holds at most 64 output accumulators.
+template <int HD> struct Tiles;
+template <> struct Tiles<32> { static constexpr int BQ = 64, BK = 64; };
+template <> struct Tiles<64> { static constexpr int BQ = 64, BK = 64; };
+template <> struct Tiles<80> { static constexpr int BQ = 64, BK = 32; };
+template <> struct Tiles<128> { static constexpr int BQ = 64, BK = 32; };
+template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32; };
+
+template <int HD>
+constexpr size_t smem_floats() {
+  constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK;
+  return (size_t)HD * (BQ + kPad)     // Qt: hd x BQ
+         + (size_t)HD * (BK + kPad)   // Kt: hd x BK
+         + (size_t)BK * HD            // Vs: BK x hd
+         + (size_t)BK * (BQ + kPad);  // Pt: BK x BQ
+}
+
+__device__ __forceinline__ void load4(const float* p, float* out) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* out) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
+__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+
+// N consecutive floats of shared memory into registers, in the widest
+// vectors the (compile-time) alignment allows.
+template <int N>
+__device__ __forceinline__ void lds(const float* p, float* out) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y; out[i + 2] = v.z; out[i + 3] = v.w;
+    }
+  } else {
+    static_assert(N % 2 == 0, "lds: N must be even");
+#pragma unroll
+    for (int i = 0; i < N; i += 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p + i);
+      out[i] = v.x; out[i + 1] = v.y;
+    }
+  }
+}
+
+struct Strides {
+  long long b, h, s;
+};
+
+// The KV tiles [kt_begin, kt_end) a CTA of query rows [q0, q0 + BQ) visits
+// (see the header on skipping). Returns whether some row of the CTA has no
+// allowed key at all.
+__device__ __forceinline__ bool kv_tile_range(int q0, int BQ, int BK, int S, int T_len, int causal,
+                                              int window, int& kt_begin, int& kt_end) {
+  const int r_last = min(q0 + BQ, S) - 1;
+  bool needs_all = false;
+  for (int r = q0; r <= r_last; ++r) {
+    const int hi = causal ? min(r, T_len - 1) : T_len - 1;
+    const int lo = window > 0 ? max(r - window + 1, 0) : 0;
+    needs_all |= lo > hi;
+  }
+  kt_begin = 0;
+  kt_end = (T_len + BK - 1) / BK;
+  if (!needs_all) {
+    if (window > 0) kt_begin = max(q0 - window + 1, 0) / BK;
+    if (causal) kt_end = min(r_last, T_len - 1) / BK + 1;
+  }
+  return needs_all;
+}
+
+__device__ __forceinline__ float apply_softcap(float x, float softcap) {
+  return softcap > 0.f ? softcap * tanhf(x / softcap) : x;
+}
+
+// The score of query row r and key c after the mask: -1e30 where the key is
+// not allowed (the reference's sentinel), -inf past the last key (weight
+// exactly 0).
+__device__ __forceinline__ float mask_score(float x, int r, int c, int T_len, int causal,
+                                            int window) {
+  const int dist = r - c;
+  bool allow = true;
+  if (causal) allow = allow && dist >= 0;
+  if (window > 0) allow = allow && dist < window;
+  x = allow ? x : kNeg;
+  return c >= T_len ? -INFINITY : x;
+}
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ o, int H, int Hkv, int S, int T_len, Strides qs, Strides ks,
+                 Strides vs, Strides os, int causal, int window, float softcap, float scale) {
+  constexpr int BQ = Tiles<HD>::BQ, BK = Tiles<HD>::BK;
+  constexpr int RM = BQ / kTY;   // query rows per thread
+  constexpr int SC = BK / kTX;   // score columns per thread
+  constexpr int OC = HD / kTX;   // output columns per thread
+  constexpr int QLD = BQ + kPad, KLD = BK + kPad;
+  constexpr int V4 = HD / 4;     // 4-element vectors per row
+
+  extern __shared__ __align__(16) float smem[];
+  float* Qt = smem;                 // [HD][QLD]
+  float* Kt = Qt + HD * QLD;        // [HD][KLD]
+  float* Vs = Kt + HD * KLD;        // [BK][HD]
+  float* Pt = Vs + BK * HD;         // [BK][QLD]
+
+  const int tid = threadIdx.x;
+  const int ty = tid / kTX, tx = tid % kTX;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  // Heavy (late) query tiles of a causal pass first, for the tail.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  int kt_begin, kt_end;
+  kv_tile_range(q0, BQ, BK, S, T_len, causal, window, kt_begin, kt_end);
+
+  const T* qb = q + b * qs.b + h * qs.h;
+  const T* kb = k + b * ks.b + hk * ks.h;
+  const T* vb = v + b * vs.b + hk * vs.h;
+
+  // Stage Q, scaled, transposed: Qt[d][r].
+  for (int idx = tid; idx < BQ * V4; idx += kThreads) {
+    const int r = idx / V4, c = (idx % V4) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (q0 + r < S) load4(qb + (long long)(q0 + r) * qs.s + c, x);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) Qt[(c + j) * QLD + r] = x[j] * scale;
+  }
+
+  float m[RM], l[RM], acc[RM][OC];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's Kt, Vs and Pt are consumed
+    for (int idx = tid; idx < BK * V4; idx += kThreads) {
+      const int r = idx / V4, c = (idx % V4) * 4;
+      float xk[4] = {0.f, 0.f, 0.f, 0.f}, xv[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + r < T_len) {
+        load4(kb + (long long)(k0 + r) * ks.s + c, xk);
+        load4(vb + (long long)(k0 + r) * vs.s + c, xv);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) Kt[(c + j) * KLD + r] = xk[j];
+      *reinterpret_cast<float4*>(Vs + r * HD + c) = make_float4(xv[0], xv[1], xv[2], xv[3]);
+    }
+    __syncthreads();
+
+    // S = Q K^T on the thread's RM x SC micro-tile.
+    float s[RM][SC];
+#pragma unroll
+    for (int i = 0; i < RM; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      float qv[RM], kv[SC];
+      lds<RM>(Qt + d * QLD + ty * RM, qv);
+      lds<SC>(Kt + d * KLD + tx * SC, kv);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+    // Softcap, mask, online softmax.
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int r = q0 + ty * RM + i;
+      float mx = kNeg;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const float x = mask_score(apply_softcap(s[i][j], softcap), r, k0 + tx * SC + j, T_len,
+                                   causal, window);
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 1; off < kTX; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = expf(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        s[i][j] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int off = 1; off < kTX; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[i][c] *= corr;
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j)
+#pragma unroll
+      for (int i = 0; i < RM; ++i) Pt[(tx * SC + j) * QLD + ty * RM + i] = s[i][j];
+    __syncthreads();
+
+    // acc += P V.
+#pragma unroll 2
+    for (int kk = 0; kk < BK; ++kk) {
+      float pv[RM], vv[OC];
+      lds<RM>(Pt + kk * QLD + ty * RM, pv);
+      lds<OC>(Vs + kk * HD + tx * OC, vv);
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(pv[i], vv[c], acc[i][c]);
+    }
+  }
+
+  T* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = q0 + ty * RM + i;
+    if (r >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* orow = ob + (long long)r * os.s + tx * OC;
+#pragma unroll
+    for (int c = 0; c < OC; ++c) store1(orow + c, acc[i][c] * inv);
+  }
+}
+
+// ---------------------------------------------------------------- bf16 ----
+
+constexpr int kMmaRows = 64;  // query rows per CTA: 16 per warp, 4 warps
+constexpr int kMmaKeys = 64;  // keys per staged K/V tile
+
+// Q, and two stages of K and V (the next tile lands while this one is used).
+template <int HD>
+constexpr size_t mma_smem_bytes() {
+  return (size_t)(kMmaRows + 4 * kMmaKeys) * (HD + 8) * sizeof(__nv_bfloat16);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const __nv_bfloat16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const __nv_bfloat16* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Asynchronous copy of rows [0, n_rows) of a (n_rows x HD) bf16 tile at `src`
+// (row stride `ld` elements) into shared memory with row stride HD + 8, in
+// 16-byte pieces; rows past `valid` are filled with zeros (a source size of
+// 0 reads nothing). Completion is awaited with cp.async.wait_group.
+template <int HD>
+__device__ __forceinline__ void stage_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                            long long ld, int n_rows, int valid) {
+  constexpr int V8 = HD / 8;
+  for (int idx = threadIdx.x; idx < n_rows * V8; idx += kThreads) {
+    const int r = idx / V8, c = (idx % V8) * 8;
+    const bool in = r < valid;
+    const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst + r * (HD + 8) + c);
+    const __nv_bfloat16* g = src + (in ? (long long)r * ld : 0) + c;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(g),
+                 "r"(in ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
+                     int Hkv, int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os,
+                     int causal, int window, float softcap, float scale) {
+  constexpr int LD = HD + 8;          // shared-memory row stride (16 B of padding)
+  constexpr int KSTEPS = HD / 16;     // k-steps of Q K^T
+  constexpr int SB = kMmaKeys / 8;    // 8-key blocks of a score tile
+  constexpr int OB = HD / 8;          // 8-column blocks of the output
+  static_assert(HD % 16 == 0 && OB % 2 == 0, "head_dim must be a multiple of 16");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
+  __nv_bfloat16* Ks = Qs + kMmaRows * LD;                           // 2 x [64][LD]
+  __nv_bfloat16* Vs = Ks + 2 * kMmaKeys * LD;                       // 2 x [64][LD]
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, t4 = lane % 4;  // row group and column pair of a fragment
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaRows;
+  int kt_begin, kt_end;
+  const bool needs_all =
+      kv_tile_range(q0, kMmaRows, kMmaKeys, S, T_len, causal, window, kt_begin, kt_end);
+
+  const __nv_bfloat16* kb = k + b * ks.b + hk * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + hk * vs.h;
+  auto stage_kv = [&](int kt, int buf) {
+    const int k0 = kt * kMmaKeys;
+    stage_async<HD>(Ks + buf * kMmaKeys * LD, kb + (long long)k0 * ks.s, ks.s, kMmaKeys,
+                    T_len - k0);
+    stage_async<HD>(Vs + buf * kMmaKeys * LD, vb + (long long)k0 * vs.s, vs.s, kMmaKeys,
+                    T_len - k0);
+  };
+  stage_async<HD>(Qs, q + b * qs.b + h * qs.h + (long long)q0 * qs.s, qs.s, kMmaRows, S - q0);
+  stage_kv(kt_begin, 0);
+  cp_async_wait<2>();  // Q has landed (the first K/V tile may still be in flight)
+  __syncthreads();
+  uint32_t qf[KSTEPS][4];  // this warp's 16 query rows as A fragments
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk)
+    ldsm_x4(qf[kk], Qs + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+
+  // Rows g and g + 8 of the warp's 16: index 0 and 1 below.
+  const int row0 = q0 + warp * 16 + g;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float oacc[OB][4];
+#pragma unroll
+  for (int j = 0; j < OB; ++j) oacc[j][0] = oacc[j][1] = oacc[j][2] = oacc[j][3] = 0.f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kMmaKeys, buf = (kt - kt_begin) & 1;
+    // Start the next tile's copy into the other stage (consumed by the
+    // previous iteration, which ended on a barrier), then wait for this one.
+    if (kt + 1 < kt_end) {
+      stage_kv(kt + 1, buf ^ 1);
+      cp_async_wait<2>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* Kb = Ks + buf * kMmaKeys * LD;
+    const __nv_bfloat16* Vb = Vs + buf * kMmaKeys * LD;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, as SB accumulator fragments.
+    float sacc[SB][4];
+#pragma unroll
+    for (int j = 0; j < SB; ++j) sacc[j][0] = sacc[j][1] = sacc[j][2] = sacc[j][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+#pragma unroll
+      for (int j = 0; j < SB; j += 2) {
+        uint32_t kf[4];
+        ldsm_x4(kf, Kb + (j * 8 + lane % 8 + (lane / 16) * 8) * LD + kk * 16 + ((lane / 8) % 2) * 8);
+        mma_bf16(sacc[j], qf[kk], kf[0], kf[1]);
+        mma_bf16(sacc[j + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // Scale and softcap; the mask only where the tile crosses the causal
+    // diagonal, the window's edge or the last key (or where some row has no
+    // allowed key); then the online softmax on rows g and g + 8.
+    const bool inside = !needs_all && k0 + kMmaKeys <= T_len &&
+                        (!causal || k0 + kMmaKeys - 1 <= q0) &&
+                        (window <= 0 || q0 + kMmaRows - 1 - k0 < window);
+    float mx[2] = {kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = apply_softcap(sacc[j][e] * scale, softcap);
+        if (!inside)
+          x = mask_score(x, row0 + (e / 2) * 8, k0 + j * 8 + t4 * 2 + (e % 2), T_len, causal,
+                         window);
+        sacc[j][e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = __expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = __expf(sacc[j][e] - m[e / 2]);
+        sacc[j][e] = p;
+        sum[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 1);
+      sum[i] += __shfl_xor_sync(0xffffffffu, sum[i], 2);
+      l[i] = l[i] * corr[i] + sum[i];
+    }
+#pragma unroll
+    for (int j = 0; j < OB; ++j) {
+      oacc[j][0] *= corr[0]; oacc[j][1] *= corr[0];
+      oacc[j][2] *= corr[1]; oacc[j][3] *= corr[1];
+    }
+
+    // O += P V: P's accumulator fragments are A fragments once packed.
+#pragma unroll
+    for (int kk = 0; kk < kMmaKeys / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16(sacc[2 * kk][0], sacc[2 * kk][1]),
+                              pack_bf16(sacc[2 * kk][2], sacc[2 * kk][3]),
+                              pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
+                              pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < OB; j += 2) {
+        uint32_t vf[4];
+        ldsm_x4_trans(vf, Vb + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD + j * 8 +
+                              (lane / 16) * 8);
+        mma_bf16(oacc[j], pa, vf[0], vf[1]);
+        mma_bf16(oacc[j + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed; the next iteration refills it
+  }
+
+  __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (r >= S) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow = ob + (long long)r * os.s + t4 * 2;
+#pragma unroll
+    for (int j = 0; j < OB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(oacc[j][2 * i] * inv, oacc[j][2 * i + 1] * inv);
+  }
+}
+
+template <int HD>
+int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+               int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+               float softcap, float scale, void* stream) {
+  const size_t smem = mma_smem_bytes<HD>();
+  auto kernel = flash_fwd_mma_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_q = (S + kMmaRows - 1) / kMmaRows;
+  if (n_q > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(B * H, n_q);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+           int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
+           float softcap, float scale, void* stream) {
+  const size_t smem = smem_floats<HD>() * sizeof(float);
+  auto kernel = flash_fwd_kernel<T, HD>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_q = (S + Tiles<HD>::BQ - 1) / Tiles<HD>::BQ;
+  if (n_q > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(B * H, n_q);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, H, Hkv, S, T_len, qs, ks, vs, os, causal,
+      window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
+             int T_len, int hd, const long long* st, int causal, int window, float softcap,
+             float scale, void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
+      os{st[9], st[10], st[11]};
+  switch (hd) {
+    case 32: return launch<T, 32>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 80: return launch<T, 80>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 256: return launch<T, 256>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// strides: 12 element strides, (b, h, s) of q, k, v and o in that order;
+// scale: hd^-0.5 rounded to f32 by the caller, as the reference rounds it.
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int Hkv, int S, int T_len, int hd, const long long* strides, int causal,
+                        int window, float softcap, float scale, void* stream) {
+  return dispatch<float>(q, k, v, o, B, H, Hkv, S, T_len, hd, strides, causal, window, softcap,
+                         scale, stream);
+}
+
+// bf16 at hd <= 128 runs on the tensor cores; at hd = 256 (whose A and
+// output fragments would not fit in registers) on the scalar kernel.
+int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                         int Hkv, int S, int T_len, int hd, const long long* st, int causal,
+                         int window, float softcap, float scale, void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
+      os{st[9], st[10], st[11]};
+  switch (hd) {
+    case 32: return launch_mma<32>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 64: return launch_mma<64>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 80: return launch_mma<80>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 128: return launch_mma<128>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    default: return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T_len, hd, st, causal,
+                                            window, softcap, scale, stream);
+  }
+}
+
+}  // extern "C"

@@ -21,7 +21,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov")
+KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -88,7 +88,8 @@ def build(verbose: bool = False) -> dict:
     return paths
 
 
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "sbv_loglik": {
         "sbv_loglik_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
@@ -115,6 +116,10 @@ _SIGNATURES = {
         "matern_cov_f64": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
         "matern_cov_f32": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
         "matern_cov_smem_bytes": (_LL, [_I, _I]),
+    },
+    "flash_attention": {
+        "flash_attention_f32": (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP]),
+        "flash_attention_bf16": (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP]),
     },
 }
 

@@ -1,0 +1,119 @@
+"""Flash attention (forward): the CUDA kernel and its plain version.
+
+``flash_attention`` is the counterpart of ``flash_attention``
+(src/repro/kernels/flash_attention.py): q (B, H, S, hd), k and v
+(B, Hkv, T, hd) with Hkv | H -> (B, H, S, hd) in q's dtype, causal and
+sliding-window masks with both positions counted from 0 (top-left aligned),
+a score softcap applied before the mask, and the -1e30 mask value of the
+reference, so a row with no allowed key averages V. On CUDA tensors it
+launches ``csrc/flash_attention.cu``; on CPU tensors it runs
+``flash_attention_plain``, the counterpart of
+``repro.kernels.flash_ref.flash_attention_ref``. Query head h uses KV head
+``h // (H // Hkv)``, as ``repro.models.attention._expand_kv`` repeats them.
+f32 and bf16; hd in {32, 64, 80, 128, 256}; any S and T.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+HEAD_DIMS = (32, 64, 80, 128, 256)
+_NEG = -1e30
+
+
+def _check_shapes(q, k, v) -> None:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention: expected q (B, H, S, hd) and k, v (B, Hkv, T, hd)")
+    b, h, _, hd = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and "
+                         f"v {tuple(v.shape)} do not match")
+    if k.shape[1] == 0 or h % k.shape[1]:
+        raise ValueError(f"flash_attention: {k.shape[1]} KV heads do not divide {h} heads")
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """The plain torch version: dense f32 scores, (B, H, S, hd) in q's dtype."""
+    _check_shapes(q, k, v)
+    s, hd = q.shape[2], q.shape[3]
+    t = k.shape[2]
+    n_rep = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(n_rep, dim=1) if n_rep > 1 else k.float()
+    vf = v.float().repeat_interleave(n_rep, dim=1) if n_rep > 1 else v.float()
+    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kf) * (hd ** -0.5)
+    if softcap > 0.0:
+        scores = softcap * torch.tanh(scores / softcap)
+    dist = (torch.arange(s, device=q.device)[:, None]
+            - torch.arange(t, device=q.device)[None, :])
+    allow = torch.ones(s, t, dtype=torch.bool, device=q.device)
+    if causal:
+        allow &= dist >= 0
+    if window > 0:
+        allow &= dist < window
+    scores = scores.masked_fill(~allow, _NEG)
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhst,bhtd->bhsd", probs, vf).to(q.dtype)
+
+
+def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where the kernel can read it as is (hd contiguous, the
+    (B, H, S) strides and the base address in whole 16-byte vectors), else
+    a contiguous copy."""
+    item = t.element_size()
+    if (t.stride(3) == 1 and all(st * item % 16 == 0 for st in t.stride()[:3])
+            and t.data_ptr() % 16 == 0):
+        return t
+    return t.contiguous()
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Launch the flash-attention kernel on CUDA tensors: (B, H, S, hd).
+
+    The output has q's strides where q is dense (for the model's
+    (B, S, H, hd) projections seen as (B, H, S, hd), a (B, S, H, hd)
+    buffer), so no transpose is copied on either side."""
+    _check_shapes(q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention: {name} is not a CUDA tensor")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} has dtype {t.dtype}, expected {q.dtype}")
+        if t.device != q.device:
+            raise ValueError("flash_attention: operands on several devices")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"flash_attention: kernel runs in float32 or bfloat16, got {q.dtype}")
+    b, h, s, hd = q.shape
+    hkv, t_len = k.shape[1], k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if t_len == 0:
+        raise ValueError("flash_attention: no keys (T = 0)")
+    out = _kernel_ready(out)
+    strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, s, t_len,
+                 hd, strides, int(causal), int(window), float(softcap), float(hd ** -0.5),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention")
+    _build.LAUNCHES["flash_attention"] += 1
+    return out
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """(B, H, S, hd) attention: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.is_cuda:
+        return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
+    return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)

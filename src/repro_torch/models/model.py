@@ -1,0 +1,106 @@
+"""LM wrapper: embeddings, the output head, prefill and decode steps. The
+counterpart of ``repro.models.model`` for serving (``lm_loss`` and the
+training forward wait for the training slice)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .layers import rms_norm, softcap
+from .transformer import AttnBlock, check_supported, decode_step, init_cache, prefill
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+class TransformerLM(nn.Module):
+    """``embed`` (V, D), ``layers`` (an ``nn.ModuleList`` of ``AttnBlock``),
+    ``ln_f`` (D,) in f32, and ``lm_head`` (D, V) unless the config ties the
+    embeddings (then the head is ``embed.T``). Parameters are allocated
+    uninitialised; ``init_params`` draws them. The matrices take ``dtype``,
+    by default the config's."""
+
+    def __init__(self, cfg, *, device=None, dtype=None):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        dtype = dtype or model_dtype(cfg)
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
+        self.layers = nn.ModuleList(AttnBlock(cfg, dtype=dtype, device=device)
+                                    for _ in range(cfg.n_layers))
+        self.ln_f = nn.Parameter(torch.zeros(cfg.d_model, dtype=torch.float32, device=device))
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype,
+                                                    device=device))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.embed.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head_matrix(self) -> torch.Tensor:
+        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's distributions: ``normal * 0.02`` for the embedding
+        and the head, ``d_in ** -0.5`` for the dense layers (``d_ff ** -0.5``
+        and ``(H hd) ** -0.5`` for the down and output projections), zero
+        norms."""
+        with torch.no_grad():
+            draw = lambda w: torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                                         device=w.device)
+            self.embed.copy_(draw(self.embed) * 0.02)
+            for layer in self.layers:
+                layer.reset_parameters(generator)
+            self.ln_f.zero_()
+            if not self.cfg.tie_embeddings:
+                self.lm_head.copy_(draw(self.lm_head) * 0.02)
+
+
+def init_params(cfg, generator: torch.Generator, device=None) -> TransformerLM:
+    """A ``TransformerLM`` with weights drawn from ``generator`` (which must
+    live on ``device``) at the reference's distributions. The draws are the
+    port's own: the same seed does not give the reference's weights (carry
+    those across with ``repro_torch.convert.lm_params_from_reference``)."""
+    model = TransformerLM(cfg, device=device)
+    model.reset_parameters(generator)
+    return model
+
+
+def embed_tokens(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
+    x = model.embed[tokens.long()]
+    if model.cfg.emb_scale:
+        # The reference casts sqrt(d_model) to the activation dtype first.
+        x = x * float(torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype))
+    return x
+
+
+def logits_fn(model: TransformerLM, hidden: torch.Tensor) -> torch.Tensor:
+    """``hidden @ head`` in the model dtype, then f32 and the final softcap."""
+    return softcap((hidden @ model.head_matrix()).float(), model.cfg.logit_softcap)
+
+
+def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int):
+    """Prompt forward: tokens (B, S) -> (last-token logits (B, V) f32, cache)."""
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x = embed_tokens(model, tokens)
+    hidden, cache = prefill(model.layers, x, model.cfg, positions, cache_len)
+    hidden = rms_norm(hidden[:, -1:], model.ln_f, model.cfg.norm_eps)
+    return logits_fn(model, hidden)[:, 0], cache
+
+
+def serve_step(model: TransformerLM, tokens: torch.Tensor, cache: dict):
+    """One decode step: tokens (B, 1) -> (logits (B, V) f32, cache)."""
+    x = embed_tokens(model, tokens)
+    hidden, cache = decode_step(model.layers, x, model.cfg, cache)
+    hidden = rms_norm(hidden, model.ln_f, model.cfg.norm_eps)
+    return logits_fn(model, hidden)[:, 0], cache
+
+
+def make_empty_cache(model: TransformerLM, batch: int, cache_len: int) -> dict:
+    return init_cache(model.cfg, batch, cache_len, model.dtype, model.device)

@@ -18,6 +18,8 @@ from repro_torch.core import multioutput as mo  # noqa: E402
 from repro_torch.core import predict as tpredict  # noqa: E402
 from repro_torch.core import vecchia  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
+                                                 flash_attention_plain)
 from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain  # noqa: E402
 from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain  # noqa: E402
 from repro_torch.kernels.sbv_multi_stats import (sbv_multi_stats_cuda,  # noqa: E402
@@ -246,3 +248,132 @@ def test_multi_entry_points_run_on_cuda_and_match_cpu(dev):
     assert a.mean.shape == (90, 3)
     np.testing.assert_allclose(a.mean, b.mean, rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(a.var, b.var, rtol=1e-9, atol=1e-12)
+
+
+# The reference's flash tolerances (tests/test_flash_attention.py). bf16
+# outputs of random inputs are ~0.03-0.07, about the size of 3e-2 * (1 + |o|),
+# so bf16 is also held per output row in relative L2 (FLASH_ROW_TOL; the
+# tensor-core kernel rounds exp(s - m) to bf16 before P . V, ~2e-3 of a row,
+# at most 4.8e-3 over chip_smoke.py's cases), on random inputs and on edge
+# inputs whose O(1) outputs hinge on the keys at the mask's edges.
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
+FLASH_ROW_TOL = 1e-2
+# (B, H, Hkv, S, T, hd, causal, window, softcap): the path's variants at a
+# reduced size, and the cases where the kernel must not skip a KV tile. bf16
+# at hd <= 128 reaches the tensor-core kernel, f32 and hd = 256 the scalar one.
+FLASH_CASES = [
+    (2, 4, 2, 256, 256, 128, True, 0, 0.0),     # the path: GQA, causal
+    (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),   # ragged S = T = 1000
+    (1, 2, 2, 64, 512, 128, False, 0, 0.0),     # not causal, S < T
+    (1, 2, 1, 300, 300, 128, True, 17, 0.0),    # window 17
+    (1, 2, 2, 200, 200, 128, True, 0, 50.0),    # softcap 50
+    (1, 2, 2, 100, 37, 32, True, 0, 0.0),       # S > T, top-left aligned
+    (1, 2, 2, 96, 16, 32, True, 8, 0.0),        # rows with no allowed key
+    (1, 2, 2, 96, 16, 64, False, 8, 0.0),       # the same, not causal
+    (2, 4, 2, 160, 160, 64, True, 0, 0.0),
+    (2, 4, 2, 160, 160, 80, True, 0, 0.0),
+    (1, 4, 2, 130, 130, 256, True, 0, 0.0),
+    (1, 1, 1, 1, 1, 32, True, 0, 0.0),
+]
+
+
+def _flash_inputs(dev, dtype, b, h, hkv, s, t, hd, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(dtype)
+    return mk(b, h, s, hd), mk(b, hkv, t, hd), mk(b, hkv, t, hd)
+
+
+def _edge_queries(k, n_heads, s, window, beta=2.0):
+    """q_i = beta * (k_i + k_{i+1} [+ k_{i-window}]) on KV head h // n_rep:
+    the softmax peaks on the keys at the mask's edges."""
+    b, hkv, t, hd = k.shape
+    kf = k.float().repeat_interleave(n_heads // hkv, dim=1)
+    i = torch.arange(s, device=k.device)
+    q = torch.zeros(b, n_heads, s, hd, device=k.device)
+    for off in (0, 1) + ((-window,) if window > 0 else ()):
+        j = i + off
+        ok = (j >= 0) & (j < t)
+        q[:, :, ok] += kf[:, :, j[ok]]
+    return (beta * q).to(k.dtype)
+
+
+def _row_rel_err(got, want):
+    d = (got.float() - want.float()).norm(dim=-1)
+    return float((d / want.float().norm(dim=-1)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(dev, dtype, case):
+    b, h, hkv, s, t, hd, causal, window, cap = case
+    q, k, v = _flash_inputs(dev, dtype, b, h, hkv, s, t, hd)
+    queries = [q] if dtype == torch.float32 else [q, _edge_queries(k, h, s, window)]
+    for qq in queries:
+        want = flash_attention_plain(qq, k, v, causal=causal, window=window, softcap=cap)
+        before = _build.LAUNCHES["flash_attention"]
+        got = flash_attention_cuda(qq, k, v, causal=causal, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention"] == before + 1
+        assert got.shape == (b, h, s, hd) and got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+        if dtype == torch.bfloat16:
+            assert _row_rel_err(got, want) <= FLASH_ROW_TOL
+
+
+def test_flash_kernel_takes_model_layout_strides(dev):
+    """(B, S, H, hd) projections seen as (B, H, S, hd): no copy in, and the
+    output keeps the model's layout."""
+    x = torch.randn(2, 100, 4, 64, device=dev).to(torch.bfloat16)
+    kv = torch.randn(2, 100, 2, 64, device=dev).to(torch.bfloat16)
+    got = flash_attention_cuda(x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(x.transpose(1, 2), kv.transpose(1, 2), kv.transpose(1, 2))
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention_cuda(*(torch.zeros(1, 1, 4, 48, device=dev),) * 3)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_lm_prefill_through_kernel_matches_plain_route(dev, dtype):
+    """A reduced-depth internlm2 at full width: the prefill launches the
+    kernel once per layer and none in decode, and agrees with the
+    ``use_flash="never"`` route. In f32 the two routes compute the same
+    function in other orders (1e-4). In bf16 the two routes round
+    different numbers (the kernel the unnormalised exp(s - m_running)
+    before P . V, the never route the normalised P), and at d_model = 2048
+    a few logits move by more than the reference's reduced-size 3e-2
+    (tests/test_flash_integration.py), with both routes about equally far
+    from the f32 model. So bf16 is held to 3e-2 in relative L2 norm, and
+    elementwise the kernel route may be no further from the same weights
+    in f32 than 1.25x the never route's largest error."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import TransformerLM, init_params, prefill_step
+    from repro_torch.training.serve import greedy_generate
+
+    cfg = dataclasses.replace(get_config("internlm2-1.8b"), n_layers=2, dtype=dtype)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    never = TransformerLM(dataclasses.replace(cfg, use_flash="never"), device="meta")
+    never.load_state_dict(model.state_dict(), assign=True)
+    prompt = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (2, 300)),
+                             dtype=torch.int32, device=dev)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        a, _ = prefill_step(model, prompt, 310)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        b, _ = prefill_step(never, prompt, 310)
+    assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+    if dtype == "float32":
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    else:
+        assert float(torch.linalg.norm(a - b) / torch.linalg.norm(b)) <= 3e-2
+        m32 = TransformerLM(dataclasses.replace(cfg, dtype="float32"), device="meta")
+        m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
+        with torch.inference_mode():
+            c, _ = prefill_step(m32, prompt, 310)
+        assert float((a - c).abs().max()) <= 1.25 * float((b - c).abs().max())
+    ops.reset_launch_counts()
+    toks = greedy_generate(model, prompt, cfg, 4, 310)
+    assert toks.shape == (2, 4) and ops.launch_counts()["flash_attention"] == cfg.n_layers
