@@ -5,7 +5,8 @@
 
 Builds the hand-written kernels from src/repro_torch/csrc, holds each one
 against its plain PyTorch version at its path's shapes (f64 and f32 for the
-GP kernels, bf16 and f32 for flash attention), times both, and drives each
+GP kernels and their bf16-assembly variants, bf16 and f32 for flash
+attention), times both, and drives each
 path once through the user entry points:
 
 * single output: ``fit_sbv`` (2 structure rounds x 3 Adam steps, f64) on
@@ -15,6 +16,13 @@ path once through the user entry points:
   with 32 outputs, and ``predict_sbv`` on 20,000 held-out ones;
 * the batched covariance kernel through ``kernels.ops.matern_cov``, its only
   entry point (the JAX package calls it from tests alone);
+* buckets and the precision ladder, at the fit's initial parameters: the
+  single-output structure in size-buckets (f64 against the uniform layout,
+  and times), the bf16 and f32 variants per bucket against their plain
+  versions, the probe's tiers, ``fit_sbv(n_buckets=4, precision="bf16")``
+  (1 round x 3 steps), ``predict_sbv`` bucketed in f64 and bf16 on the
+  50,000 points, the multi-output stats bucketed (f64, and the bf16 variant
+  through ``packed_multi_stats``), and ``ops.matern_cov`` on bf16 points;
 * LM serving: internlm2-1.8b at full width and depth in bf16 (weights from a
   seeded generator), a 4 x 4096-token prompt prefilled through
   ``training.serve.make_prefill_step`` and 32 greedy tokens through
@@ -61,9 +69,13 @@ P_OUT, N_MULTI_TEST, MULTI_CHUNK = 32, 20_000, 10_000
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_NEW = "internlm2-1.8b", 4, 4096, 32
 
 # Published H100 peaks (NVIDIA data sheet): dense FLOP/s by operand type (f64
-# on the tensor cores, bf16 on the tensor cores) and HBM bytes/s.
-PEAKS = {"sxm": {"f64": 67e12, "bf16": 989e12, "hbm": 3.35e12},
-         "pcie": {"f64": 51e12, "bf16": 756e12, "hbm": 2.0e12}}
+# on the tensor cores, f32 outside them, bf16 on the tensor cores) and HBM
+# bytes/s. The GP kernels' bf16-assembly variants compute in f32.
+PEAKS = {"sxm": {"f64": 67e12, "f32": 67e12, "bf16": 989e12, "hbm": 3.35e12},
+         "pcie": {"f64": 51e12, "f32": 51e12, "bf16": 756e12, "hbm": 2.0e12}}
+# The buckets-and-ladder phase: bucket levels per dimension, as the
+# reference's bucketed fit and prediction default to.
+N_BUCKETS = 4
 
 
 class SmokeFailure(RuntimeError):
@@ -102,26 +114,31 @@ def card_peaks(name: str) -> dict:
     return PEAKS["pcie" if "PCIe" in name else "sxm"]
 
 
-def loglik_work(packed_np) -> tuple[float, float]:
+def loglik_work(packed_np, xb: int = 8, wb: int = 8) -> tuple[float, float]:
     """(flops, bytes) this run's data needs: factor/solve operations from
-    the real per-block counts, each input read once, one scalar out."""
+    the real per-block counts, each input read once, one scalar out.
+    ``xb`` / ``wb`` are the bytes per coordinate / per working value (bf16
+    variants: 2 / 4)."""
     m_b = packed_np.nn_mask.sum(axis=1).astype(float)
     bs_b = packed_np.blk_mask.sum(axis=1).astype(float)
     flops = float(np.sum(m_b ** 3 / 3 + m_b ** 2 * (bs_b + 1) + m_b * bs_b ** 2 + bs_b ** 3 / 3))
-    nbytes = float(sum(a.size * 8 for a in (packed_np.blk_x, packed_np.blk_y, packed_np.blk_mask,
-                                            packed_np.nn_x, packed_np.nn_y, packed_np.nn_mask)))
-    return flops, nbytes + 8 * packed_np.blk_x.shape[0]
+    nbytes = float(xb * (np.prod(packed_np.blk_x.shape) + np.prod(packed_np.nn_x.shape))
+                   + wb * sum(a.size for a in (packed_np.blk_y, packed_np.blk_mask,
+                                               packed_np.nn_y, packed_np.nn_mask)))
+    return flops, nbytes + wb * packed_np.blk_x.shape[0]
 
 
-def predict_work(packed_np) -> tuple[float, float]:
+def predict_work(packed_np, xb: int = 8, wb: int = 8) -> tuple[float, float]:
     m_b = packed_np.nn_mask.sum(axis=1).astype(float)
     bs_b = packed_np.q_mask.sum(axis=1).astype(float)
     flops = float(np.sum(m_b ** 3 / 3 + m_b ** 2 * (bs_b + 1) + m_b * bs_b))
-    nbytes = float(sum(a.size * 8 for a in packed_np.arrays()))
-    return flops, nbytes + 2 * 8 * packed_np.q_mask.size
+    nbytes = float(xb * (np.prod(packed_np.q_x.shape) + np.prod(packed_np.nn_x.shape))
+                   + wb * sum(a.size for a in (packed_np.q_mask, packed_np.nn_y,
+                                               packed_np.nn_mask)))
+    return flops, nbytes + 2 * wb * packed_np.q_mask.size
 
 
-def multi_work(packed_np) -> tuple[float, float]:
+def multi_work(packed_np, xb: int = 8, wb: int = 8) -> tuple[float, float]:
     """(flops, bytes) of the multi-output stats: the single-output chain
     with p right-hand sides instead of one, from the real per-block counts;
     each input read once, (1 + p) values out per block."""
@@ -130,9 +147,10 @@ def multi_work(packed_np) -> tuple[float, float]:
     p = packed_np.blk_y.shape[2]
     flops = float(np.sum(m_b ** 3 / 3 + m_b ** 2 * (bs_b + p) + m_b * bs_b ** 2
                          + 2 * m_b * bs_b * p + bs_b ** 3 / 3 + bs_b ** 2 * p))
-    nbytes = float(sum(a.size * 8 for a in (packed_np.blk_x, packed_np.blk_y, packed_np.blk_mask,
-                                            packed_np.nn_x, packed_np.nn_y, packed_np.nn_mask)))
-    return flops, nbytes + 8 * packed_np.blk_x.shape[0] * (1 + p)
+    nbytes = float(xb * (np.prod(packed_np.blk_x.shape) + np.prod(packed_np.nn_x.shape))
+                   + wb * sum(a.size for a in (packed_np.blk_y, packed_np.blk_mask,
+                                               packed_np.nn_y, packed_np.nn_mask)))
+    return flops, nbytes + wb * packed_np.blk_x.shape[0] * (1 + p)
 
 
 def cov_work(b: int, na: int, nb: int, d: int, itemsize: int) -> tuple[float, float]:
@@ -418,6 +436,461 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     del q, k, v, kx, vx, q32, k32, v32, model
     torch.cuda.empty_cache()
     return {name: pre_launches[name] + dec_launches[name] for name in pre_launches}
+
+
+# Per-block limits (relative to max(1, |value|); for predictions, to the
+# output scale) of the f32 and bf16 variants against their plain versions on
+# the same data, each set from its own readings at the fit's initial
+# parameters (nugget 1e-3 of sigma2), where the f32 Cholesky of a block
+# amplifies rounding by its conditioning (chip_smoke.py, NVIDIA H100 80GB
+# HBM3, 700.00 W): the f32 kernel and its plain version differ by up to
+# 1.24e-3 per block; the bf16 variants by up to 4.2e-4 (likelihood),
+# 6.4e-4 (multi-stats) and 5.0e-4 of the scale (predict).
+LADDER_TOL_F32 = 3e-3
+LADDER_TOL_BF16 = 1.5e-3
+# At the initial beta = 0.5 the bf16 variants' two roundings are exact (0.5
+# is a bf16 number, and a bf16 x over 0.5 is one), so a variant that left
+# either out would pass the limits above. The rounding checks run at a beta
+# that bf16 cannot hold, where each rounding moves the result: the kernel must
+# be closer (in L2 over all blocks) to its plain version than ROUND_MARGIN
+# times its distance to the plain version without the beta rounding, and to
+# the one without the rounding of x / beta.
+ROUND_BETA = 0.37
+ROUND_MARGIN = 0.5
+
+
+def _no_beta_round(x, beta):
+    """bf16(x / beta): the scaled coordinates without beta's rounding."""
+    return (x.float() / beta.float()).to(x.dtype).float()
+
+
+def _no_z_round(x, beta):
+    """x / bf16(beta) in f32: the scaled coordinates left unrounded."""
+    return x.float() / beta.to(x.dtype).float()
+
+
+def rounding_check(name: str, run_kernel, run_plain) -> float:
+    """Hold a bf16 variant to its plain version against the plain versions
+    with one of the two roundings of the scaled coordinates left out (see
+    ROUND_BETA). ``run_*`` return a list of tensors (or of tuples of
+    tensors). Returns the ratio of the distances."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.core import vecchia
+    from repro_torch.kernels import matern_cov as mc
+
+    @contextlib.contextmanager
+    def scaled_as(fn):
+        old = vecchia.narrow_scaled
+        vecchia.narrow_scaled = mc.narrow_scaled = fn
+        try:
+            yield
+        finally:
+            vecchia.narrow_scaled = mc.narrow_scaled = old
+
+    def flat(outs):
+        return torch.cat([t.double().reshape(-1) for o in outs
+                          for t in (o if isinstance(o, tuple) else (o,))])
+
+    got = flat(run_kernel())
+    with torch.no_grad():
+        want = flat(run_plain())
+        with scaled_as(_no_beta_round):
+            want_nb = flat(run_plain())
+        with scaled_as(_no_z_round):
+            want_nz = flat(run_plain())
+    e, e_nb, e_nz = (float(torch.linalg.vector_norm(got - w)) for w in (want, want_nb, want_nz))
+    ratio = e / max(min(e_nb, e_nz), 1e-300)
+    log(f"{name} rounding check at beta {ROUND_BETA}: L2 distance of the kernel to its plain "
+        f"version {e:.3e}, to it without the beta rounding {e_nb:.3e}, without the x / beta "
+        f"rounding {e_nz:.3e}: ratio {ratio:.3e} (limit {ROUND_MARGIN:g})")
+    check(bool(torch.isfinite(got).all()) and ratio <= ROUND_MARGIN,
+          f"{name}: the kernel is not closer to its plain version than to one without a "
+          f"rounding of the scaled coordinates ({e:.3e} vs {e_nb:.3e} / {e_nz:.3e})")
+    return ratio
+
+
+def block_rel(got, want) -> float:
+    """The largest per-block error relative to max(1, |want|)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / want.abs().clamp(min=1.0)).max())
+
+
+def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_tr, x_te, y_te,
+                         cfg, init, init_m) -> dict:
+    """Bucketed execution and the precision ladder, at the fit's initial
+    parameters (at the generator's true ones f32 and bf16 are meaningless:
+    ROADMAP fault 2). The bf16 variants against their plain versions, the
+    bucketed layouts against the uniform ones, and the bucketed bf16 fit,
+    prediction, multi-output stats and covariance through their entry
+    points. Returns the bf16 variants' launches in those path runs."""
+    import torch
+
+    from repro_torch.core import buckets as bk
+    from repro_torch.core import multioutput as mo
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core import vecchia
+    from repro_torch.core.fit import fit_sbv, neg_loglik_fn
+    from repro_torch.core.kernels_math import KernelParams
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain
+    from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
+    from repro_torch.kernels.sbv_multi_stats import sbv_multi_stats_cuda, sbv_multi_stats_plain
+    from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
+
+    f64, f32 = torch.float64, torch.float32
+    p0 = init.to(device=dev)
+    par = lambda p, dt: (p.beta.to(dt), p.sigma2.to(dt), p.nugget.to(dt))
+    launches = {}
+
+    # 18. The buckets of round 0's structure.
+    bucketed = bk.bucket_blocks(packed0, n_buckets=N_BUCKETS)
+    occ_u = bk.loglik_work([packed0])
+    log(f"buckets (n_buckets={N_BUCKETS}) of bc={packed0.n_blocks} bs_max={packed0.bs_max} "
+        f"m={packed0.m}: " + ", ".join(f"(bs={pk.bs_max}, m={pk.m}, bc={pk.n_blocks})"
+                                       for pk in bucketed.buckets))
+    log(f"occupancy (true / padded likelihood flops): uniform {occ_u[0] / occ_u[1]:.4f}, "
+        f"bucketed {bucketed.occupancy():.4f}")
+
+    # 19. f64: the bucketed kernel likelihood against the uniform one, and
+    # what padding costs in time.
+    arrs_u = vecchia.packed_arrays(packed0, dev)
+    arrs_b = vecchia.packed_arrays(bucketed, dev)
+    ll_u = float(sbv_loglik_cuda(*par(p0, f64), *arrs_u).sum())
+    ll_b = sum(float(sbv_loglik_cuda(*par(p0, f64), *a).sum()) for a in arrs_b)
+    rel = abs(ll_b - ll_u) / abs(ll_u)
+    t_u = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, f64), *arrs_u))
+    t_b = cuda_ms(lambda: [sbv_loglik_cuda(*par(p0, f64), *a) for a in arrs_b])
+    t_each = [cuda_ms(lambda a=a: sbv_loglik_cuda(*par(p0, f64), *a)) for a in arrs_b]
+    log(f"f64 loglik bucketed {ll_b:.12e} uniform {ll_u:.12e}: rel {rel:.3e}; kernel time "
+        f"uniform {t_u:.3f} ms, bucketed {t_b:.3f} ms (per bucket "
+        f"{', '.join(f'{t:.3f}' for t in t_each)} ms)")
+    check(rel <= 1e-10, f"bucketed f64 loglik vs uniform rel {rel:.3e} > 1e-10")
+    results["buckets"] = dict(uniform_ms=t_u, bucketed_ms=t_b)
+
+    # 20. Per bucket, the bf16 and f32 variants against their plain
+    # versions, and each tier's total against f64 beside its budget.
+    err16, k16_ms, pl16_ms, fl16, by16 = 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, (pk, a64) in enumerate(zip(bucketed.buckets, arrs_b)):
+        a16 = vecchia.packed_arrays(bk.cast_packed(pk, "bf16"), dev)
+        a32 = vecchia.packed_arrays(bk.cast_packed(pk, "f32"), dev)
+        want64 = float(sbv_loglik_cuda(*par(p0, f64), *a64).sum())
+        g16, g32 = (sbv_loglik_cuda(*par(p0, f32), *a) for a in (a16, a32))
+        with torch.no_grad():
+            w16, w32 = (sbv_loglik_plain(*par(p0, f32), *a) for a in (a16, a32))
+        torch.cuda.synchronize()
+        r16, r32 = block_rel(g16, w16), block_rel(g32, w32)
+        t16, t32 = (abs(float(g.double().sum()) - want64) / max(1.0, abs(want64))
+                    for g in (g16, g32))
+        k_ms = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, f32), *a16))
+        with torch.no_grad():
+            p_ms = cuda_ms(lambda: sbv_loglik_plain(*par(p0, f32), *a16), reps=1)
+        fl, by = loglik_work(pk, xb=2, wb=4)
+        log(f"bucket {i} (bs={pk.bs_max}, m={pk.m}, bc={pk.n_blocks}): kernel vs plain per-block "
+            f"max rel bf16 {r16:.3e} (limit {LADDER_TOL_BF16:g}), f32 {r32:.3e} (limit "
+            f"{LADDER_TOL_F32:g}); total vs f64 bf16 "
+            f"{t16:.3e} (budget {bk._TIER_BUDGETS['bf16']:g}), f32 {t32:.3e} (budget "
+            f"{bk._TIER_BUDGETS['f32']:g}); bf16 kernel {k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        check(bool(torch.isfinite(g16).all() and torch.isfinite(g32).all()),
+              f"bucket {i}: non-finite bf16/f32 kernel output")
+        check(r16 <= LADDER_TOL_BF16 and r32 <= LADDER_TOL_F32,
+              f"bucket {i}: kernel vs plain per-block rel bf16 {r16:.3e} / f32 {r32:.3e} "
+              f"> {LADDER_TOL_BF16:g} / {LADDER_TOL_F32:g}")
+        err16 = max(err16, float((g16.double() - w16.double()).abs().max()))
+        k16_ms, pl16_ms, fl16, by16 = k16_ms + k_ms, pl16_ms + p_ms, fl16 + fl, by16 + by
+        del a16, a32, g16, g32, w16, w32
+    torch.cuda.empty_cache()
+    b_ms, b_by = bound_ms(fl16, by16, peaks, "f32")
+    a16u = vecchia.packed_arrays(bk.cast_packed(packed0, "bf16"), dev)
+    k16u_ms = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, f32), *a16u))
+    del a16u
+    log(f"loglik bf16 variant: {k16_ms:.3f} ms over the {bucketed.n_buckets} buckets (uniform "
+        f"shape: {k16u_ms:.3f} ms); plain {pl16_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}, f32 "
+        f"peak; {fl16:.3e} flop, {by16:.3e} B)")
+    results["sbv_loglik_bf16"] = dict(max_abs_err=err16, ms=k16_ms, plain_ms=pl16_ms,
+                                      bound_ms=b_ms, bound_by=b_by, uniform_ms=k16u_ms)
+    # The rounding check (see ROUND_BETA) on the same buckets.
+    d = x_tr.shape[1]
+    pr = par(KernelParams.create(sigma2=float(init.sigma2), beta=ROUND_BETA,
+                                 nugget=float(init.nugget), d=d, device=dev), f32)
+    a16s = [vecchia.packed_arrays(bk.cast_packed(pk, "bf16"), dev) for pk in bucketed.buckets]
+    rounding_check("sbv_loglik_bf16", lambda: [sbv_loglik_cuda(*pr, *a) for a in a16s],
+                   lambda: [sbv_loglik_plain(*pr, *a) for a in a16s])
+    del a16s
+
+    # 21. The tiers the probe gives through the kernel route.
+    tiers = bk.assign_precision(p0, bucketed, bk.PrecisionPolicy("bf16"), backend="auto")
+    log(f"assign_precision(PrecisionPolicy('bf16')) through the kernel route: {tiers}")
+
+    # 22. The bucketed bf16 fit through the entry point (one structure pass).
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit = fit_sbv(x_tr, y_tr, cfg, init=init, n_buckets=N_BUCKETS, precision="bf16",
+                  outer_rounds=1, inner_steps=3, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t
+    fit_launches = ops.launch_counts()
+    launches["sbv_loglik_bf16"] = fit_launches["sbv_loglik_bf16"]
+    losses = [h[2] for h in fit.history]
+    loss_fn = neg_loglik_fn(fit.packed, 3.5, "auto", device=dev)
+    lv = [t_.clone().requires_grad_(True) for t_ in p0]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    torch.autograd.grad(loss_fn(KernelParams(*lv)), lv)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t
+    log(f"phase bucketed bf16 fit: {t_fit:.2f} s (1 round x 3 steps, probe included); tiers "
+        f"{fit.precision_tiers}; one step {t_step:.3f} s; losses {losses}; launches "
+        f"{fit_launches}")
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses) and losses[-1] <= losses[0],
+          f"bucketed bf16 fit: losses {losses}")
+    del fit, loss_fn
+
+    # A step at full width on every bucket cast to bf16 (the probe above
+    # keeps f64 at these parameters): the bf16 forward through the kernel and
+    # the gradient, which is the f64 plain version's on the bf16-stored data
+    # (ROADMAP fault 3), held against that version differentiated directly.
+    cast = bk.apply_precision(bucketed, "bf16")
+    loss16 = neg_loglik_fn(cast, 3.5, "auto", device=dev)
+    lv = [t_.clone().requires_grad_(True) for t_ in p0]
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    val16 = loss16(KernelParams(*lv))
+    g16 = torch.autograd.grad(val16, lv)
+    val16 = float(val16.detach())
+    torch.cuda.synchronize()
+    t_step16 = time.perf_counter() - t
+    step_launches = ops.launch_counts()
+    launches["sbv_loglik_bf16"] += step_launches["sbv_loglik_bf16"]
+    del loss16
+    wide = lambda a: a.double() if a.is_floating_point() else a
+    lv64 = [t_.clone().requires_grad_(True) for t_ in p0]
+    g_ref, val_ref = [torch.zeros_like(t_) for t_ in p0], 0.0
+    # The kernel route's loss is f32, so its cotangent is -1/n rounded to f32.
+    cot = float(torch.ones((), dtype=f32) / -cast.n_points)
+    for pk, arrs in zip(cast.buckets, vecchia.packed_arrays(cast, dev)):
+        ll = vecchia.packed_loglik(KernelParams(*lv64), pk, backend="ref",
+                                   arrays=tuple(wide(a) for a in arrs)) * cot
+        for acc, gi in zip(g_ref, torch.autograd.grad(ll, lv64)):
+            acc += gi
+        val_ref += float(ll.detach())
+        del ll
+    g_err = max(float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                for a, b in zip(g16, g_ref))
+    log(f"bf16 step on the bf16-cast buckets: {t_step16:.3f} s (forward + backward); loss "
+        f"{val16:.10f} (f64 plain, no pivot floor: {val_ref:.10f}); gradient vs the f64 "
+        f"plain version max rel {g_err:.3e}; launches {step_launches}")
+    check(math.isfinite(val16) and all(bool(torch.isfinite(g).all()) for g in g16),
+          "bf16 step: non-finite loss or gradient")
+    check(step_launches["sbv_loglik_bf16"] == cast.n_buckets and
+          step_launches["sbv_loglik"] == 0,
+          f"bf16 step launches {step_launches}, expected one bf16 launch per bucket")
+    check(g_err <= 1e-10, f"bf16 step: gradient vs the f64 plain version rel {g_err:.3e} > 1e-10")
+    del cast, g16, g_ref
+    torch.cuda.empty_cache()
+
+    # 23. Prediction: bucketed f64 against uniform, bf16 against f64.
+    kw = dict(bs_pred=BS_PRED, m_pred=M_PRED, n_sims=N_SIMS, chunk_size=CHUNK, seed=SEED,
+              device=dev)
+    t = time.perf_counter()
+    pred_u = tpredict.predict_sbv(init, x_tr, y_tr, x_te, **kw)
+    t_pu = time.perf_counter() - t
+    t = time.perf_counter()
+    pred_b = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, **kw)
+    t_pb = time.perf_counter() - t
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    pred_16 = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, precision="bf16",
+                                   **kw)
+    torch.cuda.synchronize()
+    t_p16 = time.perf_counter() - t
+    pred_launches = ops.launch_counts()
+    launches["sbv_predict_bf16"] = pred_launches["sbv_predict_bf16"]
+    # The reference's bf16 prediction test (tests/test_buckets.py:452-476)
+    # runs its ``ref`` route: the bf16 coordinates' rounding alone. Here too,
+    # on the plain version (not a kernel path; its launches are not counted).
+    t = time.perf_counter()
+    pred_r = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, precision="bf16",
+                                  backend="ref", **kw)
+    t_pr = time.perf_counter() - t
+    scale = max(1.0, float(np.abs(pred_u.mean).max()))
+    d_mean = float(np.abs(pred_b.mean - pred_u.mean).max())
+    d_var = float(np.abs(pred_b.var - pred_u.var).max())
+    rms = [float(np.sqrt(np.mean((p.mean - pred_u.mean) ** 2)) / np.sqrt(np.mean(pred_u.mean ** 2)))
+           for p in (pred_16, pred_r)]
+    mspe = [float(np.mean((p.mean - y_te) ** 2)) for p in (pred_u, pred_16, pred_r)]
+    log(f"phase bucketed predict at the initial params: uniform {t_pu:.2f} s, bucketed f64 "
+        f"{t_pb:.2f} s, bucketed bf16 {t_p16:.2f} s (ref route {t_pr:.2f} s); bucketed vs "
+        f"uniform max |d mean| {d_mean:.3e}, |d var| {d_var:.3e}; bf16 vs f64 relative RMS: "
+        f"kernel route {rms[0]:.4f} (printed: its pivot floor 2^-7 * sigma2 = "
+        f"{float(init.sigma2) / 128:.3g} is above the nugget {float(init.nugget):.3g}, so K(NN, NN) "
+        f"pivots are clamped; ROADMAP fault 4), ref route {rms[1]:.4f}; MSPE f64 {mspe[0]:.5f}, "
+        f"bf16 kernel route {mspe[1]:.5f}, ref route {mspe[2]:.5f}; launches of the bf16 run "
+        f"{pred_launches}")
+    check(d_mean <= 1e-10 * scale and d_var <= 1e-10 * scale,
+          f"bucketed predict vs uniform: {d_mean:.3e} / {d_var:.3e} > 1e-10 x {scale:.3g}")
+    check(all(bool(np.isfinite(p.mean).all() and (p.var > 0).all()) for p in (pred_16, pred_r)),
+          "bf16 predict: non-finite mean or non-positive variance")
+    check(rms[1] < 0.1, f"bf16 predict (ref route) vs f64 relative RMS {rms[1]:.4f} >= 0.1")
+    del pred_u, pred_b, pred_16, pred_r
+
+    # The predict variant against its plain version on the first chunk's
+    # buckets, at the f32 accumulation width the bf16 path packs at.
+    index = tpredict.build_train_index(x_tr, y_tr, init.beta.numpy(), M_PRED, seed=SEED)
+    _, chunk = next(tpredict.iter_query_chunks(index, x_te, BS_PRED, M_PRED, seed=SEED,
+                                               chunk_size=CHUNK, dtype=np.float32))
+    pieces = bk.bucket_prediction(chunk, n_buckets=N_BUCKETS).buckets
+    ac_u = tuple(torch.as_tensor(a).to(dev).double() for a in chunk.arrays())
+    ac_b = [tuple(torch.as_tensor(a).to(dev).double() for a in pc.arrays()) for pc in pieces]
+    tp_u = cuda_ms(lambda: sbv_predict_cuda(*par(p0, f64), *ac_u))
+    tp_b = cuda_ms(lambda: [sbv_predict_cuda(*par(p0, f64), *a) for a in ac_b])
+    occ_pu = bk.prediction_work([chunk])
+    log(f"predict chunk 0 buckets: " + ", ".join(f"(bs={pc.bs_pred}, m={pc.m_pred}, "
+                                                 f"bc={pc.n_blocks})" for pc in pieces)
+        + f"; occupancy uniform {occ_pu[0] / occ_pu[1]:.4f}, bucketed "
+        f"{bk.BucketedPrediction(pieces, []).occupancy():.4f}; f64 kernel time uniform "
+        f"{tp_u:.3f} ms, bucketed {tp_b:.3f} ms")
+    results["buckets"].update(predict_uniform_ms=tp_u, predict_bucketed_ms=tp_b)
+    del ac_u, ac_b
+    perr, pk_ms, pp_ms, pfl, pby = 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, pc in enumerate(pieces):
+        if pc.n_queries == 0:  # the chunk's padding blocks (no query), bucketed together
+            continue
+        arrs = tuple(torch.as_tensor(a).to(dev) for a in bk.cast_prediction(pc, "bf16").arrays())
+        got = sbv_predict_cuda(*par(p0, f32), *arrs)
+        want = sbv_predict_plain(*par(p0, f32), *arrs)
+        torch.cuda.synchronize()
+        msk = arrs[1]
+        sc = max(1.0, max(float(w[msk].abs().max()) for w in want))
+        err = max(float((g - w)[msk].abs().max()) for g, w in zip(got, want))
+        k_ms = cuda_ms(lambda: sbv_predict_cuda(*par(p0, f32), *arrs))
+        p_ms = cuda_ms(lambda: sbv_predict_plain(*par(p0, f32), *arrs), reps=1)
+        fl, by = predict_work(pc, xb=2, wb=4)
+        log(f"predict bucket {i} (bs={pc.bs_pred}, m={pc.m_pred}, bc={pc.n_blocks}): bf16 kernel "
+            f"vs plain max abs err {err:.3e} (|out| max {sc:.3g}); kernel {k_ms:.3f} ms, plain "
+            f"{p_ms:.1f} ms")
+        check(all(bool(torch.isfinite(g).all()) for g in got), "predict bf16: non-finite output")
+        check(err <= LADDER_TOL_BF16 * sc, f"predict bf16 bucket {i}: kernel vs plain {err:.3e} "
+                                           f"> {LADDER_TOL_BF16:g} x {sc:.3g}")
+        perr, pk_ms, pp_ms, pfl, pby = max(perr, err), pk_ms + k_ms, pp_ms + p_ms, pfl + fl, \
+            pby + by
+    pb_ms, pb_by = bound_ms(pfl, pby, peaks, "f32")
+    log(f"predict bf16 variant: {pk_ms:.3f} ms over one chunk's buckets; plain {pp_ms:.1f} ms; "
+        f"bound {pb_ms:.4f} ms ({pb_by}; {pfl:.3e} flop, {pby:.3e} B)")
+    results["sbv_predict_bf16"] = dict(max_abs_err=perr, ms=pk_ms, plain_ms=pp_ms, bound_ms=pb_ms,
+                                       bound_by=pb_by)
+    p16s = [tuple(torch.as_tensor(a).to(dev) for a in bk.cast_prediction(pc, "bf16").arrays())
+            for pc in pieces if pc.n_queries]
+    rounding_check("sbv_predict_bf16", lambda: [sbv_predict_cuda(*pr, *a) for a in p16s],
+                   lambda: [sbv_predict_plain(*pr, *a) for a in p16s])
+    del p16s
+
+    # 24. Multi-output: bucketed f64 stats against uniform; the bf16
+    # variant per bucket against its plain version; the bf16 stats path.
+    pm0 = init_m.to(device=dev)
+    s0 = pm0.structure_params()
+    bucketed_m = bk.bucket_blocks(packed_m, n_buckets=N_BUCKETS)
+    with torch.no_grad():
+        ld_u, q_u = mo.packed_multi_stats(pm0, packed_m)
+        ld_b, q_b = mo.packed_multi_stats(pm0, bucketed_m)
+    mrel = max(abs(float(ld_b - ld_u)) / abs(float(ld_u)),
+               float(((q_b - q_u).abs() / q_u.abs()).max()))
+    am_u = vecchia.packed_arrays(packed_m, dev)
+    am_b = vecchia.packed_arrays(bucketed_m, dev)
+    tm_u = cuda_ms(lambda: sbv_multi_stats_cuda(*par(s0, f64), *am_u))
+    tm_b = cuda_ms(lambda: [sbv_multi_stats_cuda(*par(s0, f64), *a) for a in am_b])
+    occ_mu = bk.loglik_work([packed_m])
+    log(f"multi buckets: " + ", ".join(f"(bs={pk.bs_max}, m={pk.m}, bc={pk.n_blocks})"
+                                       for pk in bucketed_m.buckets)
+        + f"; occupancy uniform {occ_mu[0] / occ_mu[1]:.4f}, bucketed "
+        f"{bucketed_m.occupancy():.4f}; f64 bucketed vs uniform max rel {mrel:.3e}; f64 kernel "
+        f"time uniform {tm_u:.3f} ms, bucketed {tm_b:.3f} ms")
+    results["buckets"].update(multi_uniform_ms=tm_u, multi_bucketed_ms=tm_b)
+    del am_u, am_b
+    check(mrel <= 1e-10, f"bucketed f64 multi stats vs uniform rel {mrel:.3e} > 1e-10")
+    merr, mk_ms, mp_ms, mfl, mby = 0.0, 0.0, 0.0, 0.0, 0.0
+    for i, pk in enumerate(bucketed_m.buckets):
+        a16 = vecchia.packed_arrays(bk.cast_packed(pk, "bf16"), dev)
+        got = sbv_multi_stats_cuda(*par(s0, f32), *a16)
+        with torch.no_grad():
+            want = sbv_multi_stats_plain(*par(s0, f32), *a16)
+        torch.cuda.synchronize()
+        r = block_rel(got, want)
+        k_ms = cuda_ms(lambda: sbv_multi_stats_cuda(*par(s0, f32), *a16))
+        with torch.no_grad():
+            p_ms = cuda_ms(lambda: sbv_multi_stats_plain(*par(s0, f32), *a16), reps=1)
+        fl, by = multi_work(pk, xb=2, wb=4)
+        log(f"multi bucket {i}: bf16 kernel vs plain per-block max rel {r:.3e}; kernel "
+            f"{k_ms:.3f} ms, plain {p_ms:.1f} ms")
+        check(bool(torch.isfinite(got).all()), "multi bf16: non-finite output")
+        check(r <= LADDER_TOL_BF16, f"multi bf16 bucket {i}: kernel vs plain rel {r:.3e} > "
+                                    f"{LADDER_TOL_BF16:g}")
+        merr = max(merr, float((got.double() - want.double()).abs().max()))
+        mk_ms, mp_ms, mfl, mby = mk_ms + k_ms, mp_ms + p_ms, mfl + fl, mby + by
+        del a16, got, want
+    mb_ms, mb_by = bound_ms(mfl, mby, peaks, "f32")
+    sr = par(KernelParams.create(sigma2=1.0, beta=ROUND_BETA, nugget=float(pm0.tau2), d=d,
+                                 device=dev), f32)
+    m16s = [vecchia.packed_arrays(bk.cast_packed(pk, "bf16"), dev) for pk in bucketed_m.buckets]
+    rounding_check("sbv_multi_stats_bf16", lambda: [sbv_multi_stats_cuda(*sr, *a) for a in m16s],
+                   lambda: [sbv_multi_stats_plain(*sr, *a) for a in m16s])
+    del m16s
+    cast_m = bk.apply_precision(bucketed_m, "bf16")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        ld16, q16 = mo.packed_multi_stats(pm0, cast_m)
+    torch.cuda.synchronize()
+    multi_launches = ops.launch_counts()
+    launches["sbv_multi_stats_bf16"] = multi_launches["sbv_multi_stats_bf16"]
+    q_gap = float(((q16.double() - q_u).abs() / q_u.abs()).max())
+    log(f"multi_stats bf16 variant: {mk_ms:.3f} ms over the buckets; plain {mp_ms:.1f} ms; "
+        f"bound {mb_ms:.4f} ms ({mb_by}); bf16 path vs f64: logdet0 rel "
+        f"{abs(float(ld16) - float(ld_u)) / abs(float(ld_u)):.3e}, q max rel {q_gap:.3e} "
+        f"(printed: the unit-variance pivot floor 2^-7 against tau2 "
+        f"{float(pm0.tau2):.3g}, ROADMAP fault 4); launches {multi_launches}")
+    results["sbv_multi_stats_bf16"] = dict(max_abs_err=merr, ms=mk_ms, plain_ms=mp_ms,
+                                           bound_ms=mb_ms, bound_by=mb_by)
+    del cast_m
+    torch.cuda.empty_cache()
+
+    # 25. The covariance's bf16 variant on the 256 joint blocks, through its
+    # entry point.
+    full_m = slice_blocks(packed_m, packed_m.bs_max, M_FIT, 256)
+    xj = torch.as_tensor(np.concatenate([full_m.nn_x, full_m.blk_x], axis=1),
+                         device=dev).bfloat16()
+    kp = KernelParams.create(sigma2=1.0, beta=0.5, nugget=1e-3, d=xj.shape[2], device=dev)
+    want = matern_cov_plain(xj, xj, kp.beta.float(), kp.sigma2.float())
+    ops.reset_launch_counts()
+    cov = ops.matern_cov(xj, xj, kp)
+    torch.cuda.synchronize()
+    launches["matern_cov_bf16"] = ops.launch_counts()["matern_cov_bf16"]
+    cerr = float((cov - want).abs().max())
+    ck_ms = cuda_ms(lambda: matern_cov_cuda(xj, xj, kp.beta, kp.sigma2))
+    cp_ms = cuda_ms(lambda: matern_cov_plain(xj, xj, kp.beta.float(), kp.sigma2.float()), reps=3)
+    b_, na, d_ = xj.shape
+    cfl = float(b_ * na * na * (2 * d_ + 15))
+    cby = float(2 * b_ * 2 * na * d_ + 4 * b_ * na * na)
+    cb_ms, cb_by = bound_ms(cfl, cby, peaks, "f32")
+    log(f"matern_cov bf16 variant at B={b_} na=nb={na} d={d_}: f32 output {cov.dtype}, kernel "
+        f"vs plain max_abs_err {cerr:.3e}; kernel {ck_ms:.3f} ms, plain {cp_ms:.3f} ms, bound "
+        f"{cb_ms:.4f} ms ({cb_by}); launches {launches['matern_cov_bf16']}")
+    check(cov.dtype == torch.float32 and bool(torch.isfinite(cov).all()) and cerr <= 1e-5,
+          f"matern_cov bf16: dtype {cov.dtype}, err {cerr:.3e} > 1e-5")
+    results["matern_cov_bf16"] = dict(max_abs_err=cerr, ms=ck_ms, plain_ms=cp_ms, bound_ms=cb_ms,
+                                      bound_by=cb_by)
+    kr = KernelParams.create(sigma2=1.0, beta=ROUND_BETA, d=d_, device=dev)
+    rounding_check("matern_cov_bf16", lambda: [matern_cov_cuda(xj, xj, kr.beta, kr.sigma2)],
+                   lambda: [matern_cov_plain(xj, xj, kr.beta.float(), kr.sigma2.float())])
+    del xj, cov, want
+    torch.cuda.empty_cache()
+    log(f"launches on the buckets-and-ladder paths: {launches}")
+    for name, n in launches.items():
+        check(n > 0, f"{name} launched no time on its path")
+    return launches
 
 
 def main() -> int:
@@ -909,6 +1382,12 @@ def main() -> int:
     del cov, xj
     torch.cuda.empty_cache()
 
+    # 18.-25. Buckets and the precision ladder.
+    t = time.perf_counter()
+    ladder_launches = buckets_ladder_phase(dev, peaks, results, packed0, packed_m, x_tr, y_tr,
+                                           x_te, y_te, cfg, init, init_m)
+    log(f"phase buckets and ladder: {time.perf_counter() - t:.1f} s")
+
     # 13.-17. LM serving.
     lm_launches = lm_serving_phase(dev, peaks, results)
 
@@ -923,7 +1402,15 @@ def main() -> int:
             ("matern_cov", "src/repro_torch/csrc/matern_cov.cu",
              "src/repro/kernels/matern_cov.py:49", cov_launches),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:92", lm_launches)):
+             "src/repro/kernels/flash_attention.py:92", lm_launches),
+            ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",
+             "src/repro/kernels/sbv_loglik.py:289", ladder_launches),
+            ("sbv_predict_bf16", "src/repro_torch/csrc/sbv_predict.cu",
+             "src/repro/kernels/sbv_predict.py:82", ladder_launches),
+            ("sbv_multi_stats_bf16", "src/repro_torch/csrc/sbv_multi_stats.cu",
+             "src/repro/kernels/sbv_loglik.py:247", ladder_launches),
+            ("matern_cov_bf16", "src/repro_torch/csrc/matern_cov.cu",
+             "src/repro/kernels/matern_cov.py:49", ladder_launches)):
         r = results[kname]
         kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
                         "launches": count[kname], "max_abs_err": r["max_abs_err"],

@@ -32,7 +32,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .kernels_math import KernelParams, cast_params
-from .vecchia import _LOG2PI, _cholesky, _masked_cov, _solve_lower, packed_arrays
+from .vecchia import _LOG2PI, _cholesky, _masked_cov, _solve_lower, narrow_factor, packed_arrays
 
 
 class MultiOutputParams(NamedTuple):
@@ -128,17 +128,46 @@ def block_multi_stats(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, 
     return logdet0, torch.sum(vb * vb, dim=-2)
 
 
-def packed_multi_stats(params: MultiOutputParams, packed, nu: float = 3.5,
-                       backend: str = "auto", arrays: tuple | None = None):
-    """Dataset totals ``(logdet0, q0 (p,))`` of a ``PackedBlocks`` with
-    (bc, bs, p) observations, on the params' device.
+def block_multi_stats_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                             nu: float = 3.5):
+    """Per-block ``(logdet0 (bc,), q0 (bc, p))`` on the bf16-assembly tier:
+    bf16 coordinates, f32 observations (bc, ., p), masks and parameters;
+    the Pallas multi-stats body with its pivot floor (see
+    ``vecchia.narrow_factor``)."""
+    m = nn_x.shape[-2]
+    at = narrow_factor(beta, sigma2, nugget, nn_x, nn_mask.bool(), nn_y, blk_x, blk_mask.bool(),
+                       blk_y, nu)
+    n = at.shape[-2]
+    diag = torch.diagonal(at, dim1=-2, dim2=-1)[..., m:]
+    logdet0 = 2.0 * torch.sum(torch.log(torch.clamp(diag, min=1e-30)) * blk_mask.float(), dim=-1)
+    vb = at[..., m:, n:]
+    return logdet0, torch.sum(vb * vb, dim=-2)
 
-    ``auto`` goes through ``kernels.ops.sbv_multi_stats`` (the fused CUDA
-    kernel on a CUDA device, the plain version on the CPU); ``ref``
-    differentiates the plain version directly. ``arrays`` passes operands
-    already on the device (``packed_arrays``)."""
+
+def _cast_multi(params: MultiOutputParams, dtype) -> MultiOutputParams:
+    """Differentiable down-cast (precision ladder), like ``cast_params``."""
+    return MultiOutputParams(*(a.to(dtype) for a in params))
+
+
+def packed_multi_stats(params: MultiOutputParams, packed, nu: float = 3.5,
+                       backend: str = "auto", arrays=None):
+    """Dataset totals ``(logdet0, q0 (p,))`` of a ``PackedBlocks`` or
+    ``BucketedBlocks`` with (., ., p) observations, on the params' device.
+
+    Dispatch as ``vecchia.packed_loglik``: ``'auto'`` goes through
+    ``kernels.ops.sbv_multi_stats`` (the fused CUDA kernel on a CUDA
+    device, the plain version on the CPU); ``'ref'`` differentiates the
+    plain version directly. A bucketed layout sums its per-bucket stats.
+    ``arrays`` passes operands already on the device (``packed_arrays``)."""
     if hasattr(packed, "buckets"):
-        raise NotImplementedError("bucketed layouts are not ported yet")
+        if arrays is None:
+            arrays = packed_arrays(packed, params.log_beta.device)
+        ld = q = None
+        for pk, arrs in zip(packed.buckets, arrays):
+            ld_b, q_b = packed_multi_stats(params, pk, nu=nu, backend=backend, arrays=arrs)
+            ld = ld_b if ld is None else ld + ld_b
+            q = q_b if q is None else q + q_b
+        return ld, q
     if arrays is None:
         arrays = packed_arrays(packed, params.log_beta.device)
     p0 = params.structure_params()

@@ -1,6 +1,7 @@
 """Block prediction with conditional simulation (paper Eq. 3 + §5.1.5).
 
-Counterpart of ``repro.core.predict`` for the in-core, uniform layout:
+Counterpart of ``repro.core.predict`` for the in-core layouts, uniform or
+bucketed (``core.buckets``), at any precision-ladder tier:
 
     pack    -- test points are clustered into prediction blocks (bs_pred);
                each block conditions on its m_pred nearest TRAINING points
@@ -20,7 +21,8 @@ single-output. An (n, 1) ``y`` squeezes to the single-output path.
 The reference draws its simulation noise from ``jax.random``; that stream
 cannot be reproduced here, so ``predict_sbv`` takes an injected ``eps`` for
 exact comparisons and otherwise draws from a ``torch.Generator`` on the
-device, seeded from ``seed`` and the chunk id.
+device, seeded from ``seed``, the chunk id and, on the bucketed layout,
+the bucket id.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from .kernels_math import KernelParams, cast_params
 from .multioutput import MultiOutputParams, as_multi_params
 from .nns import _FlatBlocks, filtered_knn_points
 from .packing import PackedPrediction, pack_prediction, round_up
-from .vecchia import _cholesky, _masked_cov, _solve_lower
+from .vecchia import _cholesky, _masked_cov, _solve_lower, narrow_factor
 
 Z975 = 1.959963984540054
 
@@ -151,6 +153,22 @@ def block_predict(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask, nu: fl
     return mu, torch.clamp(var, min=1e-12)
 
 
+def block_predict_narrow(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask,
+                         nu: float = 3.5):
+    """``(mu, var)``, each (bc, bs), on the bf16-assembly tier: bf16
+    coordinates, f32 observations, masks and parameters; the Pallas predict
+    body with its pivot floor (see ``vecchia.narrow_factor``)."""
+    m, bs = nn_x.shape[-2], q_x.shape[-2]
+    zeros = torch.zeros(q_x.shape[:-1] + (1,), dtype=nn_y.dtype, device=nn_y.device)
+    at = narrow_factor(beta, sigma2, nugget, nn_x, nn_mask.bool(), nn_y[..., None], q_x,
+                       q_mask.bool(), zeros, nu, ncols=m)
+    a = at[..., m:m + bs]                                # (bc, m, bs) = L^-1 K(NN, Q)
+    z = at[..., m + bs]                                  # (bc, m)     = L^-1 y_NN
+    mu = torch.sum(a * z[..., None], dim=-2) * q_mask.float()
+    var = (sigma2 + nugget) - torch.sum(a * a, dim=-2)
+    return mu, torch.clamp(var, min=1e-12)
+
+
 def block_predict_multi(beta, tau2, sigma2, q_x, q_mask, nn_x, nn_y, nn_mask,
                         nu: float = 3.5):
     """Batched multi-output block conditional: ``(mu, var)``, each (bc, bs, p).
@@ -180,23 +198,27 @@ def batched_block_predict(params: KernelParams | MultiOutputParams, q_x, q_mask,
     """Conditional mean/variance of every prediction block: (bc, bs) each.
     Padded query slots carry mu=0 / var=prior; drop them with the mask.
 
-    ``auto`` runs the fused kernel on CUDA tensors and the plain version
-    on CPU tensors (``kernels.ops.sbv_predict``); ``ref`` runs the plain
-    version directly (differentiable). ``MultiOutputParams`` with
-    (bc, m, p) ``nn_y`` take the shared-Cholesky multi-output conditional
-    under every backend and give (bc, bs, p) each."""
+    ``auto`` runs the fused kernel on CUDA tensors and the plain version on CPU
+    tensors (``kernels.ops.sbv_predict``), at the observations' dtype, with
+    the bf16-assembly variant for bf16 coordinates; ``ref`` runs the plain
+    version directly (differentiable) at the promotion of the params' and
+    the data's dtypes, as the reference's ``_predict_one`` does under jnp
+    promotion. ``MultiOutputParams`` with (bc, m, p) ``nn_y`` take the
+    shared-Cholesky multi-output conditional under every backend, at that
+    promotion too, and give (bc, bs, p) each."""
+    wide = torch.promote_types(params.log_beta.dtype, nn_y.dtype)
     if isinstance(params, MultiOutputParams):
-        p = MultiOutputParams(*(a.to(nn_y.dtype) for a in params))
-        return block_predict_multi(p.beta, p.tau2, p.sigma2, q_x, q_mask, nn_x, nn_y, nn_mask,
-                                   nu=nu)
+        p = MultiOutputParams(*(a.to(wide) for a in params))
+        return block_predict_multi(p.beta, p.tau2, p.sigma2, q_x.to(wide), q_mask,
+                                   nn_x.to(wide), nn_y.to(wide), nn_mask, nu=nu)
     if backend == "auto":
         from repro_torch.kernels import ops
 
         return ops.sbv_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu=nu)
     if backend == "ref":
-        p = cast_params(params, nn_y.dtype)
-        return block_predict(p.beta, p.sigma2, p.nugget, q_x, q_mask, nn_x, nn_y, nn_mask,
-                             nu=nu)
+        p = cast_params(params, wide)
+        return block_predict(p.beta, p.sigma2, p.nugget, q_x.to(wide), q_mask, nn_x.to(wide),
+                             nn_y.to(wide), nn_mask, nu=nu)
     raise ValueError(f"unknown backend {backend!r}")
 
 
@@ -222,8 +244,13 @@ def _predict_and_simulate(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float, b
     return mu, var, sim_mean, sim_std
 
 
-def _chunk_generator(seed: int, chunk_id: int, device: torch.device) -> torch.Generator:
-    state = np.random.SeedSequence([seed, chunk_id]).generate_state(1, dtype=np.uint64)[0]
+def _chunk_generator(seed: int, chunk_id: int, device: torch.device,
+                     bucket_id: int | None = None) -> torch.Generator:
+    """The simulation-noise generator of one chunk (uniform layout) or of
+    one bucket of a chunk (bucketed layout: an independent stream per
+    bucket, as the reference folds the bucket index into the chunk key)."""
+    words = [seed, chunk_id] if bucket_id is None else [seed, chunk_id, bucket_id]
+    state = np.random.SeedSequence(words).generate_state(1, dtype=np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
 
 
@@ -257,23 +284,39 @@ def predict_sbv(
     ``device='cpu'``). ``beta_struct`` overrides the scaling used for
     clustering/NNS only. ``chunk_size`` streams the test set through
     fixed-shape chunks so device memory stays bounded. ``eps``, when given,
-    is a callable ``eps(chunk_id, shape)`` returning the (n_sims, bc, bs[, p])
-    standard-normal draws of that chunk (tests inject the reference's
-    draws); otherwise each chunk draws from its own device generator.
+    is a callable ``eps(chunk_id, bucket_id, shape)`` returning the
+    (n_sims, bc, bs[, p]) standard-normal draws of that chunk
+    (``bucket_id`` None) or of that bucket of the chunk (tests inject the
+    reference's draws); otherwise each chunk, or bucket, draws from its own
+    device generator.
+
+    ``n_buckets`` runs each chunk as size-buckets padded to their own
+    ceilings (``core.buckets``), one kernel launch per bucket; mean and
+    variance equal the uniform layout's. ``precision`` (a ladder tier or a
+    ``PrecisionPolicy``) packs the queries at the tier's accumulation dtype
+    and casts each piece's coordinates to its storage dtype (bf16: the
+    kernels' bf16-assembly variant); no probe runs here: pass the fitted
+    tier.
 
     An (n, p) ``y_train`` predicts all p outputs from one training index
     with ``MultiOutputParams`` (a ``KernelParams`` is broadcast over the
     outputs); every result is then (n_test, p). An (n, 1) ``y_train`` runs
     the single-output path and returns (n_test, 1) results.
 
-    Bucketed layouts, streaming indexes, the precision ladder, tuning
-    records and multi-host sharding are not ported yet and raise
-    ``NotImplementedError``."""
-    for name, val in (("n_buckets", n_buckets), ("stream_chunk", stream_chunk),
-                      ("precision", precision), ("tuning", tuning),
+    Streaming indexes, tuning records and multi-host sharding are not
+    ported yet and raise ``NotImplementedError``."""
+    for name, val in (("stream_chunk", stream_chunk), ("tuning", tuning),
                       ("multihost", multihost)):
         if val is not None:
             raise NotImplementedError(f"predict_sbv({name}=) is not ported yet")
+    tier = None
+    if precision is not None:
+        from .buckets import acc_dtype, as_policy
+
+        pol = as_policy(precision)
+        if pol.tier != "f64":
+            tier = pol.tier
+            dtype = acc_dtype(tier)  # queries pack at the accumulation width
     y_train = np.asarray(y_train)
     n_outputs = 1
     squeeze_back = y_train.ndim == 2 and y_train.shape[1] == 1
@@ -297,14 +340,30 @@ def predict_sbv(
     for ci, packed in iter_query_chunks(index, x_test, bs_pred, m_pred, alpha=alpha,
                                         seed=seed, n_workers=n_workers,
                                         chunk_size=chunk_size, dtype=dtype):
-        arrs = tuple(torch.as_tensor(a).to(dev) for a in packed.arrays())
-        shape = (n_sims,) + packed.q_mask.shape + out_shape[1:]
-        eps_c = None if eps is None else eps(ci, shape)
-        gen = None if eps_c is not None else _chunk_generator(seed, ci, dev)
-        mu_b, var_b, sm_b, ss_b = _predict_and_simulate(
-            params, *arrs, nu=nu, backend=backend, n_sims=n_sims, eps=eps_c, generator=gen)
-        scatter_packed(packed, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
-                       (ss_b, sim_std))
+        if n_buckets:
+            from .buckets import bucket_mults, bucket_prediction
+
+            bs_mult, m_mult = bucket_mults(backend, precision=tier)
+            pieces = bucket_prediction(packed, n_buckets=n_buckets, bs_mult=bs_mult,
+                                       m_mult=m_mult).buckets
+        else:
+            pieces = [packed]
+        if tier is not None:
+            from .buckets import cast_prediction
+
+            pieces = [cast_prediction(pc, tier) for pc in pieces]
+        for bi, piece in enumerate(pieces):
+            # The uniform layout keeps the per-chunk stream; buckets draw
+            # from independent per-bucket streams, as in the reference.
+            b_id = bi if n_buckets else None
+            arrs = tuple(torch.as_tensor(a).to(dev) for a in piece.arrays())
+            shape = (n_sims,) + piece.q_mask.shape + out_shape[1:]
+            eps_c = None if eps is None else eps(ci, b_id, shape)
+            gen = None if eps_c is not None else _chunk_generator(seed, ci, dev, b_id)
+            mu_b, var_b, sm_b, ss_b = _predict_and_simulate(
+                params, *arrs, nu=nu, backend=backend, n_sims=n_sims, eps=eps_c, generator=gen)
+            scatter_packed(piece, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
+                           (ss_b, sim_std))
     if squeeze_back:
         mean, var, sim_mean, sim_std = (a[:, None] for a in (mean, var, sim_mean, sim_std))
     return Prediction(mean=mean, var=var, sim_mean=sim_mean,

@@ -119,6 +119,97 @@ def block_loglik(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_ma
     return -0.5 * n_real * _LOG2PI - 0.5 * logdet - 0.5 * torch.sum(v * v, dim=-1)
 
 
+# -- the bf16-assembly tier (the Pallas kernels' narrow form) ---------------
+#
+# With bf16 coordinates the reference's kernels scale the coordinates at
+# storage width, z = bf16(x / bf16(beta)), widen z to f32 and assemble,
+# factor and solve in f32, clamping every Cholesky pivot at
+# eps(bf16) * sigma2 (src/repro/kernels/sbv_loglik.py: _sbv_kernel,
+# _masked_cov_tile, _cholesky_inplace). The functions below are that body in
+# plain torch: the CPU path of the kernel route and the yardstick of the
+# CUDA kernels' bf16 variants. Like the kernels they factor the joint
+# covariance of [neighbours; block] once, with the observations as extra
+# rows; its pivots are those of the Pallas chain chol -> solve -> Schur ->
+# chol. Forward only: the gradient of every tier is the f64 plain version
+# (kernels/ops.py).
+
+BF16_EPS = 2.0 ** -7  # finfo(bfloat16).eps
+
+
+def narrow_scaled(x: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """bf16 coordinates scaled at storage width and widened: f32
+    ``bf16(x / bf16(beta))`` (the division is done in f32 and rounded once
+    to bf16, which is the correctly rounded bf16 quotient)."""
+    return (x / beta.to(x.dtype)).float()
+
+
+def narrow_joint(beta, sigma2, nugget, x0, m0, x1, m1, nu: float) -> torch.Tensor:
+    """The f32 joint covariance (..., P, P) of the bf16 point sets
+    [x0; x1] (P = n0 + n1), masked, with the nugget and unit padding on the
+    diagonal. A point's distance to itself is exactly 0, as in the kernels."""
+    z = narrow_scaled(torch.cat([x0, x1], dim=-2), beta)
+    mask = torch.cat([m0, m1], dim=-1).float()
+    nrm = torch.sum(z * z, dim=-1)
+    d2 = nrm[..., :, None] + nrm[..., None, :] - 2.0 * z @ z.transpose(-1, -2)
+    eye = torch.eye(z.shape[-2], dtype=torch.bool, device=z.device)
+    d2 = torch.where(eye, torch.zeros((), dtype=d2.dtype, device=d2.device),
+                     torch.clamp(d2, min=0.0))
+    k = sigma2 * matern(torch.sqrt(d2 + 1e-30), nu) * (mask[..., :, None] * mask[..., None, :])
+    return k + torch.diag_embed(nugget * mask + (1.0 - mask))
+
+
+def floored_cholesky_(at: torch.Tensor, ncols: int, floor, panel: int = 16) -> torch.Tensor:
+    """In-place blocked right-looking Cholesky of the first ``ncols``
+    columns of A, stored transposed: ``at`` is (..., C, N) with
+    ``at[..., j, i] = A[i, j]`` (column j contiguous). Rows of A below
+    ``ncols`` ride along as extra right-hand sides (the forward solve).
+    Every pivot is clamped at ``floor`` before its square root. Returns
+    ``at``, whose lower part (i >= j) now holds the factor."""
+    for j0 in range(0, ncols, panel):
+        j1 = min(ncols, j0 + panel)
+        for c in range(j0, j1):
+            piv = torch.sqrt(torch.maximum(at[..., c, c], floor))
+            at[..., c, c] = piv
+            at[..., c, c + 1:] /= piv[..., None]
+            if c + 1 < j1:
+                at[..., c + 1:j1, c + 1:] -= at[..., c, c + 1:j1, None] * at[..., c, None, c + 1:]
+        if j1 < ncols:
+            at[..., j1:ncols, j1:] -= at[..., j0:j1, j1:ncols].transpose(-1, -2) @ at[..., j0:j1, j1:]
+    return at
+
+
+def narrow_factor(beta, sigma2, nugget, x0, m0, y0, x1, m1, y1, nu: float,
+                  ncols: int | None = None) -> torch.Tensor:
+    """The factored joint panel of one bf16 tier call: the joint
+    covariance of [x0; x1] with the masked observation columns y0, y1
+    (..., n, r) appended as r extra rows of A, factored over its first
+    ``ncols`` columns (all P by default) with the bf16 pivot floor.
+    Returns ``at`` (..., ncols, P + r), transposed as in
+    ``floored_cholesky_``."""
+    k = narrow_joint(beta, sigma2, nugget, x0, m0, x1, m1, nu)
+    ncols = k.shape[-1] if ncols is None else ncols
+    y = torch.cat([y0 * m0.float()[..., None], y1 * m1.float()[..., None]], dim=-2)
+    # k is symmetric, so its row j is column j of A; y's row j holds A's
+    # observation rows at column j.
+    at = torch.cat([k, y], dim=-1)[..., :ncols, :]
+    return floored_cholesky_(at, ncols, sigma2 * BF16_EPS)
+
+
+def block_loglik_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                        nu: float = 3.5) -> torch.Tensor:
+    """Per-block log-densities (bc,) on the bf16-assembly tier: bf16
+    coordinates, f32 observations, masks and parameters."""
+    m = nn_x.shape[-2]
+    at = narrow_factor(beta, sigma2, nugget, nn_x, nn_mask.bool(), nn_y[..., None],
+                       blk_x, blk_mask.bool(), blk_y[..., None], nu)
+    p = at.shape[-2]
+    mb = blk_mask.float()
+    diag = torch.diagonal(at, dim1=-2, dim2=-1)[..., m:]
+    logdet = 2.0 * torch.sum(torch.log(torch.clamp(diag, min=1e-30)) * mb, dim=-1)
+    v = at[..., m:, p]
+    return -0.5 * mb.sum(dim=-1) * _LOG2PI - 0.5 * logdet - 0.5 * torch.sum(v * v, dim=-1)
+
+
 def batched_block_loglik(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y,
                          nn_mask, nu: float = 3.5) -> torch.Tensor:
     """Sum of per-block conditional log-densities."""
@@ -126,25 +217,34 @@ def batched_block_loglik(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_
                         blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask, nu=nu).sum()
 
 
-def packed_arrays(packed, device) -> tuple:
+def packed_arrays(packed, device):
     """The six likelihood operands of a ``PackedBlocks`` as tensors on
-    ``device`` (numpy arrays are copied; tensors are moved if needed)."""
+    ``device`` (numpy arrays are copied; tensors are moved if needed); for
+    a ``BucketedBlocks``, a list with one such tuple per bucket."""
+    if hasattr(packed, "buckets"):
+        return [packed_arrays(pk, device) for pk in packed.buckets]
     arrs = (packed.blk_x, packed.blk_y, packed.blk_mask,
             packed.nn_x, packed.nn_y, packed.nn_mask)
     return tuple(torch.as_tensor(a).to(device) for a in arrs)
 
 
 def packed_loglik(params: KernelParams, packed, nu: float = 3.5,
-                  backend: str = "auto", arrays: tuple | None = None) -> torch.Tensor:
-    """Log-likelihood of a ``PackedBlocks`` dataset on the params' device.
+                  backend: str = "auto", arrays=None) -> torch.Tensor:
+    """Log-likelihood of a ``PackedBlocks`` or ``BucketedBlocks`` dataset on
+    the params' device.
 
     ``backend='auto'`` goes through ``kernels.ops.sbv_loglik``, which runs
-    the fused CUDA kernel on a CUDA device and this module's plain version
-    on the CPU (its backward is the plain version either way).
-    ``backend='ref'`` differentiates the plain version directly.
-    ``arrays`` passes operands already on the device (``packed_arrays``),
-    so a fit moves them once per structure refresh, not once per step.
+    the fused CUDA kernel on a CUDA device and its plain version on the CPU
+    (its backward is the plain version either way), for every bucket shape
+    and tier. ``backend='ref'`` differentiates the plain
+    version directly, at the packed observations' dtype. The coordinate
+    dtype selects the precision tier (bf16 coordinates: the bf16-assembly
+    tier). ``arrays`` passes operands already on the device
+    (``packed_arrays``), so a fit moves them once per structure refresh,
+    not once per step.
     """
+    if hasattr(packed, "buckets"):
+        return bucketed_loglik(params, packed, nu=nu, backend=backend, arrays=arrays)
     device = params.log_beta.device
     if arrays is None:
         arrays = packed_arrays(packed, device)
@@ -156,3 +256,17 @@ def packed_loglik(params: KernelParams, packed, nu: float = 3.5,
 
         return ops.sbv_loglik(params, *arrays, nu=nu)
     raise ValueError(f"unknown backend {backend!r}")
+
+
+def bucketed_loglik(params: KernelParams, bucketed, nu: float = 3.5, backend: str = "auto",
+                    arrays=None) -> torch.Tensor:
+    """Sum of the per-bucket packed log-likelihoods (one kernel launch per
+    bucket). Identity padding makes it equal to the uniform layout's.
+    Differentiable: gradients flow through each bucket independently."""
+    if arrays is None:
+        arrays = packed_arrays(bucketed, params.log_beta.device)
+    total = None
+    for pk, arrs in zip(bucketed.buckets, arrays):
+        ll = packed_loglik(params, pk, nu=nu, backend=backend, arrays=arrs)
+        total = ll if total is None else total + ll
+    return total

@@ -25,15 +25,58 @@
 // branch. The sqrt floor (1e-30 on the clamped squared distance) and the
 // pivot floor (1e-30) are those of `_masked_cov_tile` / `_cholesky_inplace`
 // in the Pallas kernel.
+//
+// Coordinates may be stored narrower than the working type T: bf16
+// coordinates with T = float are the precision ladder's bf16-assembly tier
+// (`narrow_gemm` in the Pallas kernels). There beta is rounded to bf16, the
+// scaled coordinate z = x / beta is rounded to bf16 (see Coords), z is
+// widened to f32 exactly, and everything after it runs in f32, with the
+// Cholesky pivots clamped at eps(bf16) * sigma2 = 2^-7 * sigma2
+// (pivot_floor). Masked pivots are exactly 1, above that floor for any
+// sigma2 < 128, as in the Pallas kernel.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 namespace sbv {
 
 constexpr int kThreads = 256;  // threads per CTA
 constexpr int kPanel = 16;     // columns factored per panel (blocked right-looking)
+
+// How a stored coordinate of type X becomes a scaled coordinate of type T.
+template <typename X, typename T>
+struct Coords {
+  static_assert(std::is_same<X, T>::value, "coordinates narrower than T: bf16 with float only");
+  static __device__ __forceinline__ T beta(T b) { return b; }
+  static __device__ __forceinline__ T scale(X x, T b) { return x / b; }
+};
+
+// bf16 assembly: z = bf16(x / bf16(beta)). The quotient is formed in f32
+// (an IEEE-rounded division without fast math) and rounded to bf16 to
+// nearest even; f32's 24 bits >= 2 * 8 + 2, so that double rounding gives
+// the correctly rounded bf16 quotient.
+template <>
+struct Coords<__nv_bfloat16, float> {
+  static __device__ __forceinline__ float beta(float b) {
+    return __bfloat162float(__float2bfloat16_rn(b));
+  }
+  static __device__ __forceinline__ float scale(__nv_bfloat16 x, float b) {
+    return __bfloat162float(__float2bfloat16_rn(__bfloat162float(x) / b));
+  }
+};
+
+// Cholesky pivot floor: 1e-30 when the coordinates are stored at the
+// working width, eps(bf16) * sigma2 on the bf16-assembly tier (the Pallas
+// kernels' `finfo(xb.dtype).eps * sigma2`), whose rounded Gram matrix can
+// leave a Schur complement slightly indefinite.
+template <typename X, typename T>
+__device__ __forceinline__ T pivot_floor(T sigma2) {
+  return std::is_same<X, T>::value ? T(1e-30) : sigma2 * T(0.0078125);
+}
 
 template <typename T>
 __device__ __forceinline__ T matern(T r, int nu_code) {
@@ -69,21 +112,23 @@ struct Smem {
 };
 
 // Load the two point sets of one block: set 0 (n0 points) then set 1
-// (n1 points). Coordinates are scaled by beta, transposed into zt (d x P);
-// masks go to msk and masked single-output observations to ys (y1 may be
-// null: zeros). With ys null no observation is staged: a multi-output
-// kernel reads its p observation rows from device memory in `assemble`.
-template <typename T>
-__device__ void load_points(const T* __restrict__ x0, const T* __restrict__ m0,
+// (n1 points). Coordinates (stored as X) are scaled by beta (already passed
+// through Coords<X, T>::beta), transposed into zt (d x P, type T); masks go
+// to msk and masked single-output observations to ys (y1 may be null:
+// zeros). With ys null no observation is staged: a multi-output kernel
+// reads its p observation rows from device memory in `assemble`. bf16 rows
+// are read one 2-byte element at a time, so an odd d needs no alignment.
+template <typename T, typename X>
+__device__ void load_points(const X* __restrict__ x0, const T* __restrict__ m0,
                             const T* __restrict__ y0, int n0,
-                            const T* __restrict__ x1, const T* __restrict__ m1,
+                            const X* __restrict__ x1, const T* __restrict__ m1,
                             const T* __restrict__ y1, int n1, int d,
                             const T* beta, T* zt, T* nrm, T* msk, T* ys) {
   const int P = n0 + n1;
   for (int e = threadIdx.x; e < P * d; e += blockDim.x) {
     int i = e / d, k = e % d;
-    T x = i < n0 ? x0[(size_t)i * d + k] : x1[(size_t)(i - n0) * d + k];
-    zt[k * P + i] = x / beta[k];
+    X x = i < n0 ? x0[(size_t)i * d + k] : x1[(size_t)(i - n0) * d + k];
+    zt[k * P + i] = Coords<X, T>::scale(x, beta[k]);
   }
   for (int i = threadIdx.x; i < P; i += blockDim.x) {
     T mk = i < n0 ? m0[i] : m1[i - n0];

@@ -1,4 +1,6 @@
-// Fused SBV block prediction for Hopper (sm_90a), f64 and f32.
+// Fused SBV block prediction for Hopper (sm_90a): f64, f32, and bf16
+// coordinates with f32 working type (the bf16-assembly tier; pivots clamped
+// at eps(bf16) * sigma2; sbv_common.cuh).
 //
 // Replaces `sbv_predict_pallas` / `_sbv_predict_kernel` and, as a contract,
 // `sbv_predict_tiled` in src/repro/kernels/sbv_predict.py: this kernel takes
@@ -21,11 +23,11 @@
 
 namespace {
 
-template <typename T>
+template <typename T, typename X>
 __global__ void __launch_bounds__(sbv::kThreads)
 sbv_predict_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
-                   const T* __restrict__ q_x, const T* __restrict__ q_m,
-                   const T* __restrict__ nn_x, const T* __restrict__ nn_y,
+                   const X* __restrict__ q_x, const T* __restrict__ q_m,
+                   const X* __restrict__ nn_x, const T* __restrict__ nn_y,
                    const T* __restrict__ nn_m, T* __restrict__ mu_out,
                    T* __restrict__ var_out, T* __restrict__ scratch,
                    int bc, int bs, int m, int d, int nu_code) {
@@ -41,17 +43,18 @@ sbv_predict_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
   T* A = scratch + (size_t)blockIdx.x * N * m;
   const T sigma2 = scal[0], nugget = scal[1];
   const T prior = sigma2 + nugget;
+  const T piv_floor = sbv::pivot_floor<X>(sigma2);
 
-  for (int k = threadIdx.x; k < d; k += blockDim.x) beta_s[k] = beta[k];
+  for (int k = threadIdx.x; k < d; k += blockDim.x) beta_s[k] = sbv::Coords<X, T>::beta(beta[k]);
   __syncthreads();
 
   for (int b = blockIdx.x; b < bc; b += gridDim.x) {
-    sbv::load_points<T>(nn_x + (size_t)b * m * d, nn_m + (size_t)b * m, nn_y + (size_t)b * m, m,
-                        q_x + (size_t)b * bs * d, q_m + (size_t)b * bs, nullptr, bs, d, beta_s,
-                        work, nrm, msk, ys);
+    sbv::load_points<T, X>(nn_x + (size_t)b * m * d, nn_m + (size_t)b * m, nn_y + (size_t)b * m,
+                           m, q_x + (size_t)b * bs * d, q_m + (size_t)b * bs, nullptr, bs, d,
+                           beta_s, work, nrm, msk, ys);
     sbv::assemble<T>(A, N, P, m, d, work, nrm, msk,
                      [=](int, int j) { return ys[j]; }, sigma2, nugget, nu_code);
-    sbv::panel_cholesky<T>(A, N, m, work, T(1e-30));
+    sbv::panel_cholesky<T>(A, N, m, work, piv_floor);
 
     // Row m + t of the factored panel is A[:, t]^T, row P is z^T.
     for (int t = threadIdx.x; t < bs; t += blockDim.x) {
@@ -75,29 +78,29 @@ size_t smem_bytes(int bs, int m, int d) {
   return sizeof(T) * (size_t)sbv::Smem(d, P, P + 1).total();
 }
 
-template <typename T>
+template <typename T, typename X>
 int ctas_per_sm(int bs, int m, int d) {
   const size_t smem = smem_bytes<T>(bs, m, d);
-  cudaError_t e = cudaFuncSetAttribute(sbv_predict_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(sbv_predict_kernel<T, X>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return -(int)e;
   int n = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sbv_predict_kernel<T>, sbv::kThreads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, sbv_predict_kernel<T, X>, sbv::kThreads,
                                                     smem);
   if (e != cudaSuccess) return -(int)e;
   return n;
 }
 
-template <typename T>
+template <typename T, typename X>
 int launch(const void* beta, const void* scal, const void* q_x, const void* q_m,
            const void* nn_x, const void* nn_y, const void* nn_m, void* mu, void* var,
            void* scratch, int bc, int bs, int m, int d, int nu_code, int grid, void* stream) {
   const size_t smem = smem_bytes<T>(bs, m, d);
-  cudaError_t e = cudaFuncSetAttribute(sbv_predict_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(sbv_predict_kernel<T, X>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  sbv_predict_kernel<T><<<grid, sbv::kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)beta, (const T*)scal, (const T*)q_x, (const T*)q_m, (const T*)nn_x,
+  sbv_predict_kernel<T, X><<<grid, sbv::kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)beta, (const T*)scal, (const X*)q_x, (const T*)q_m, (const X*)nn_x,
       (const T*)nn_y, (const T*)nn_m, (T*)mu, (T*)var, (T*)scratch, bc, bs, m, d, nu_code);
   return (int)cudaGetLastError();
 }
@@ -109,29 +112,42 @@ extern "C" {
 // Scratch elements each CTA needs: N * m with N = m + bs + 1.
 long long sbv_predict_scratch_per_cta(int bs, int m) { return (long long)(m + bs + 1) * m; }
 
-long long sbv_predict_smem_bytes(int bs, int m, int d, int f64) {
-  return f64 ? (long long)smem_bytes<double>(bs, m, d) : (long long)smem_bytes<float>(bs, m, d);
+// `variant`: 0 f32, 1 f64, 2 bf16 coordinates with f32 working type.
+long long sbv_predict_smem_bytes(int bs, int m, int d, int variant) {
+  return variant == 1 ? (long long)smem_bytes<double>(bs, m, d)
+                      : (long long)smem_bytes<float>(bs, m, d);
 }
 
 // Resident CTAs per SM at this shape; a negative value is minus a CUDA error.
-int sbv_predict_ctas_per_sm(int bs, int m, int d, int f64) {
-  return f64 ? ctas_per_sm<double>(bs, m, d) : ctas_per_sm<float>(bs, m, d);
+int sbv_predict_ctas_per_sm(int bs, int m, int d, int variant) {
+  return variant == 1   ? ctas_per_sm<double, double>(bs, m, d)
+         : variant == 2 ? ctas_per_sm<float, __nv_bfloat16>(bs, m, d)
+                        : ctas_per_sm<float, float>(bs, m, d);
 }
 
 int sbv_predict_f64(const void* beta, const void* scal, const void* q_x, const void* q_m,
                     const void* nn_x, const void* nn_y, const void* nn_m, void* mu, void* var,
                     void* scratch, int bc, int bs, int m, int d, int nu_code, int grid,
                     void* stream) {
-  return launch<double>(beta, scal, q_x, q_m, nn_x, nn_y, nn_m, mu, var, scratch, bc, bs, m, d,
-                        nu_code, grid, stream);
+  return launch<double, double>(beta, scal, q_x, q_m, nn_x, nn_y, nn_m, mu, var, scratch, bc, bs,
+                                m, d, nu_code, grid, stream);
 }
 
 int sbv_predict_f32(const void* beta, const void* scal, const void* q_x, const void* q_m,
                     const void* nn_x, const void* nn_y, const void* nn_m, void* mu, void* var,
                     void* scratch, int bc, int bs, int m, int d, int nu_code, int grid,
                     void* stream) {
-  return launch<float>(beta, scal, q_x, q_m, nn_x, nn_y, nn_m, mu, var, scratch, bc, bs, m, d,
-                       nu_code, grid, stream);
+  return launch<float, float>(beta, scal, q_x, q_m, nn_x, nn_y, nn_m, mu, var, scratch, bc, bs,
+                              m, d, nu_code, grid, stream);
+}
+
+// bf16 coordinates (q_x, nn_x); everything else f32.
+int sbv_predict_bf16(const void* beta, const void* scal, const void* q_x, const void* q_m,
+                     const void* nn_x, const void* nn_y, const void* nn_m, void* mu, void* var,
+                     void* scratch, int bc, int bs, int m, int d, int nu_code, int grid,
+                     void* stream) {
+  return launch<float, __nv_bfloat16>(beta, scal, q_x, q_m, nn_x, nn_y, nn_m, mu, var, scratch,
+                                      bc, bs, m, d, nu_code, grid, stream);
 }
 
 }  // extern "C"

@@ -25,9 +25,13 @@ KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov", "flash_
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
+# The GP kernels' bf16-assembly variants (bf16 coordinates, f32 working
+# type), built from the same sources and counted apart.
+BF16_VARIANTS = tuple(f"{name}_bf16" for name in KERNELS[:4])
+
 _lock = threading.Lock()
-# Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {name: 0 for name in KERNELS}
+# Launches of each kernel and variant, counted by its wrapper where it launches.
+LAUNCHES = {name: 0 for name in KERNELS + BF16_VARIANTS}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -94,6 +98,7 @@ _SIGNATURES = {
     "sbv_loglik": {
         "sbv_loglik_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
         "sbv_loglik_f32": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
+        "sbv_loglik_bf16": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
         "sbv_loglik_scratch_per_cta": (_LL, [_I, _I]),
         "sbv_loglik_smem_bytes": (_LL, [_I, _I, _I, _I]),
         "sbv_loglik_ctas_per_sm": (_I, [_I, _I, _I, _I]),
@@ -101,6 +106,7 @@ _SIGNATURES = {
     "sbv_predict": {
         "sbv_predict_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
         "sbv_predict_f32": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
+        "sbv_predict_bf16": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
         "sbv_predict_scratch_per_cta": (_LL, [_I, _I]),
         "sbv_predict_smem_bytes": (_LL, [_I, _I, _I, _I]),
         "sbv_predict_ctas_per_sm": (_I, [_I, _I, _I, _I]),
@@ -108,6 +114,7 @@ _SIGNATURES = {
     "sbv_multi_stats": {
         "sbv_multi_stats_f64": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
         "sbv_multi_stats_f32": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
+        "sbv_multi_stats_bf16": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
         "sbv_multi_stats_scratch_per_cta": (_LL, [_I, _I, _I]),
         "sbv_multi_stats_smem_bytes": (_LL, [_I] * 5),
         "sbv_multi_stats_ctas_per_sm": (_I, [_I] * 5),
@@ -115,6 +122,7 @@ _SIGNATURES = {
     "matern_cov": {
         "matern_cov_f64": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
         "matern_cov_f32": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
+        "matern_cov_bf16": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
         "matern_cov_smem_bytes": (_LL, [_I, _I]),
     },
     "flash_attention": {

@@ -4,22 +4,28 @@
 runs the fused kernel (the plain version on CPU tensors); the backward pass
 recomputes the plain version under autograd and contracts it with the
 incoming cotangents, as the reference's ``custom_vjp``s do
-(src/repro/kernels/ops.py). Unlike the reference, the backward pass runs in
-chunks of blocks: autograd through the plain version keeps about a dozen
-(bc, ., .) tensors alive, which at the paper's per-GPU sizes outgrows
-device memory. Both outputs are sums over independent blocks, so the
-chunked gradient equals the unchunked one.
+(src/repro/kernels/ops.py). As there, the backward pass is the ``ref`` form
+(``block_loglik``, ``block_multi_stats``: no bf16 rounding of the scaled
+coordinates and no pivot floor), computed at the promotion of the master
+parameters' dtype and the data's: f64 master parameters differentiate the
+f32 and bf16 tiers' narrow-stored data in f64. Unlike the reference, the
+backward pass runs in chunks of blocks: autograd through the plain version
+keeps about a dozen (bc, ., .) tensors alive, which at the paper's per-GPU
+sizes outgrows device memory. Both outputs are sums over independent
+blocks, so the chunked gradient equals the unchunked one.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.kernels_math import KernelParams
+from repro_torch.core.multioutput import block_multi_stats
+from repro_torch.core.vecchia import block_loglik
 
 from . import _build
 from .matern_cov import matern_cov_blocks
-from .sbv_loglik import sbv_loglik_blocks, sbv_loglik_plain
-from .sbv_multi_stats import sbv_multi_stats_blocks, sbv_multi_stats_plain
+from .sbv_loglik import ladder_dtypes, sbv_loglik_blocks
+from .sbv_multi_stats import sbv_multi_stats_blocks
 from .sbv_predict import sbv_predict_blocks
 
 # Blocks recomputed per backward chunk: at m = 200, bs ~ 290 in f64 a block
@@ -37,26 +43,49 @@ def reset_launch_counts() -> None:
         _build.LAUNCHES[k] = 0
 
 
+def select_backend(bs: int, m: int, kind: str = "predict", dtype=None) -> str:
+    """Resolve ``backend='auto'`` for one batch (bucket) shape and dtype.
+
+    On Hopper the answer is ``'auto'`` itself, the kernel route, for every
+    shape and ladder dtype: the CUDA kernels take any bs and m and have
+    f64, f32 and bf16-assembly variants, so there is no tile to align to
+    and no size below which a plain program would be sent to the card
+    instead (the reference's TPU policy, src/repro/kernels/ops.py, is not
+    copied). The dispatchers therefore take ``'auto'`` as the kernel route
+    without calling this; ``'ref'`` stays the explicit plain backend."""
+    if kind not in ("predict", "loglik"):
+        raise ValueError(f"unknown kind {kind!r}")
+    return "auto"
+
+
 def _chunked_vjp(per_block_fn, cotangent, params, blk_x, blk_y, blk_mask, nn_x, nn_y,
                  nn_mask, need, chunk: int):
     """Gradients of ``sum(cotangent * per_block_fn(...))`` in chunks of
     ``chunk`` blocks: ``(g_log_sigma2, g_log_beta, g_log_nugget, g_blk_y,
     g_nn_y)``, the observation gradients only where ``need`` asks. Each
-    chunk recomputes the plain version under autograd and frees it."""
-    acc = blk_y.dtype
+    chunk recomputes the plain version under autograd and frees it.
+
+    The plain version runs at the promotion of the parameters' dtype and
+    the observations' (the reference's jnp promotion of f64 master
+    parameters against narrow data): coordinates and observations are
+    widened to it, exactly, and the observation gradients are returned at
+    the observations' own dtype."""
+    wide = torch.promote_types(params[0].dtype, blk_y.dtype)
+    up = lambda t: t.to(wide) if t.is_floating_point() else t
     leaves = [t.detach().requires_grad_(True) for t in params]
     gp = [torch.zeros_like(t) for t in leaves]
     g_by = torch.zeros_like(blk_y) if need[0] else None
     g_ny = torch.zeros_like(nn_y) if need[1] else None
     bc = blk_x.shape[0]
+    cotangent = cotangent.to(wide)
     for s in range(0, bc, chunk):
         sl = slice(s, min(bc, s + chunk))
-        by = blk_y[sl].detach().requires_grad_(need[0])
-        ny = nn_y[sl].detach().requires_grad_(need[1])
+        by = up(blk_y[sl].detach()).requires_grad_(need[0])
+        ny = up(nn_y[sl].detach()).requires_grad_(need[1])
         with torch.enable_grad():
-            out = per_block_fn(torch.exp(leaves[1]).to(acc), torch.exp(leaves[0]).to(acc),
-                               torch.exp(leaves[2]).to(acc), blk_x[sl], by, blk_mask[sl],
-                               nn_x[sl], ny, nn_mask[sl])
+            out = per_block_fn(torch.exp(leaves[1]).to(wide), torch.exp(leaves[0]).to(wide),
+                               torch.exp(leaves[2]).to(wide), up(blk_x[sl]), by, blk_mask[sl],
+                               up(nn_x[sl]), ny, nn_mask[sl])
             total = torch.sum(out * cotangent)
             wrt = leaves + [t for t in (by, ny) if t.requires_grad]
             grads = torch.autograd.grad(total, wrt)
@@ -87,9 +116,9 @@ class _SbvLoglik(torch.autograd.Function):
     def backward(ctx, g):
         ls2, lb, ln, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask = ctx.saved_tensors
         need = ctx.needs_input_grad
-        plain = lambda *a: sbv_loglik_plain(*a, nu=ctx.nu)
+        plain = lambda *a: block_loglik(*a, nu=ctx.nu)
         g_s2, g_b, g_n, g_by, g_ny = _chunked_vjp(
-            plain, g.to(blk_y.dtype), (ls2, lb, ln), blk_x, blk_y, blk_mask, nn_x, nn_y,
+            plain, g, (ls2, lb, ln), blk_x, blk_y, blk_mask, nn_x, nn_y,
             nn_mask, (need[4], need[7]), ctx.chunk)
         return (g_s2, g_b, g_n, None, g_by, None, None, g_ny, None, None, None)
 
@@ -113,10 +142,13 @@ class _SbvMultiStats(torch.autograd.Function):
     def backward(ctx, g_ld, g_q):
         ls2, lb, ln, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask = ctx.saved_tensors
         need = ctx.needs_input_grad
-        acc = blk_y.dtype
         # Per block [logdet0, q_1 .. q_p] against the cotangent row [g_ld, g_q].
-        cot = torch.cat([g_ld.reshape(1), g_q.reshape(-1)]).to(acc)
-        plain = lambda *a: sbv_multi_stats_plain(*a, nu=ctx.nu)
+        cot = torch.cat([g_ld.reshape(1), g_q.reshape(-1).to(g_ld.dtype)])
+
+        def plain(*a):
+            ld, q = block_multi_stats(*a, nu=ctx.nu)
+            return torch.cat([ld[:, None], q], dim=1)
+
         g_s2, g_b, g_n, g_by, g_ny = _chunked_vjp(
             plain, cot, (ls2, lb, ln), blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
             (need[4], need[7]), ctx.chunk)
@@ -158,7 +190,8 @@ def sbv_predict(params: KernelParams, q_x, q_mask, nn_x, nn_y, nn_mask, nu: floa
 
 def matern_cov(xa, xb, params: KernelParams, nu: float = 3.5) -> torch.Tensor:
     """Batched scaled-Matérn covariance (B, na, nb) through the kernel (the
-    plain version on CPU tensors). Not differentiable."""
-    acc = xa.dtype
+    plain version on CPU tensors). bf16 coordinates give an f32 output (the
+    bf16-assembly variant). Not differentiable."""
+    _, acc = ladder_dtypes(xa.dtype)
     with torch.no_grad():
         return matern_cov_blocks(xa, xb, params.beta.to(acc), params.sigma2.to(acc), nu=nu)

@@ -377,3 +377,243 @@ def test_lm_prefill_through_kernel_matches_plain_route(dev, dtype):
     ops.reset_launch_counts()
     toks = greedy_generate(model, prompt, cfg, 4, 310)
     assert toks.shape == (2, 4) and ops.launch_counts()["flash_attention"] == cfg.n_layers
+
+
+# -- the bf16-assembly variants (bf16 coordinates, f32 working type) ---------
+#
+# Each bf16 variant is held to its plain version (vecchia.block_loglik_narrow,
+# multioutput.block_multi_stats_narrow, predict.block_predict_narrow,
+# matern_cov_plain on bf16): both round the scaled coordinates to the same
+# bf16 values, then assemble, factor and solve in f32 in different orders.
+# Measured on the CPU on these inputs, the plain version's f32 error against
+# the same bf16-assembly math in f64 reaches 5e-4 relative per block (loglik),
+# 4e-4 (q of multi-stats) and 1e-3 absolute on means of size 2 (predict), so
+# two f32 evaluations are held to 2e-3 of max(1, |value|) per block, and
+# predictions to 3e-3 of max(1, output scale). The covariance is held at the
+# f32 kernel's 1e-5.
+BF16_TOL, BF16_PRED_TOL = 2e-3, 3e-3
+
+
+def _bf16_case(d, floor, n=800, p=None):
+    """Packed blocks at d, with a ragged bs and m (sliced to 37 and 29), and
+    parameters whose nugget is below the bf16 pivot floor 2^-7 * sigma2
+    (``floor``) or above it."""
+    rng = np.random.default_rng(20 + d)
+    x = rng.uniform(size=(n, d))
+    y = rng.normal(size=n) if p is None else rng.normal(size=(n, p))
+    beta = np.linspace(0.3, 1.5, d)
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=20, m=30))
+    nugget = 1e-4 if floor else 1e-2
+    return packed, beta, nugget
+
+
+def _bf16(arrs, dev):
+    bx, by, bm, nx, ny, nm = (a.to(dev) for a in arrs)
+    return bx.bfloat16(), by.float(), bm, nx.bfloat16(), ny.float(), nm
+
+
+def _floor_engaged(fn, monkeypatch):
+    """Whether the bf16 pivot floor changes ``fn()`` (plain version) by more
+    than f32 rounding: run it again with the floor at 1e-20."""
+    with_floor = fn()
+    monkeypatch.setattr(vecchia, "BF16_EPS", 1e-20)
+    without = fn()
+    monkeypatch.undo()
+    w = with_floor if isinstance(with_floor, torch.Tensor) else with_floor[0]
+    wo = without if isinstance(without, torch.Tensor) else without[0]
+    return bool(((w - wo).abs() > 1e-2 * w.abs().clamp(min=1)).any())
+
+
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("d", [3, 10])
+def test_loglik_bf16_variant_matches_plain(dev, d, floor, monkeypatch):
+    packed, beta, nugget = _bf16_case(d, floor)
+    arrs = _bf16(_slice(vecchia.packed_arrays(packed, "cpu"), 37, 29), dev)
+    par = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in (beta, 1.3, nugget))
+    plain = lambda: sbv_loglik_plain(*par, *arrs)
+    assert _floor_engaged(plain, monkeypatch) == floor
+    want = plain()
+    before = dict(_build.LAUNCHES)
+    got = sbv_loglik_cuda(*par, *arrs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sbv_loglik_bf16"] == before["sbv_loglik_bf16"] + 1
+    assert _build.LAUNCHES["sbv_loglik"] == before["sbv_loglik"]
+    assert got.dtype == torch.float32 and bool(torch.isfinite(got).all())
+    assert float(((got - want).abs() / want.abs().clamp(min=1)).max()) <= BF16_TOL
+
+
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("d", [3, 10])
+def test_multi_stats_bf16_variant_matches_plain(dev, d, floor, monkeypatch):
+    packed, beta, nugget = _bf16_case(d, floor, p=3)
+    arrs = _bf16(_slice(vecchia.packed_arrays(packed, "cpu"), 37, 29), dev)
+    par = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in (beta, 1.0, nugget))
+    plain = lambda: sbv_multi_stats_plain(*par, *arrs)
+    assert _floor_engaged(plain, monkeypatch) == floor
+    want = plain()
+    before = _build.LAUNCHES["sbv_multi_stats_bf16"]
+    got = sbv_multi_stats_cuda(*par, *arrs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sbv_multi_stats_bf16"] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float(((got - want).abs() / want.abs().clamp(min=1)).max()) <= BF16_TOL
+
+
+@pytest.mark.parametrize("floor", [False, True])
+@pytest.mark.parametrize("d", [3, 10])
+def test_predict_bf16_variant_matches_plain(dev, d, floor, monkeypatch):
+    rng = np.random.default_rng(30 + d)
+    x, y = rng.uniform(size=(800, d)), rng.normal(size=800)
+    beta = np.linspace(0.3, 1.5, d)
+    index = tpredict.build_train_index(x, y, beta, m_pred=41)
+    packed = tpredict.pack_queries(index, rng.uniform(size=(150, d)), bs_pred=7, m_pred=41)
+    q_x, q_mask, nn_x, nn_y, nn_mask = (torch.as_tensor(a).to(dev) for a in packed.arrays())
+    arrs = (q_x.bfloat16(), q_mask, nn_x.bfloat16(), nn_y.float(), nn_mask)
+    par = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in (beta, 1.3, 1e-5 if floor else 1e-2))
+    plain = lambda: sbv_predict_plain(*par, *arrs)
+    assert _floor_engaged(plain, monkeypatch) == floor
+    want = plain()
+    before = _build.LAUNCHES["sbv_predict_bf16"]
+    got = sbv_predict_cuda(*par, *arrs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["sbv_predict_bf16"] == before + 1
+    scale = max(1.0, max(float(w[q_mask].abs().max()) for w in want))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert float((g - w)[q_mask].abs().max()) <= BF16_PRED_TOL * scale
+
+
+@pytest.mark.parametrize("shape", [(3, 70, 90, 3), (2, 37, 61, 10)])
+def test_matern_cov_bf16_variant_matches_plain(dev, shape):
+    b, na, nb, d = shape
+    rng = np.random.default_rng(8)
+    xa = torch.as_tensor(rng.uniform(size=(b, na, d)), device=dev).bfloat16()
+    xb = torch.as_tensor(rng.uniform(size=(b, nb, d)), device=dev).bfloat16()
+    kp = KernelParams.create(sigma2=0.7, beta=np.linspace(0.3, 1.5, d), device=dev)
+    want = matern_cov_plain(xa, xb, kp.beta.float(), kp.sigma2.float())
+    before = _build.LAUNCHES["matern_cov_bf16"]
+    got = ops.matern_cov(xa, xb, kp)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["matern_cov_bf16"] == before + 1
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _unrounded(how):
+    """The plain versions' scaled coordinates with one rounding left out:
+    bf16(x / beta) ('beta') or x / bf16(beta) in f32 ('z')."""
+    if how == "beta":
+        return lambda x, b: (x.float() / b.float()).to(x.dtype).float()
+    return lambda x, b: x.float() / b.to(x.dtype).float()
+
+
+@pytest.mark.parametrize("kernel", ["sbv_loglik", "sbv_multi_stats", "sbv_predict",
+                                    "matern_cov"])
+def test_bf16_variants_round_the_scaled_coordinates(dev, kernel, monkeypatch):
+    """Each bf16 variant computes z = bf16(x / bf16(beta)), as its plain
+    version does: at betas bf16 cannot hold, the kernel is closer (in L2) to
+    its plain version than half its distance to the plain version without
+    the beta rounding, and to the one without the rounding of x / beta. (A
+    per-block limit cannot tell these apart where the roundings are exact,
+    as at beta = 0.5.)"""
+    d = 10
+    beta = np.linspace(0.31, 1.43, d)  # no entry is a bf16 number
+    par = tuple(torch.as_tensor(v, dtype=torch.float32, device=dev)
+                for v in (beta, 1.3, 1e-2))
+    if kernel == "sbv_predict":
+        rng = np.random.default_rng(40)
+        x, y = rng.uniform(size=(800, d)), rng.normal(size=800)
+        index = tpredict.build_train_index(x, y, beta, m_pred=41)
+        packed = tpredict.pack_queries(index, rng.uniform(size=(150, d)), bs_pred=7, m_pred=41)
+        q_x, q_mask, nn_x, nn_y, nn_mask = (torch.as_tensor(a).to(dev) for a in packed.arrays())
+        arrs = (q_x.bfloat16(), q_mask, nn_x.bfloat16(), nn_y.float(), nn_mask)
+        run_k, run_p = (lambda: sbv_predict_cuda(*par, *arrs)), \
+            (lambda: sbv_predict_plain(*par, *arrs))
+    elif kernel == "matern_cov":
+        rng = np.random.default_rng(41)
+        xa = torch.as_tensor(rng.uniform(size=(2, 37, d)), device=dev).bfloat16()
+        xb = torch.as_tensor(rng.uniform(size=(2, 61, d)), device=dev).bfloat16()
+        run_k, run_p = (lambda: matern_cov_cuda(xa, xb, par[0], par[1])), \
+            (lambda: matern_cov_plain(xa, xb, par[0], par[1]))
+    else:
+        packed, _, _ = _bf16_case(d, False, p=3 if kernel == "sbv_multi_stats" else None)
+        arrs = _bf16(vecchia.packed_arrays(packed, "cpu"), dev)
+        pk = par if kernel == "sbv_loglik" else (par[0], torch.ones_like(par[1]), par[2])
+        fns = {"sbv_loglik": (sbv_loglik_cuda, sbv_loglik_plain),
+               "sbv_multi_stats": (sbv_multi_stats_cuda, sbv_multi_stats_plain)}[kernel]
+        run_k, run_p = (lambda: fns[0](*pk, *arrs)), (lambda: fns[1](*pk, *arrs))
+    flat = lambda o: torch.cat([t.double().reshape(-1)
+                                for t in (o if isinstance(o, tuple) else (o,))])
+    from repro_torch.kernels import matern_cov as mc
+
+    got = flat(run_k())
+    torch.cuda.synchronize()
+    dist = {}
+    for how in (None, "beta", "z"):
+        if how is not None:
+            monkeypatch.setattr(vecchia, "narrow_scaled", _unrounded(how))
+            monkeypatch.setattr(mc, "narrow_scaled", _unrounded(how))
+        dist[how] = float(torch.linalg.vector_norm(got - flat(run_p())))
+        monkeypatch.undo()
+    assert dist[None] <= 0.5 * min(dist["beta"], dist["z"]), dist
+
+
+def test_kernels_refuse_wrong_dtype_mix(dev):
+    """bf16 coordinates run only with f32 observations; f32 coordinates
+    only with f32 ones; no operand is converted to another width."""
+    packed, beta, _ = _bf16_case(3, False)
+    arrs = vecchia.packed_arrays(packed, dev)
+    par64 = tuple(torch.as_tensor(v, dtype=torch.float64, device=dev) for v in (beta, 1.3, 1e-2))
+    bx, by, bm, nx, ny, nm = arrs
+    before = dict(_build.LAUNCHES)
+    for coords, obs in ((torch.bfloat16, torch.float64), (torch.float32, torch.float64),
+                        (torch.float64, torch.float32), (torch.float16, torch.float32)):
+        with pytest.raises(TypeError):
+            sbv_loglik_cuda(*par64, bx.to(coords), by.to(obs), bm, nx.to(coords), ny.to(obs), nm)
+    with pytest.raises(TypeError):  # the two coordinate sets disagree
+        sbv_loglik_cuda(*par64, bx.bfloat16(), by.float(), bm, nx.float(), ny.float(), nm)
+    with pytest.raises(TypeError):
+        sbv_multi_stats_cuda(*par64, bx.bfloat16(), by[..., None].double(), bm, nx.bfloat16(),
+                             ny[..., None].double(), nm)
+    with pytest.raises(TypeError):
+        sbv_predict_cuda(*par64, bx.bfloat16(), bm, nx.bfloat16(), ny.double(), nm)
+    with pytest.raises(TypeError):
+        matern_cov_cuda(bx.bfloat16(), nx.float(), par64[0], par64[1])
+    assert _build.LAUNCHES == before
+
+
+def test_bucketed_bf16_fit_and_predict_launch_the_variants(dev):
+    """fit_sbv / predict_sbv with n_buckets and the bf16 tier run the bf16
+    variants on the card (the probe kept at bf16 with a loose budget) and
+    agree with the CPU run of the same path to the f32 class."""
+    from repro_torch.core.buckets import PrecisionPolicy
+    from repro_torch.core.fit import fit_sbv
+
+    x, y, beta = _data(n=600, seed=11)
+    cfg = SBVConfig(n_blocks=20, m=16)
+    init = KernelParams.create(sigma2=1.0, beta=0.5, nugget=1e-2, d=4)
+    pol = PrecisionPolicy("bf16", error_budget=1.0)
+    ops.reset_launch_counts()
+    on_gpu = fit_sbv(x, y, cfg, init=init, inner_steps=3, outer_rounds=1, n_buckets=3,
+                     precision=pol)
+    counts = ops.launch_counts()
+    n_b = len(on_gpu.precision_tiers)
+    assert on_gpu.precision_tiers == ["bf16"] * n_b
+    # Per bucket: the f64 and bf16 probes, then one bf16 launch per step.
+    assert counts["sbv_loglik_bf16"] == n_b * (1 + 3) and counts["sbv_loglik"] == n_b
+    on_cpu = fit_sbv(x, y, cfg, init=init, inner_steps=3, outer_rounds=1, n_buckets=3,
+                     precision=pol, device="cpu")
+    np.testing.assert_allclose([h[2] for h in on_gpu.history],
+                               [h[2] for h in on_cpu.history], rtol=1e-4)
+    xt = np.random.default_rng(12).uniform(size=(90, 4))
+    kw = dict(bs_pred=5, m_pred=24, n_sims=50, n_buckets=3, precision="bf16")
+    ops.reset_launch_counts()
+    a = tpredict.predict_sbv(on_cpu.params, x, y, xt, **kw)
+    assert ops.launch_counts()["sbv_predict_bf16"] >= 1
+    assert ops.launch_counts()["sbv_predict"] == 0
+    b = tpredict.predict_sbv(on_cpu.params, x, y, xt, device="cpu", **kw)
+    np.testing.assert_allclose(a.mean, b.mean, rtol=0, atol=BF16_PRED_TOL)
+    np.testing.assert_allclose(a.var, b.var, rtol=0, atol=BF16_PRED_TOL)

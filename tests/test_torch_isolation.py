@@ -39,6 +39,31 @@ def test_no_source_imports_jax_or_repro():
     assert not offenders, offenders
 
 
+def test_import_leaves_ml_dtypes_out():
+    """The card's machine has no ml_dtypes: the port's bf16 tier stores its
+    coordinates as torch.bfloat16 tensors, and no module pulls it in."""
+    mods = sorted(
+        "repro_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py"
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "assert 'ml_dtypes' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_source_imports_ml_dtypes():
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    pattern = re.compile(r"^\s*(import|from)\s+ml_dtypes\b|import_module\([\"']ml_dtypes", re.M)
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
 def _tiny():
     rng = np.random.default_rng(0)
     return rng.uniform(size=(40, 2)), rng.normal(size=40)
@@ -61,8 +86,8 @@ def test_entry_points_refuse_without_device_when_no_cuda(monkeypatch):
         predict_sbv(KernelParams.create(beta=[0.5, 0.5]), x, y, x[:5], bs_pred=2, m_pred=4)
 
 
-@pytest.mark.parametrize("kw", [{"n_buckets": 2}, {"stream_chunk": 10},
-                                {"precision": "f32"}, {"multihost": object()}])
+@pytest.mark.parametrize("kw", [{"distributed": object()}, {"stream_chunk": 10},
+                                {"tuning": object()}, {"multihost": object()}])
 def test_unported_options_raise(kw):
     from repro_torch.core import SBVConfig
     from repro_torch.core.fit import fit_sbv

@@ -68,11 +68,18 @@ def test_matern_cov_dtype_sweep():
 
 
 def test_matern_cov_refuses_bf16_and_cpu_kernel_launch():
+    """bf16 coordinates run only as a pair (the bf16 variant): a bf16 set
+    beside a wider one, or half precision, is refused with TypeError, as
+    the kernel converts no operand; CPU tensors never launch."""
     x = torch.zeros(1, 4, 2, dtype=torch.float64)
     beta, s2 = torch.ones(2, dtype=torch.float64), torch.ones((), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        matern_cov_plain(x.to(torch.bfloat16), x.to(torch.bfloat16), beta, s2)
     before = dict(_build.LAUNCHES)
+    with pytest.raises(TypeError, match="xb has dtype torch.float64"):
+        matern_cov_cuda(x.to(torch.bfloat16), x, beta, s2)
+    with pytest.raises(TypeError, match="float16"):
+        matern_cov_cuda(x.half(), x.half(), beta, s2)
+    assert matern_cov_plain(x.to(torch.bfloat16), x.to(torch.bfloat16), beta, s2).dtype \
+        == torch.float32
     with pytest.raises(ValueError, match="not a CUDA tensor"):
         matern_cov_cuda(x, x, beta, s2)
     assert _build.LAUNCHES == before

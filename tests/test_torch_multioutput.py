@@ -65,7 +65,7 @@ def _ref_arrays(packed):
 
 
 def _ref_eps(seed):
-    def eps(ci, shape):
+    def eps(ci, bi, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), ci)
         return np.asarray(jax.random.normal(key, shape, dtype=jnp.float64))
     return eps
@@ -227,8 +227,8 @@ def test_convert_round_trips_and_params_api(problem):
         mo.as_multi_params(object(), 3, 3)
 
 
-@pytest.mark.parametrize("kw", [{"n_buckets": 2}, {"stream_chunk": 100},
-                                {"precision": "f32"}, {"multihost": object()},
+@pytest.mark.parametrize("kw", [{"tuning": object()}, {"stream_chunk": 100},
+                                {"device_cache": 2}, {"multihost": object()},
                                 {"distributed": object()}])
 def test_multi_unported_options_raise(problem, kw):
     x, y, _, _, _ = problem
@@ -251,6 +251,12 @@ def test_multi_stats_wrapper_never_runs_the_plain_version_for_cuda(problem):
         sbv_multi_stats_cuda(p0.beta, p0.sigma2, p0.nugget, *vecchia.packed_arrays(
             packed, "cpu")[:1], torch.zeros(packed.blk_mask.shape), *vecchia.packed_arrays(
                 packed, "cpu")[2:])
+    # A bucketed layout goes through the same wrappers: on CPU tensors, the
+    # plain version per bucket, with no launch counted.
+    from repro_torch.core.buckets import bucket_blocks
+
+    ld_b, q_b = mo.packed_multi_stats(p, bucket_blocks(packed, n_buckets=3))
+    ld_u, q_u = mo.packed_multi_stats(p, packed)
     assert _build.LAUNCHES == before
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        mo.packed_multi_stats(p, type("Bucketed", (), {"buckets": []})())
+    np.testing.assert_allclose(float(ld_b), float(ld_u), rtol=1e-10)
+    np.testing.assert_allclose(q_b.numpy(), q_u.numpy(), rtol=1e-10)

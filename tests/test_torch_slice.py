@@ -57,7 +57,7 @@ def test_fit_trajectory_matches_reference():
 
 
 def _ref_eps(seed):
-    def eps(ci, shape):
+    def eps(ci, bi, shape):
         key = jax.random.fold_in(jax.random.PRNGKey(seed), ci)
         return np.asarray(jax.random.normal(key, shape, dtype=jnp.float64))
     return eps
