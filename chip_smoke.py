@@ -128,6 +128,26 @@ def loglik_work(packed_np, xb: int = 8, wb: int = 8) -> tuple[float, float]:
     return flops, nbytes + wb * packed_np.blk_x.shape[0]
 
 
+def factor_traffic(packed_np, wb: int = 8) -> tuple[float, float]:
+    """Reckoned scratch traffic (bytes) of one likelihood evaluation's
+    factorizations, earlier design against tiled one. The earlier design
+    (padded blocks, right-looking 16-column panels) reads and writes the
+    trailing lower triangle of the padded (P + 1) x P joint matrix once per
+    panel; the tiled one (masked points left out, left-looking 32-column
+    panels) reads the finished factor L[j0:, :j0] once per panel. Both also
+    write and read the assembled lower triangle once and write the factor
+    once, counted at each design's own size."""
+    p_pad = packed_np.nn_mask.shape[1] + packed_np.blk_mask.shape[1]
+    t0 = np.arange(16, p_pad, 16)
+    old = sum(2 * ((p_pad - t) * (p_pad + 1) - (p_pad - 1 + t) * (p_pad - t) / 2) for t in t0)
+    old = packed_np.blk_x.shape[0] * (old + 3 * (p_pad + 1) * p_pad / 2)
+    new = 0.0
+    for pc in (packed_np.nn_mask.sum(axis=1) + packed_np.blk_mask.sum(axis=1)).astype(float):
+        j0 = np.arange(32, pc, 32)
+        new += float(np.sum((pc + 1 - j0) * j0)) + 3 * (pc + 1) * pc / 2
+    return wb * float(old), wb * float(new)
+
+
 def predict_work(packed_np, xb: int = 8, wb: int = 8) -> tuple[float, float]:
     m_b = packed_np.nn_mask.sum(axis=1).astype(float)
     bs_b = packed_np.q_mask.sum(axis=1).astype(float)
@@ -219,7 +239,9 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import flash_attention_cuda, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (ROUTES, flash_attention_cuda,
+                                                     flash_attention_plain, flash_route)
+    from repro_torch.kernels.flash_attention import _launch as flash_launch
     from repro_torch.models.model import TransformerLM, init_params, prefill_step, serve_step
     from repro_torch.training.serve import make_decode_step, make_prefill_step
 
@@ -259,6 +281,9 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
              ("window17", (2, 16, 8, 1000, 1000, 128, True, 17, 0.0)),
              ("softcap50", (2, 16, 8, 1000, 1000, 128, True, 0, 50.0)),
              ("hd64", (2, 16, 8, 1000, 1000, 64, True, 0, 0.0)),
+             ("hd64_mha", (2, 32, 32, 1000, 1000, 64, True, 0, 0.0)),
+             ("short_long", (2, 16, 8, 100, 2000, 128, True, 0, 0.0)),
+             ("window_softcap", (2, 16, 8, 1000, 1000, 128, True, 300, 30.0)),
              ("hd80", (2, 16, 8, 1000, 1000, 80, True, 0, 0.0)),
              ("hd256", (2, 16, 8, 1000, 1000, 256, True, 0, 0.0))]
     flash_err = None
@@ -416,7 +441,18 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     # library call that computes the same function at S = T (timed here
     # only; the port never calls it).
     q, k, v = qkv(*path[:6], torch.bfloat16)
+    # The earlier mma.sync design at the path's shape, kept callable for
+    # this side-by-side timing (parent, change, change, parent): the same
+    # function, held to the bf16 limits against the wgmma route.
+    mma = lambda: flash_launch(ROUTES["mma"], q, k, v, True, 0, 0.0)
+    got, base = flash_attention_cuda(q, k, v), mma()
+    base_row = row_rel_err(got, base)
+    check(base_row <= row_tol, f"flash wgmma vs mma baseline row rel L2 {base_row:.3e}")
+    del got, base
+    m1_ms = cuda_ms(mma)
     k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v))
+    k2_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v))
+    m2_ms = cuda_ms(mma)
     with torch.inference_mode():
         p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=3)
     kx, vx = k.repeat_interleave(n_rep, dim=1), v.repeat_interleave(n_rep, dim=1)
@@ -426,13 +462,16 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     flops, nbytes = flash_work(*path[:4], path[5], 2)
     b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
     log(f"flash time at B={path[0]} H={path[1]} Hkv={path[2]} S=T={path[3]} hd={path[5]}: kernel "
-        f"bf16 {k_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s), f32 {k32_ms:.3f} ms; plain bf16 "
-        f"{p_ms:.3f} ms; scaled_dot_product_attention bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B); {cfg.n_layers} calls per prefill = "
+        f"bf16 ({flash_route(q.dtype, path[5])} route) {k_ms:.3f} / {k2_ms:.3f} ms "
+        f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.1f} % of the bound), f32 "
+        f"{k32_ms:.3f} ms; earlier mma.sync kernel bf16 {m1_ms:.3f} / {m2_ms:.3f} ms (before / "
+        f"after; wgmma vs mma row rel L2 {base_row:.3e}); plain bf16 {p_ms:.3f} ms; "
+        f"scaled_dot_product_attention bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops:.3e} flop, {nbytes:.3e} B); {cfg.n_layers} calls per prefill = "
         f"{cfg.n_layers * k_ms / 1e3:.3f} s of the {t_prefill:.3f} s prefill")
     results["flash_attention"] = dict(max_abs_err=flash_err, ms=k_ms, plain_ms=p_ms,
                                       bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                                      f32_ms=k32_ms)
+                                      f32_ms=k32_ms, baseline_ms=[m1_ms, m2_ms])
     del q, k, v, kx, vx, q32, k32, v32, model
     torch.cuda.empty_cache()
     return {name: pre_launches[name] + dec_launches[name] for name in pre_launches}
@@ -536,11 +575,13 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     from repro_torch.core.kernels_math import KernelParams
     from repro_torch.kernels import ops
     from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain
+    from repro_torch.kernels.sbv_loglik import _launch as loglik_launch
     from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
     from repro_torch.kernels.sbv_multi_stats import sbv_multi_stats_cuda, sbv_multi_stats_plain
     from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
 
     f64, f32 = torch.float64, torch.float32
+    panel = lambda *a: loglik_launch("sbv_loglik_panel", *a, nu=3.5)
     p0 = init.to(device=dev)
     par = lambda p, dt: (p.beta.to(dt), p.sigma2.to(dt), p.nugget.to(dt))
     launches = {}
@@ -561,14 +602,20 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     ll_u = float(sbv_loglik_cuda(*par(p0, f64), *arrs_u).sum())
     ll_b = sum(float(sbv_loglik_cuda(*par(p0, f64), *a).sum()) for a in arrs_b)
     rel = abs(ll_b - ll_u) / abs(ll_u)
+    tb1 = cuda_ms(lambda: [panel(*par(p0, f64), *a) for a in arrs_b])
     t_u = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, f64), *arrs_u))
     t_b = cuda_ms(lambda: [sbv_loglik_cuda(*par(p0, f64), *a) for a in arrs_b])
     t_each = [cuda_ms(lambda a=a: sbv_loglik_cuda(*par(p0, f64), *a)) for a in arrs_b]
+    tb2 = cuda_ms(lambda: [panel(*par(p0, f64), *a) for a in arrs_b])
+    tr_old = sum(factor_traffic(pk)[0] for pk in bucketed.buckets)
+    tr_new = sum(factor_traffic(pk)[1] for pk in bucketed.buckets)
     log(f"f64 loglik bucketed {ll_b:.12e} uniform {ll_u:.12e}: rel {rel:.3e}; kernel time "
         f"uniform {t_u:.3f} ms, bucketed {t_b:.3f} ms (per bucket "
-        f"{', '.join(f'{t:.3f}' for t in t_each)} ms)")
+        f"{', '.join(f'{t:.3f}' for t in t_each)} ms); panel_cholesky baseline bucketed "
+        f"{tb1:.3f} / {tb2:.3f} ms (before / after); reckoned scratch traffic over the buckets: "
+        f"baseline {tr_old / 1e9:.2f} GB, tiled {tr_new / 1e9:.2f} GB")
     check(rel <= 1e-10, f"bucketed f64 loglik vs uniform rel {rel:.3e} > 1e-10")
-    results["buckets"] = dict(uniform_ms=t_u, bucketed_ms=t_b)
+    results["buckets"] = dict(uniform_ms=t_u, bucketed_ms=t_b, baseline_bucketed_ms=[tb1, tb2])
 
     # 20. Per bucket, the bf16 and f32 variants against their plain
     # versions, and each tier's total against f64 beside its budget.
@@ -606,11 +653,17 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     a16u = vecchia.packed_arrays(bk.cast_packed(packed0, "bf16"), dev)
     k16u_ms = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, f32), *a16u))
     del a16u
-    log(f"loglik bf16 variant: {k16_ms:.3f} ms over the {bucketed.n_buckets} buckets (uniform "
+    a16b = [vecchia.packed_arrays(bk.cast_packed(pk, "bf16"), dev) for pk in bucketed.buckets]
+    k16b_ms = cuda_ms(lambda: [sbv_loglik_cuda(*par(p0, f32), *a) for a in a16b])
+    base16_ms = cuda_ms(lambda: [panel(*par(p0, f32), *a) for a in a16b])
+    del a16b
+    log(f"loglik bf16 variant: {k16_ms:.3f} ms over the {bucketed.n_buckets} buckets, one by one "
+        f"({k16b_ms:.3f} ms back to back; panel_cholesky baseline {base16_ms:.3f} ms; uniform "
         f"shape: {k16u_ms:.3f} ms); plain {pl16_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}, f32 "
         f"peak; {fl16:.3e} flop, {by16:.3e} B)")
     results["sbv_loglik_bf16"] = dict(max_abs_err=err16, ms=k16_ms, plain_ms=pl16_ms,
-                                      bound_ms=b_ms, bound_by=b_by, uniform_ms=k16u_ms)
+                                      bound_ms=b_ms, bound_by=b_by, uniform_ms=k16u_ms,
+                                      baseline_ms=base16_ms)
     # The rounding check (see ROUND_BETA) on the same buckets.
     d = x_tr.shape[1]
     pr = par(KernelParams.create(sigma2=float(init.sigma2), beta=ROUND_BETA,
@@ -912,6 +965,7 @@ def main() -> int:
     from repro_torch.data.gp_sim import metarvm_field_dataset, paper_synthetic_chunks
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain
+    from repro_torch.kernels.sbv_loglik import _launch as loglik_launch
     from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
     from repro_torch.kernels.sbv_multi_stats import sbv_multi_stats_cuda, sbv_multi_stats_plain
     from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
@@ -995,21 +1049,42 @@ def main() -> int:
         if label == "full":
             full_err = err
 
-    # Time at the main path's shape: one likelihood evaluation of round 0.
+    # The earlier design (padded blocks, panel_cholesky), kept callable for
+    # this side-by-side timing: the same values to 1e-10 on the full case.
+    arrs_f = vecchia.packed_arrays(cases[0][1], dev)
+    base = loglik_launch("sbv_loglik_panel", *par(p0, torch.float64), *arrs_f, nu=3.5)
+    tiled = sbv_loglik_cuda(*par(p0, torch.float64), *arrs_f)
+    base_rel = float(((tiled - base).abs() / base.abs()).max())
+    log(f"loglik tiled vs panel_cholesky baseline (full case, f64): max rel {base_rel:.3e}")
+    check(base_rel <= 1e-10, f"loglik tiled vs baseline rel {base_rel:.3e} > 1e-10")
+    del arrs_f, base, tiled
+
+    # Time at the main path's shape: one likelihood evaluation of round 0,
+    # beside the earlier design (parent, change, change, parent).
     arrs0 = vecchia.packed_arrays(packed0, dev)
+    panel_f64 = lambda: loglik_launch("sbv_loglik_panel", *par(p0, torch.float64), *arrs0, nu=3.5)
+    kb1_ms = cuda_ms(panel_f64)
     k_ms = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, torch.float64), *arrs0))
     k32_ms = cuda_ms(lambda: sbv_loglik_cuda(*par(p0, torch.float32),
                                              *cast(arrs0, torch.float32)))
+    kb2_ms = cuda_ms(panel_f64)
     with torch.no_grad():
         pl_ms = cuda_ms(lambda: sbv_loglik_plain(*par(p0, torch.float64), *arrs0), reps=3)
     flops, nbytes = loglik_work(packed0)
     b_ms, b_by = bound_ms(flops, nbytes, peaks)
-    per_sm = _build.load("sbv_loglik").sbv_loglik_ctas_per_sm(packed0.bs_max, packed0.m, D, 1)
+    lib_ll = _build.load("sbv_loglik")
+    per_sm = lib_ll.sbv_loglik_ctas_per_sm(packed0.bs_max, packed0.m, D, 1)
+    per_sm_b = lib_ll.sbv_loglik_panel_ctas_per_sm(packed0.bs_max, packed0.m, D, 1)
+    tr_old, tr_new = factor_traffic(packed0)
     log(f"loglik time at bc={packed0.n_blocks} bs={packed0.bs_max} m={packed0.m}: kernel f64 "
-        f"{k_ms:.3f} ms, f32 {k32_ms:.3f} ms; plain f64 {pl_ms:.3f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B); {per_sm} resident CTAs per SM (f64)")
+        f"{k_ms:.3f} ms, f32 {k32_ms:.3f} ms; panel_cholesky baseline f64 {kb1_ms:.3f} / "
+        f"{kb2_ms:.3f} ms (before / after); plain f64 {pl_ms:.3f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B; {100 * b_ms / k_ms:.1f} % of the bound); "
+        f"{per_sm} resident CTAs per SM (f64; baseline {per_sm_b})")
+    log(f"loglik reckoned scratch traffic per evaluation (f64): panel_cholesky baseline "
+        f"{tr_old / 1e9:.2f} GB, tiled {tr_new / 1e9:.2f} GB ({tr_old / tr_new:.1f}x less)")
     results["sbv_loglik"] = dict(max_abs_err=full_err, ms=k_ms, plain_ms=pl_ms, bound_ms=b_ms,
-                                 bound_by=b_by, f32_ms=k32_ms)
+                                 bound_by=b_by, f32_ms=k32_ms, baseline_ms=[kb1_ms, kb2_ms])
 
     # 4. Gradient: the autograd.Function against autograd through the plain version.
     leaves = lambda: [t_.clone().requires_grad_(True) for t_ in p0]

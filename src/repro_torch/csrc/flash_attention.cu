@@ -19,26 +19,46 @@
 // padded. Any strides over (B, H, S) with hd contiguous, so the model's
 // (B, S, H, hd) projections go in without a transpose.
 //
-// Two kernels compute it, chosen by dtype and head_dim:
+// Three kernels compute it. The route, by dtype and head_dim (chosen in
+// kernels/flash_attention.py, `flash_route`):
 //
-// * bf16, hd in {32, 64, 80, 128} (every configuration on the serving path):
-//   `flash_fwd_mma_kernel`, on the tensor cores through `mma.sync`
-//   m16n8k16 (bf16 operands, f32 accumulation). One CTA of 4 warps per
-//   (b * h, 64 query rows), 16 rows per warp; Q stays in registers as A
-//   fragments, each 64-key tile of K and V is copied into shared memory with
-//   `cp.async` while the previous one is used (two stages) and read with
-//   `ldmatrix` (V transposed), the scores stay in registers, the
-//   4 lanes of a row reduce its max and sum with shuffles, and P goes back
-//   into the tensor cores as bf16 A fragments without touching shared
-//   memory (the FlashAttention-2 register layout). Only tiles that cross
-//   the causal diagonal, the window's edge or the last key are masked.
-//   Numerics: Q K^T is
-//   exact products summed in f32, then scaled by hd^-0.5 in f32 (the
-//   reference scales q first; the two differ by f32 rounding); P is
-//   rounded to bf16 before P . V, where the reference multiplies f32 P by
-//   V widened to f32: about 4e-3 relative, inside the reference's own bf16
-//   tolerance of 3e-2; exp is the hardware's ex2.approx (`__expf`).
-// * f32 at every hd, and bf16 at hd = 256: `flash_fwd_kernel`, scalar f32
+//   dtype  head_dim     kernel                     entry point
+//   bf16   64, 128      flash_fwd_wgmma_kernel     flash_attention_wgmma_bf16
+//   bf16   32, 80       flash_fwd_mma_kernel       flash_attention_mma_bf16
+//   bf16   256          flash_fwd_kernel (scalar)  flash_attention_scalar_bf16
+//   f32    every        flash_fwd_kernel (scalar)  flash_attention_f32
+//
+// * `flash_fwd_wgmma_kernel` (bf16, hd 64 and 128: internlm2-1.8b,
+//   minitron-4b, mistral-large, chameleon-34b at 128, musicgen-large at 64):
+//   warp-specialised, one producer warpgroup issuing TMA loads of Q and of
+//   128-key K/V tiles into a three-stage ring guarded by mbarriers, two
+//   consumer warpgroups of 64 query rows each running `wgmma` (see the
+//   comment above the kernel). What bounds it on an H100: at the prefill
+//   shape its work is 2 B H S^2 hd flop against reading Q, K, V and writing
+//   O once, so the bound is the bf16 tensor rate (989 TFLOP/s dense). The
+//   design puts every product on `wgmma`, the only route to that rate, keeps
+//   the copies off the consumers' instruction stream (TMA, one thread), lets
+//   the loads of tiles j + 1 and j + 2 run under the products of tile j, and
+//   ping-pongs the two consumer warpgroups so that one's softmax (its
+//   scale, mask, exponentials and the rescale of O on the CUDA cores) runs
+//   under the other's products.
+//   -Xptxas=-v: 168 registers per thread (a 384-thread CTA's allotment),
+//   0 bytes of spills, at hd 128 and 64; dynamic shared memory 230,480 B at
+//   hd 128 (Q 32 KB, three stages of K and V at 32 KB each, the barriers,
+//   1 KB for alignment) and 115,792 B at hd 64: one CTA per SM. Tensor maps are encoded on the host by
+//   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPointByVersion,
+//   so the library links no -lcuda.
+// * `flash_fwd_mma_kernel` (bf16, hd 32 and 80; also callable at 64 and 128
+//   as the earlier design, for a side-by-side timing): on the tensor cores
+//   through `mma.sync` m16n8k16 (bf16 operands, f32 accumulation). One CTA
+//   of 4 warps per (b * h, 64 query rows), 16 rows per warp; Q stays in
+//   registers as A fragments, each 64-key tile of K and V is copied into
+//   shared memory with `cp.async` while the previous one is used (two
+//   stages) and read with `ldmatrix` (V transposed), the scores stay in
+//   registers, the 4 lanes of a row reduce its max and sum with shuffles,
+//   and P goes back into the tensor cores as bf16 A fragments without
+//   touching shared memory (the FlashAttention-2 register layout).
+// * `flash_fwd_kernel` (f32 at every hd, and bf16 at hd = 256): scalar f32
 //   FMAs on the CUDA cores (bf16 inputs are widened when staged), so P . V
 //   takes P in f32 as the reference does. One CTA of 128 threads per
 //   (b * h, BQ query rows); Q (pre-scaled by hd^-0.5, transposed) stays in
@@ -46,22 +66,26 @@
 //   is), each thread keeps an RM x (BK / 8) score micro-tile and an
 //   RM x (hd / 8) output micro-tile in registers, the 8 threads of a row
 //   reduce with shuffles, and P goes through shared memory; exp is the
-//   accurate expf.
+//   accurate expf. Bound: the CUDA cores' f32 rate (67 TFLOP/s peak).
 //
-// tanh is the accurate tanhf in both. For the causal mask
-// and the window, KV tiles that no row of the CTA may see are skipped,
-// unless some row of the CTA has no allowed key at all (then every tile
-// counts, as in the reference).
+// Numerics of the two bf16 tensor-core kernels: Q K^T is exact products
+// summed in f32, then scaled by hd^-0.5 in f32 (the reference scales q
+// first; the two differ by f32 rounding); P is rounded to bf16 before
+// P . V, where the reference multiplies f32 P by V widened to f32: about
+// 4e-3 relative, inside the reference's own bf16 tolerance of 3e-2; exp is
+// the hardware's ex2.approx (`__expf` in the mma.sync kernel; the wgmma
+// kernel keeps its scores in log2 units, s * log2(e), and calls ex2.approx
+// on them directly). Only tiles that cross the causal diagonal, the
+// window's edge or the last key are masked.
 //
-// Bound on an H100: at prefill shapes (S = T = 4096, hd = 128) the work is
-// 2 B H S^2 hd flop (causal half of Q K^T and P V) against reading Q, K, V
-// and writing O once, so the card's bound is its bf16 tensor rate
-// (989 TFLOP/s dense). The bf16 kernel runs on the tensor cores but with
-// `mma.sync`, no `wgmma` and no TMA; the f32 kernel runs on the CUDA cores (67 TFLOP/s peak). Their
-// times stand beside the bound in PERF.md.
+// tanh is the accurate tanhf in all three. For the causal mask and the
+// window, KV tiles that no row of the CTA may see are skipped, unless some
+// row of the CTA has no allowed key at all (then every tile counts, as in
+// the reference).
 //
 // Plain C interface for ctypes: every entry point returns the CUDA error code
 // of the launch (0 on success).
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -139,12 +163,10 @@ struct Strides {
 __device__ __forceinline__ bool kv_tile_range(int q0, int BQ, int BK, int S, int T_len, int causal,
                                               int window, int& kt_begin, int& kt_end) {
   const int r_last = min(q0 + BQ, S) - 1;
-  bool needs_all = false;
-  for (int r = q0; r <= r_last; ++r) {
-    const int hi = causal ? min(r, T_len - 1) : T_len - 1;
-    const int lo = window > 0 ? max(r - window + 1, 0) : 0;
-    needs_all |= lo > hi;
-  }
+  // Row r has no allowed key when its window starts past the last key
+  // (lo = r - window + 1 > T - 1; causal or not, hi >= lo otherwise), and
+  // the last row is the first to do so.
+  const bool needs_all = window > 0 && r_last - window + 1 > T_len - 1;
   kt_begin = 0;
   kt_end = (T_len + BK - 1) / BK;
   if (!needs_all) {
@@ -537,6 +559,494 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
+// ------------------------------------------------------- bf16, wgmma ----
+//
+// `flash_fwd_wgmma_kernel`: one CTA of three warpgroups per (b * h, 128
+// query rows). Warpgroups 0 and 1 are consumers, 64 query rows each;
+// warpgroup 2 is the producer, of which one thread issues every copy. The
+// producer gives up registers (setmaxnreg 40), the consumers take them
+// (232). The producer loads Q once and each 128-key tile of K and V into a
+// ring of three stages with TMA (4-D tensor maps over (hd, S or T, heads,
+// batch), 128-byte swizzle, 64 head-dim columns per box); a stage's full
+// barriers (K and V apart) count the bytes, its empty barrier the 8
+// consumer warps that are done with it. A consumer computes S = Q K^T with
+// `wgmma` m64n128k16 (A = Q and B = K from shared memory, both K-major),
+// masks and runs the online softmax on its registers, and accumulates
+// O += P V with `wgmma` m64n{hd}k16 (A = P from registers, bf16; B = V from
+// shared memory, MN-major). The two consumer warpgroups take turns to issue
+// their S products (two named barriers), so that one's softmax overlaps the
+// other's products. The products of one warpgroup are not pipelined against
+// its own softmax: that needs the S, P and O fragments live at once (~190
+// registers), above the 168 that ptxas allots a thread of a 384-thread CTA
+// (it serialises the wgmma and spills; setmaxnreg does not lift that limit
+// at compile time), and a 288-thread variant (producer warp, 224 registers)
+// that held them ran slower than this one. Rows past S and keys past T are
+// zero-filled by TMA; keys past T still get the -inf mask.
+
+constexpr int kWgRows = 128;      // query rows per CTA: 64 per consumer warpgroup
+constexpr int kWgKeys = 128;      // keys per K/V tile
+constexpr int kWgThreads = 384;   // two consumer warpgroups, then the producer warpgroup
+constexpr int kSlab = 64;         // head-dim columns of one 128-byte swizzled box
+constexpr int kSlabBytes = kWgKeys * 128;  // one box of a 128-row tile: 16 KB
+
+constexpr int kWgStages = 3;      // K/V ring depth
+
+// Shared memory, in bytes from a 1024-byte aligned base: Q, K[3], V[3] (one
+// 128-row tile each, hd / 64 boxes of 16 KB), then the barriers (q_full,
+// k_full[3], v_full[3], empty[3]). At hd 128: 224 KB + 1 KB of the 227 KB.
+template <int HD>
+struct WgSmem {
+  static constexpr int kTile = (HD / kSlab) * kSlabBytes;
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;
+  static constexpr int kV = (1 + kWgStages) * kTile;
+  static constexpr int kBar = (1 + 2 * kWgStages) * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 3 * kWgStages) + 1024;  // + 1024: base alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the barrier has completed. A
+// wait that outlasts ~2^33 cycles (seconds) traps, so a lost arrival ends
+// the launch with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - start > (1ll << 33)) __trap();
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for the 128-byte swizzle: start address,
+// leading and stride byte offsets (16-byte units), layout 1 (SWIZZLE_128B).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Keep the compiler from moving reads or writes of wgmma operands across
+// the fence / wait instructions.
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d (m64 x n128, f32) (+)= a (64 x 16, K-major in shared memory) . b (16 x n128, K-major).
+__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n128, f32) += a (64 x 16 bf16, in registers) . b (16 x n128, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n64, f32) += a (64 x 16 bf16, in registers) . b (16 x n64, MN-major in shared memory).
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int HD>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
+                       const __grid_constant__ CUtensorMap tmk,
+                       const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+                       int H, int Hkv, int S, int T_len, Strides os, int causal, int window,
+                       float softcap, float scale) {
+  using L = WgSmem<HD>;
+  constexpr int NSLAB = HD / kSlab;
+  constexpr int SB = kWgKeys / 8;  // 8-key blocks of a score tile
+  constexpr int OB = HD / 8;       // 8-column blocks of the output
+  static_assert(HD == 64 || HD == 128, "the wgmma route takes head_dim 64 or 128");
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ, sK = base + L::kK, sV = base + L::kV;
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + kWgStages + st); };
+  auto empty = [&](int st) { return q_full + 8 * (1 + 2 * kWgStages + st); };
+
+  // The query tiles of one head are neighbours in the grid, so that the CTAs
+  // resident at once share a few heads' K and V in L2; heavy (late) query
+  // tiles of a causal pass first, for the tail.
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;
+  int kt_begin, kt_end;
+  const bool needs_all =
+      kv_tile_range(q0, kWgRows, kWgKeys, S, T_len, causal, window, kt_begin, kt_end);
+  const int n_tiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), 8);  // the 8 consumer warps
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      mbar_expect_tx(q_full, L::kTile);
+      for (int s = 0; s < NSLAB; ++s)
+        tma_load_4d(sQ + s * kSlabBytes, &tmq, q_full, s * kSlab, q0, h, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kWgStages;
+        if (i >= kWgStages) mbar_wait(empty(st), (i / kWgStages - 1) & 1);
+        const int k0 = (kt_begin + i) * kWgKeys;
+        mbar_expect_tx(k_full(st), L::kTile);
+        for (int s = 0; s < NSLAB; ++s)
+          tma_load_4d(sK + st * L::kTile + s * kSlabBytes, &tmk, k_full(st), s * kSlab, k0, hk, b);
+        mbar_expect_tx(v_full(st), L::kTile);
+        for (int s = 0; s < NSLAB; ++s)
+          tma_load_4d(sV + st * L::kTile + s * kSlabBytes, &tmv, v_full(st), s * kSlab, k0, hk, b);
+      }
+    }
+  } else {
+    // Consumers: 64 query rows per warpgroup, 16 per warp.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int wq0 = q0 + 64 * wg;  // the warpgroup's first query row
+    const int row0 = wq0 + warp * 16 + g;
+    float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+    float oacc[OB * 4];
+#pragma unroll
+    for (int j = 0; j < OB * 4; ++j) oacc[j] = 0.f;
+    float sacc[SB * 4];
+    uint32_t pa[kWgKeys / 16][4];
+
+    // S = Q K^T of the tile in stage st (64 x 128 per warpgroup), issued
+    // as one wgmma group.
+    auto issue_s = [&](int st) {
+      // The bases pass through an empty asm, so the descriptors are rebuilt
+      // per tile instead of being held in registers across the loop.
+      uint32_t qa = sQ + wg * 64 * 128, ka = sK + st * L::kTile;
+      asm volatile("" : "+r"(qa), "+r"(ka));
+      fence_regs<SB * 4>(sacc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * kSlabBytes + (kk % 4) * 32;
+        wgmma_ss_n128(sacc, sw128_desc(qa + off, 16, 1024), sw128_desc(ka + off, 16, 1024),
+                      kk > 0);
+      }
+      wg_commit();
+    };
+    // O += P V of the tile in stage st, issued as one wgmma group.
+    auto issue_pv = [&](int st) {
+      uint32_t va = sV + st * L::kTile;
+      asm volatile("" : "+r"(va));
+      fence_regs<OB * 4>(oacc);
+      fence_regs<kWgKeys / 4>(&pa[0][0]);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        const uint64_t dv = sw128_desc(va + kk * 16 * 128, kSlabBytes, 1024);
+        if constexpr (HD == 128) {
+          wgmma_rs_n128(oacc, pa[kk], dv);
+        } else {
+          wgmma_rs_n64(oacc, pa[kk], dv);
+        }
+      }
+      wg_commit();
+    };
+    // Scale, softcap and mask the scores of the tile at key k0 (the mask
+    // only where the tile crosses the causal diagonal, the window's edge or
+    // the last key, or where some row of the CTA has no allowed key), then
+    // the online softmax on rows g and g + 8 of each warp's 16, with the
+    // scores, the running max and the masks in log2 units (s * log2(e)), so
+    // that each weight is one ex2.approx: exp(s - m) stays in sacc; returns
+    // the factors that rescale O and l.
+    auto softmax = [&](int k0, float* corr) {
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int e = 0; e < SB * 4; ++e)
+          sacc[e] = softcap * tanhf(sacc[e] * scale / softcap) * kLog2e;
+      } else {
+        const float sl2 = scale * kLog2e;
+#pragma unroll
+        for (int e = 0; e < SB * 4; ++e) sacc[e] *= sl2;
+      }
+      const bool inside = !needs_all && k0 + kWgKeys <= T_len &&
+                          (!causal || k0 + kWgKeys - 1 <= wq0) &&
+                          (window <= 0 || wq0 + 63 - k0 < window);
+      if (!inside) {
+#pragma unroll
+        for (int j = 0; j < SB; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sacc[4 * j + e] = mask_score(sacc[4 * j + e], row0 + (e / 2) * 8,
+                                         k0 + j * 8 + t4 * 2 + (e % 2), T_len, causal, window);
+      }
+      float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < SB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sacc[4 * j + e]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        corr[r] = ex2_approx(m[r] - m_new);
+        m[r] = m_new;
+      }
+#pragma unroll
+      for (int j = 0; j < SB; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2_approx(sacc[4 * j + e] - m[e / 2]);
+          sacc[4 * j + e] = p;
+          sum[e / 2] += p;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+        l[r] = l[r] * corr[r] + sum[r];
+      }
+    };
+    // O *= corr, then P as bf16 A fragments: accumulator blocks 2kk and
+    // 2kk + 1 are the 16 keys of k-step kk.
+    auto rescale_and_pack = [&](const float* corr) {
+#pragma unroll
+      for (int j = 0; j < OB; ++j) {
+        oacc[4 * j] *= corr[0];
+        oacc[4 * j + 1] *= corr[0];
+        oacc[4 * j + 2] *= corr[1];
+        oacc[4 * j + 3] *= corr[1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
+        pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
+        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
+        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
+        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
+      }
+    };
+
+    // The two consumer warpgroups take turns to issue S = Q K^T (named
+    // barriers 1 and 2, 256 threads: one warpgroup waits, the other
+    // arrives), so that one's softmax runs while the other's products do;
+    // warpgroup 0 goes first.
+    float corr[2];
+    if (wg == 1) named_arrive(1, 256);
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kWgStages;
+      const uint32_t par = (i / kWgStages) & 1;
+      mbar_wait(k_full(st), par);
+      named_sync(1 + wg, 256);
+      issue_s(st);
+      if (wg == 0 || i + 1 < n_tiles) named_arrive(2 - wg, 256);
+      wg_wait<0>();
+      fence_regs<SB * 4>(sacc);
+      softmax((kt_begin + i) * kWgKeys, corr);
+      rescale_and_pack(corr);
+      mbar_wait(v_full(st), par);
+      issue_pv(st);
+      wg_wait<0>();
+      fence_regs<OB * 4>(oacc);
+      if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
+    }
+
+    __nv_bfloat16* ob = o + b * os.b + h * os.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row >= S) continue;
+      const float inv = 1.f / fmaxf(l[r], 1e-30f);
+      __nv_bfloat16* orow = ob + (long long)row * os.s + t4 * 2;
+#pragma unroll
+      for (int j = 0; j < OB; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so that this library needs no -lcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over (hd, rows, heads, batch) with element strides st,
+// read in boxes of 64 head-dim columns x 128 rows, 128-byte swizzled. A
+// dimension of size 1 gets a packed stride (its own is never used).
+bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
+              int batch, Strides st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  long long s = st.s, hh = st.h, bb = st.b;
+  if (rows == 1) s = hd;
+  if (heads == 1) hh = s * rows;
+  if (batch == 1) bb = hh * heads;
+  const cuuint64_t strides[3] = {(cuuint64_t)(2 * s), (cuuint64_t)(2 * hh), (cuuint64_t)(2 * bb)};
+  const cuuint32_t box[4] = {(cuuint32_t)kSlab, (cuuint32_t)kWgKeys, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
+                 int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+                 int window, float softcap, float scale, void* stream) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tmq, tmk, tmv;
+  if (!make_map(enc, &tmq, q, HD, S, H, B, qs) || !make_map(enc, &tmk, k, HD, T_len, Hkv, B, ks) ||
+      !make_map(enc, &tmv, v, HD, T_len, Hkv, B, vs))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = WgSmem<HD>::kBytes;
+  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int n_q = (S + kWgRows - 1) / kWgRows;
+  if (B * H > 65535) return (int)cudaErrorInvalidConfiguration;
+  const dim3 grid(n_q, B * H);
+  kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(tmq, tmk, tmv, (__nv_bfloat16*)o, H,
+                                                           Hkv, S, T_len, os, causal, window,
+                                                           softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv, int S,
                int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal, int window,
@@ -593,8 +1103,13 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 extern "C" {
 
-// strides: 12 element strides, (b, h, s) of q, k, v and o in that order;
-// scale: hd^-0.5 rounded to f32 by the caller, as the reference rounds it.
+// Every entry point takes q, k, v, o; B, H, Hkv, S, T, hd; strides: 12
+// element strides, (b, h, s) of q, k, v and o in that order; causal,
+// window, softcap; scale: hd^-0.5 rounded to f32 by the caller, as the
+// reference rounds it. Which entry point serves which dtype and head_dim
+// is chosen in kernels/flash_attention.py (`flash_route`).
+
+// f32 at every hd: the scalar kernel.
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
                         int Hkv, int S, int T_len, int hd, const long long* strides, int causal,
                         int window, float softcap, float scale, void* stream) {
@@ -602,11 +1117,26 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, in
                          scale, stream);
 }
 
-// bf16 at hd <= 128 runs on the tensor cores; at hd = 256 (whose A and
-// output fragments would not fit in registers) on the scalar kernel.
-int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                         int Hkv, int S, int T_len, int hd, const long long* st, int causal,
-                         int window, float softcap, float scale, void* stream) {
+// bf16 at hd in {64, 128}: the warp-specialised wgmma + TMA kernel.
+int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                               int H, int Hkv, int S, int T_len, int hd, const long long* st,
+                               int causal, int window, float softcap, float scale,
+                               void* stream) {
+  const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
+      os{st[9], st[10], st[11]};
+  switch (hd) {
+    case 64: return launch_wgmma<64>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 at hd in {32, 64, 80, 128}: the mma.sync kernel (the serving route
+// at hd 32 and 80; at 64 and 128 the earlier design, kept callable for a
+// side-by-side timing).
+int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
+                             int Hkv, int S, int T_len, int hd, const long long* st, int causal,
+                             int window, float softcap, float scale, void* stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
   switch (hd) {
@@ -614,9 +1144,18 @@ int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, i
     case 64: return launch_mma<64>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     case 80: return launch_mma<80>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     case 128: return launch_mma<128>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
-    default: return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T_len, hd, st, causal,
-                                            window, softcap, scale, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// bf16 at any hd (the route at hd 256, whose fragments would not fit in
+// registers): the scalar kernel, bf16 widened to f32 when staged.
+int flash_attention_scalar_bf16(const void* q, const void* k, const void* v, void* o, int B,
+                                int H, int Hkv, int S, int T_len, int hd, const long long* st,
+                                int causal, int window, float softcap, float scale,
+                                void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T_len, hd, st, causal, window,
+                                 softcap, scale, stream);
 }
 
 }  // extern "C"

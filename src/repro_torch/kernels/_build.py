@@ -96,12 +96,13 @@ _VP, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_fl
 _PLL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "sbv_loglik": {
-        "sbv_loglik_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
-        "sbv_loglik_f32": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
-        "sbv_loglik_bf16": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
+        **{f"{pre}_{v}": (_I, [_VP] * 10 + [_I] * 6 + [_VP])
+           for pre in ("sbv_loglik", "sbv_loglik_panel") for v in ("f64", "f32", "bf16")},
         "sbv_loglik_scratch_per_cta": (_LL, [_I, _I]),
-        "sbv_loglik_smem_bytes": (_LL, [_I, _I, _I, _I]),
-        "sbv_loglik_ctas_per_sm": (_I, [_I, _I, _I, _I]),
+        **{f"{pre}_smem_bytes": (_LL, [_I, _I, _I, _I])
+           for pre in ("sbv_loglik", "sbv_loglik_panel")},
+        **{f"{pre}_ctas_per_sm": (_I, [_I, _I, _I, _I])
+           for pre in ("sbv_loglik", "sbv_loglik_panel")},
     },
     "sbv_predict": {
         "sbv_predict_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
@@ -126,8 +127,9 @@ _SIGNATURES = {
         "matern_cov_smem_bytes": (_LL, [_I, _I]),
     },
     "flash_attention": {
-        "flash_attention_f32": (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP]),
-        "flash_attention_bf16": (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP]),
+        fn: (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
+        for fn in ("flash_attention_f32", "flash_attention_wgmma_bf16",
+                   "flash_attention_mma_bf16", "flash_attention_scalar_bf16")
     },
 }
 

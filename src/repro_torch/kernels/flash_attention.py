@@ -10,7 +10,8 @@ launches ``csrc/flash_attention.cu``; on CPU tensors it runs
 ``flash_attention_plain``, the counterpart of
 ``repro.kernels.flash_ref.flash_attention_ref``. Query head h uses KV head
 ``h // (H // Hkv)``, as ``repro.models.attention._expand_kv`` repeats them.
-f32 and bf16; hd in {32, 64, 80, 128, 256}; any S and T.
+f32 and bf16; hd in {32, 64, 80, 128, 256}; any S and T. ``flash_route``
+picks the kernel by dtype and head_dim (the table in the CUDA source).
 """
 from __future__ import annotations
 
@@ -70,13 +71,28 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous()
 
 
-def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
-                         softcap: float = 0.0) -> torch.Tensor:
-    """Launch the flash-attention kernel on CUDA tensors: (B, H, S, hd).
+# The CUDA entry point of each route (csrc/flash_attention.cu).
+ROUTES = {"wgmma": "flash_attention_wgmma_bf16", "mma": "flash_attention_mma_bf16",
+          "scalar_bf16": "flash_attention_scalar_bf16", "scalar_f32": "flash_attention_f32"}
 
-    The output has q's strides where q is dense (for the model's
-    (B, S, H, hd) projections seen as (B, H, S, hd), a (B, S, H, hd)
-    buffer), so no transpose is copied on either side."""
+
+def flash_route(dtype, hd: int) -> str:
+    """The kernel that serves ``dtype`` at head_dim ``hd``: ``'wgmma'``
+    (bf16 at 64 and 128), ``'mma'`` (bf16 at 32 and 80), ``'scalar_bf16'``
+    (bf16 at 256) or ``'scalar_f32'`` (f32 at every head_dim)."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
+    if dtype == torch.float32:
+        return "scalar_f32"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash_attention: kernel runs in float32 or bfloat16, got {dtype}")
+    if hd in (64, 128):
+        return "wgmma"
+    return "mma" if hd in (32, 80) else "scalar_bf16"
+
+
+def _launch(entry: str, q, k, v, causal: bool, window: int, softcap: float) -> torch.Tensor:
+    """Check the operands and launch the C entry point ``entry`` on them."""
     _check_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda:
@@ -85,12 +101,8 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
             raise TypeError(f"flash_attention: {name} has dtype {t.dtype}, expected {q.dtype}")
         if t.device != q.device:
             raise ValueError("flash_attention: operands on several devices")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"flash_attention: kernel runs in float32 or bfloat16, got {q.dtype}")
     b, h, s, hd = q.shape
     hkv, t_len = k.shape[1], k.shape[2]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -99,14 +111,28 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
         raise ValueError("flash_attention: no keys (T = 0)")
     out = _kernel_ready(out)
     strides = (ctypes.c_longlong * 12)(*(st for t in (q, k, v, out) for st in t.stride()[:3]))
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    fn = getattr(_build.load("flash_attention"), entry)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, hkv, s, t_len,
                  hd, strides, int(causal), int(window), float(softcap), float(hd ** -0.5),
                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
-    _build.LAUNCHES["flash_attention"] += 1
+    _build.check(err, entry)
+    return out
+
+
+def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
+                         softcap: float = 0.0) -> torch.Tensor:
+    """Launch the flash-attention kernel on CUDA tensors: (B, H, S, hd),
+    through the route ``flash_route`` gives for q's dtype and head_dim.
+
+    The output has q's strides where q is dense (for the model's
+    (B, S, H, hd) projections seen as (B, H, S, hd), a (B, S, H, hd)
+    buffer), so no transpose is copied on either side."""
+    _check_shapes(q, k, v)
+    route = flash_route(q.dtype, q.shape[3])
+    out = _launch(ROUTES[route], q, k, v, causal, window, softcap)
+    if out.numel():
+        _build.LAUNCHES["flash_attention"] += 1
     return out
 
 

@@ -100,14 +100,11 @@ def kernel_scalars(device, dtype, d: int, beta, *scalars):
     return beta, scal
 
 
-def sbv_loglik_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
-                    nu: float = 3.5) -> torch.Tensor:
-    """Launch the fused likelihood kernel on CUDA tensors. Per-block (bc,).
-
-    The observation dtype (f64 or f32) is the kernel's working dtype;
-    coordinates are at that dtype, or bf16 with f32 observations (the
-    bf16 variant). Boolean masks and the parameters are converted to the
-    working dtype."""
+def _launch(prefix: str, beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+            nu: float) -> torch.Tensor:
+    """Check the operands and launch the C entry points ``{prefix}_{variant}``
+    (``sbv_loglik``: the kernel; ``sbv_loglik_panel``: its earlier design,
+    kept for side-by-side timings). Per-block (bc,)."""
     dtype = blk_y.dtype
     bc, bs, d = blk_x.shape
     m = nn_x.shape[1]
@@ -129,17 +126,32 @@ def sbv_loglik_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn
         return out
     lib = _build.load("sbv_loglik")
     with torch.cuda.device(device):
-        grid = _grid(lib, "sbv_loglik", bc, device, bs, m, d, VARIANT_CODES[variant])
+        grid = _grid(lib, prefix, bc, device, bs, m, d, VARIANT_CODES[variant])
         scratch = torch.empty(grid * lib.sbv_loglik_scratch_per_cta(bs, m), dtype=dtype,
                               device=device)
-        fn = getattr(lib, f"sbv_loglik_{variant}")
+        fn = getattr(lib, f"{prefix}_{variant}")
         err = fn(beta.data_ptr(), scal.data_ptr(), ops["blk_x"].data_ptr(),
                  ops["blk_y"].data_ptr(), ops["blk_mask"].data_ptr(), ops["nn_x"].data_ptr(),
                  ops["nn_y"].data_ptr(), ops["nn_mask"].data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), bc, bs, m, d, NU_CODES[nu], grid,
                  torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "sbv_loglik")
-    _build.LAUNCHES["sbv_loglik_bf16" if variant == "bf16" else "sbv_loglik"] += 1
+    _build.check(err, prefix)
+    return out
+
+
+def sbv_loglik_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                    nu: float = 3.5) -> torch.Tensor:
+    """Launch the fused likelihood kernel on CUDA tensors. Per-block (bc,).
+
+    The observation dtype (f64 or f32) is the kernel's working dtype;
+    coordinates are at that dtype, or bf16 with f32 observations (the
+    bf16 variant). Boolean masks and the parameters are converted to the
+    working dtype."""
+    out = _launch("sbv_loglik", beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                  nn_mask, nu)
+    if out.numel():
+        _build.LAUNCHES["sbv_loglik_bf16" if blk_x.dtype == torch.bfloat16
+                        else "sbv_loglik"] += 1
     return out
 
 

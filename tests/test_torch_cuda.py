@@ -18,9 +18,12 @@ from repro_torch.core import multioutput as mo  # noqa: E402
 from repro_torch.core import predict as tpredict  # noqa: E402
 from repro_torch.core import vecchia  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention_cuda,  # noqa: E402
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (ROUTES, _kernel_ready,  # noqa: E402
+                                                 flash_attention_cuda, flash_attention_plain,
+                                                 flash_route)
+from repro_torch.kernels.flash_attention import _launch as flash_launch  # noqa: E402
 from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain  # noqa: E402
+from repro_torch.kernels.sbv_loglik import _launch as loglik_launch  # noqa: E402
 from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain  # noqa: E402
 from repro_torch.kernels.sbv_multi_stats import (sbv_multi_stats_cuda,  # noqa: E402
                                                  sbv_multi_stats_plain)
@@ -86,6 +89,73 @@ def test_loglik_gradient_matches_plain_autograd(dev):
     g_plain = grads(lambda q: vecchia.batched_block_loglik(q, *arrs))
     for a, b in zip(g_kernel, g_plain):
         torch.testing.assert_close(a, b, rtol=1e-8, atol=0)
+
+
+def _loglik_case(case, dev):
+    """Packed arrays for a (bs, m, bc) cut of real blocks. 'wide' blocks
+    (P = bs + m > 256) take more than one pass of the factorization's 256
+    rows; 'holes' masks every third point inside the prefix of real ones."""
+    kind, bs, m, bc = case
+    if kind == "wide":
+        x, y, beta = _data(n=3000, seed=8)
+        packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=10, m=m))
+    else:
+        x, y, beta = _data(seed=9)
+        packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=20, m=max(m, 4)))
+    arrs = [a[:bc] for a in _slice(vecchia.packed_arrays(packed, dev), bs, m)]
+    if kind == "holes":
+        arrs[2] = arrs[2] & (torch.arange(bs, device=dev) % 3 != 1)
+        arrs[5] = arrs[5] & (torch.arange(m, device=dev) % 3 != 2)
+    return tuple(arrs), beta
+
+
+# (kind, bs, m, bc) of the tiled factorization's edges: P = bs + m below,
+# at, one above and well above its 32-column panel (and not a multiple of
+# it), the round-0 bucket with m = 4, one block, fewer blocks than the
+# grid, more than 256 rows (two passes), and masked points inside a block.
+LOGLIK_CASES = [("plain", 20, 4, 20), ("plain", 28, 4, 20), ("plain", 29, 4, 20),
+                ("plain", 37, 29, 20), ("plain", 37, 29, 1), ("plain", 37, 29, 3),
+                ("wide", 300, 40, 4), ("holes", 37, 29, 20)]
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 3.5])
+@pytest.mark.parametrize("case", LOGLIK_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_loglik_tiled_kernel_edges(dev, case, nu):
+    arrs, beta = _loglik_case(case, dev)
+    p = _params(beta, dev)
+    want = sbv_loglik_plain(p.beta, p.sigma2, p.nugget, *arrs, nu=nu)
+    got = sbv_loglik_cuda(p.beta, p.sigma2, p.nugget, *arrs, nu=nu)
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
+    got32 = sbv_loglik_cuda(*_cast((p.beta, p.sigma2, p.nugget), torch.float32),
+                            *_cast(arrs, torch.float32), nu=nu)
+    np.testing.assert_allclose(float(got32.double().sum()), float(want.sum()), rtol=5e-4)
+    b16 = _bf16(arrs, dev)
+    par = (p.beta.float(), p.sigma2.float(), p.nugget.float())
+    want16 = sbv_loglik_plain(*par, *b16, nu=nu)
+    got16 = sbv_loglik_cuda(*par, *b16, nu=nu)
+    assert float(((got16 - want16).abs() / want16.abs().clamp(min=1)).max()) <= BF16_TOL
+
+
+@pytest.mark.parametrize("variant", ["f64", "f32", "bf16"])
+def test_loglik_panel_baseline_agrees_with_tiled(dev, variant):
+    """The earlier design (padded blocks, 16-column right-looking panels),
+    callable for the side-by-side timing, computes the same likelihood;
+    its launches are not path launches."""
+    arrs, beta = _loglik_case(("plain", 37, 29, 20), dev)
+    p = _params(beta, dev)
+    par = (p.beta, p.sigma2, p.nugget)
+    if variant == "f32":
+        par, arrs = _cast(par, torch.float32), _cast(arrs, torch.float32)
+    elif variant == "bf16":
+        par, arrs = _cast(par, torch.float32), _bf16(arrs, dev)
+    before = dict(_build.LAUNCHES)
+    base = loglik_launch("sbv_loglik_panel", *par, *arrs, nu=3.5)
+    assert _build.LAUNCHES == before
+    got = sbv_loglik_cuda(*par, *arrs)
+    rel = float(((got.double() - base.double()).abs() / base.double().abs().clamp(min=1)).max())
+    # f32: two f32 eliminations in different orders, per block within
+    # chip_smoke.py's f32 limit (LADDER_TOL_F32, 3e-3 of max(1, |value|)).
+    assert rel <= {"f64": 1e-10, "f32": 3e-3, "bf16": BF16_TOL}[variant]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -260,7 +330,9 @@ FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5), torch.bfloat16: dict(rto
 FLASH_ROW_TOL = 1e-2
 # (B, H, Hkv, S, T, hd, causal, window, softcap): the path's variants at a
 # reduced size, and the cases where the kernel must not skip a KV tile. bf16
-# at hd <= 128 reaches the tensor-core kernel, f32 and hd = 256 the scalar one.
+# at hd 64 and 128 reaches the wgmma kernel (128 query rows and 128-key
+# tiles per CTA), at hd 32 and 80 the mma.sync one, f32 and hd = 256 the
+# scalar one (``flash_route``).
 FLASH_CASES = [
     (2, 4, 2, 256, 256, 128, True, 0, 0.0),     # the path: GQA, causal
     (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),   # ragged S = T = 1000
@@ -274,6 +346,18 @@ FLASH_CASES = [
     (2, 4, 2, 160, 160, 80, True, 0, 0.0),
     (1, 4, 2, 130, 130, 256, True, 0, 0.0),
     (1, 1, 1, 1, 1, 32, True, 0, 0.0),
+    # The wgmma route: hd 64 with H = Hkv (musicgen-large); S and T one
+    # below and one above the 128-row tile; S < 128 against a long T,
+    # causal and not; a window that crosses tiles, with and without a
+    # softcap; rows with no allowed key (causal, window, S > T).
+    (1, 4, 4, 300, 300, 64, True, 0, 0.0),
+    (1, 2, 1, 127, 127, 128, True, 0, 0.0),
+    (1, 2, 1, 129, 129, 128, True, 0, 0.0),
+    (1, 2, 1, 50, 700, 128, True, 0, 0.0),
+    (1, 2, 1, 100, 900, 64, False, 0, 0.0),
+    (1, 2, 1, 1000, 1000, 128, True, 200, 0.0),
+    (1, 2, 2, 520, 520, 128, True, 150, 30.0),
+    (1, 2, 2, 300, 40, 128, True, 8, 0.0),
 ]
 
 
@@ -331,6 +415,55 @@ def test_flash_kernel_takes_model_layout_strides(dev):
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_cuda(*(torch.zeros(1, 1, 4, 48, device=dev),) * 3)
+
+
+def test_flash_wgmma_takes_model_layout_strides_at_hd128(dev):
+    """The wgmma route reads the model's (B, S, H, hd) projections through
+    its tensor maps without a copy, and writes the model's layout."""
+    assert flash_route(torch.bfloat16, 128) == "wgmma"
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(2, 300, 4, 128, generator=g, device=dev).to(torch.bfloat16)
+    kv = torch.randn(2, 300, 2, 128, generator=g, device=dev).to(torch.bfloat16)
+    q, k = x.transpose(1, 2), kv.transpose(1, 2)
+    assert _kernel_ready(q) is q and _kernel_ready(k) is k
+    got = flash_attention_cuda(q, k, k)
+    assert got.transpose(1, 2).is_contiguous()
+    want = flash_attention_plain(q, k, k)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    assert _row_rel_err(got, want) <= FLASH_ROW_TOL
+
+
+@pytest.mark.parametrize("hd", [32, 80])
+def test_flash_hd32_hd80_stay_on_the_mma_route(dev, hd):
+    """hd 32 and 80 run the mma.sync kernel: the route says so, and the
+    wrapper's output is that kernel's, bit for bit."""
+    assert flash_route(torch.bfloat16, hd) == "mma"
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 4, 2, 200, 200, hd, seed=3)
+    got = flash_attention_cuda(q, k, v)
+    mma = flash_launch(ROUTES["mma"], q, k, v, True, 0, 0.0)
+    assert torch.equal(got, mma)
+    want = flash_attention_plain(q, k, v)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("case", [(2, 4, 2, 256, 256, 128, True, 0, 0.0),
+                                  (1, 4, 4, 300, 300, 64, True, 0, 0.0),
+                                  (1, 2, 1, 1000, 1000, 128, True, 200, 0.0)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_wgmma_agrees_with_the_mma_baseline(dev, case):
+    """The earlier mma.sync design, callable at hd 64 and 128 for the
+    side-by-side timing, computes the same function as the wgmma route:
+    both round P to bf16 before P . V, so they agree to the bf16 limits
+    per output row, and neither launch counts as a path launch."""
+    b, h, hkv, s, t, hd, causal, window, cap = case
+    q, k, v = _flash_inputs(dev, torch.bfloat16, b, h, hkv, s, t, hd, seed=7)
+    before = _build.LAUNCHES["flash_attention"]
+    base = flash_launch(ROUTES["mma"], q, k, v, causal, window, cap)
+    assert _build.LAUNCHES["flash_attention"] == before
+    got = flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), base.float(), **FLASH_TOL[torch.bfloat16])
+    assert _row_rel_err(got, base) <= FLASH_ROW_TOL
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
