@@ -6,8 +6,9 @@ the reference's). A uniformly padded batch pads every block to the global
 size-buckets with geometric (bs, m) ceilings, each a small ``PackedBlocks``
 / ``PackedPrediction`` padded only to its own ceiling, with ``ranks``
 scatter indices back to the uniform order. Every consumer loops the
-buckets (one kernel launch per bucket) and sums log-likelihoods or
-scatters predictions; identity padding makes the result equal to the
+buckets (one kernel launch per bucket; a prediction chunk's buckets share
+one launch) and sums log-likelihoods or scatters predictions; identity
+padding makes the result equal to the
 uniform layout's (1e-10 in f64), so only the padded work changes, which
 ``occupancy`` (true FLOPs / padded FLOPs) measures.
 

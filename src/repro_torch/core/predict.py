@@ -199,37 +199,50 @@ def batched_block_predict(params: KernelParams | MultiOutputParams, q_x, q_mask,
     Padded query slots carry mu=0 / var=prior; drop them with the mask.
 
     ``auto`` runs the fused kernel on CUDA tensors and the plain version on CPU
-    tensors (``kernels.ops.sbv_predict``), at the observations' dtype, with
+    tensors (``kernels.ops.sbv_predict_many``), at the observations' dtype, with
     the bf16-assembly variant for bf16 coordinates; ``ref`` runs the plain
     version directly (differentiable) at the promotion of the params' and
     the data's dtypes, as the reference's ``_predict_one`` does under jnp
     promotion. ``MultiOutputParams`` with (bc, m, p) ``nn_y`` take the
     shared-Cholesky multi-output conditional under every backend, at that
     promotion too, and give (bc, bs, p) each."""
+    return batched_block_predict_many(params, [(q_x, q_mask, nn_x, nn_y, nn_mask)], nu=nu,
+                                      backend=backend)[0]
+
+
+def batched_block_predict_many(params: KernelParams | MultiOutputParams, pieces,
+                               nu: float = 3.5, backend: str = "auto"):
+    """``batched_block_predict`` of each piece of a chunk (``pieces``:
+    ``(q_x, q_mask, nn_x, nn_y, nn_mask)`` tuples): a list of ``(mu, var)``.
+    Single-output ``auto`` computes all pieces in one kernel launch
+    (``kernels.ops.sbv_predict_many``); the other routes go piece by piece."""
+    if backend not in ("auto", "ref"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto" and not isinstance(params, MultiOutputParams):
+        from repro_torch.kernels import ops
+
+        return ops.sbv_predict_many(params, pieces, nu=nu)
+    return [_plain_predict(params, *pc, nu=nu) for pc in pieces]
+
+
+def _plain_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float):
+    """The plain conditional of one piece at the promotion of the params'
+    and the data's dtypes (multi-output: the shared-Cholesky form)."""
     wide = torch.promote_types(params.log_beta.dtype, nn_y.dtype)
     if isinstance(params, MultiOutputParams):
         p = MultiOutputParams(*(a.to(wide) for a in params))
         return block_predict_multi(p.beta, p.tau2, p.sigma2, q_x.to(wide), q_mask,
                                    nn_x.to(wide), nn_y.to(wide), nn_mask, nu=nu)
-    if backend == "auto":
-        from repro_torch.kernels import ops
-
-        return ops.sbv_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu=nu)
-    if backend == "ref":
-        p = cast_params(params, wide)
-        return block_predict(p.beta, p.sigma2, p.nugget, q_x.to(wide), q_mask, nn_x.to(wide),
-                             nn_y.to(wide), nn_mask, nu=nu)
-    raise ValueError(f"unknown backend {backend!r}")
+    p = cast_params(params, wide)
+    return block_predict(p.beta, p.sigma2, p.nugget, q_x.to(wide), q_mask, nn_x.to(wide),
+                         nn_y.to(wide), nn_mask, nu=nu)
 
 
-def _predict_and_simulate(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float, backend: str,
-                          n_sims: int, eps=None, generator: torch.Generator | None = None):
-    """Per-chunk math: block conditionals + conditional simulation.
-
-    ``eps`` (n_sims, bc, bs[, p]) is the standard-normal noise; when it is None
-    it is drawn from ``generator`` on the device of the operands."""
-    mu, var = batched_block_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu=nu,
-                                    backend=backend)
+def _simulate(mu, var, n_sims: int, eps=None, generator: torch.Generator | None = None):
+    """Conditional simulation of one piece: ``(sim_mean, sim_std)`` of
+    ``n_sims`` draws of N(mu, var). ``eps`` (n_sims, bc, bs[, p]) is the
+    standard-normal noise; when it is None it is drawn from ``generator``
+    on the device of ``mu``."""
     with torch.no_grad():
         if eps is None:
             eps = torch.randn((n_sims,) + tuple(mu.shape), generator=generator,
@@ -239,9 +252,15 @@ def _predict_and_simulate(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float, b
         else:
             eps = torch.tensor(np.asarray(eps), device=mu.device, dtype=mu.dtype)
         draws = mu[None] + torch.sqrt(var)[None] * eps
-        sim_mean = draws.mean(dim=0)
-        sim_std = draws.std(dim=0, correction=1)
-    return mu, var, sim_mean, sim_std
+        return draws.mean(dim=0), draws.std(dim=0, correction=1)
+
+
+def _predict_and_simulate(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float, backend: str,
+                          n_sims: int, eps=None, generator: torch.Generator | None = None):
+    """Per-chunk math: block conditionals + conditional simulation."""
+    mu, var = batched_block_predict(params, q_x, q_mask, nn_x, nn_y, nn_mask, nu=nu,
+                                    backend=backend)
+    return (mu, var) + _simulate(mu, var, n_sims, eps=eps, generator=generator)
 
 
 def _chunk_generator(seed: int, chunk_id: int, device: torch.device,
@@ -291,12 +310,12 @@ def predict_sbv(
     device generator.
 
     ``n_buckets`` runs each chunk as size-buckets padded to their own
-    ceilings (``core.buckets``), one kernel launch per bucket; mean and
-    variance equal the uniform layout's. ``precision`` (a ladder tier or a
-    ``PrecisionPolicy``) packs the queries at the tier's accumulation dtype
-    and casts each piece's coordinates to its storage dtype (bf16: the
-    kernels' bf16-assembly variant); no probe runs here: pass the fitted
-    tier.
+    ceilings (``core.buckets``), all of a chunk's buckets in one kernel
+    launch; mean and variance equal the uniform layout's. ``precision`` (a
+    ladder tier or a ``PrecisionPolicy``) packs the queries at the tier's
+    accumulation dtype and casts each piece's coordinates to its storage
+    dtype (bf16: the kernels' bf16-assembly variant); no probe runs here:
+    pass the fitted tier.
 
     An (n, p) ``y_train`` predicts all p outputs from one training index
     with ``MultiOutputParams`` (a ``KernelParams`` is broadcast over the
@@ -352,16 +371,16 @@ def predict_sbv(
             from .buckets import cast_prediction
 
             pieces = [cast_prediction(pc, tier) for pc in pieces]
-        for bi, piece in enumerate(pieces):
+        arrs = [tuple(torch.as_tensor(a).to(dev) for a in piece.arrays()) for piece in pieces]
+        conds = batched_block_predict_many(params, arrs, nu=nu, backend=backend)
+        for bi, (piece, (mu_b, var_b)) in enumerate(zip(pieces, conds)):
             # The uniform layout keeps the per-chunk stream; buckets draw
             # from independent per-bucket streams, as in the reference.
             b_id = bi if n_buckets else None
-            arrs = tuple(torch.as_tensor(a).to(dev) for a in piece.arrays())
             shape = (n_sims,) + piece.q_mask.shape + out_shape[1:]
             eps_c = None if eps is None else eps(ci, b_id, shape)
             gen = None if eps_c is not None else _chunk_generator(seed, ci, dev, b_id)
-            mu_b, var_b, sm_b, ss_b = _predict_and_simulate(
-                params, *arrs, nu=nu, backend=backend, n_sims=n_sims, eps=eps_c, generator=gen)
+            sm_b, ss_b = _simulate(mu_b, var_b, n_sims, eps=eps_c, generator=gen)
             scatter_packed(piece, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
                            (ss_b, sim_std))
     if squeeze_back:

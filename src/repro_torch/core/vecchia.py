@@ -158,41 +158,22 @@ def narrow_joint(beta, sigma2, nugget, x0, m0, x1, m1, nu: float) -> torch.Tenso
     return k + torch.diag_embed(nugget * mask + (1.0 - mask))
 
 
-def floored_cholesky_(at: torch.Tensor, ncols: int, floor, panel: int = 16) -> torch.Tensor:
-    """In-place blocked right-looking Cholesky of the first ``ncols``
-    columns of A, stored transposed: ``at`` is (..., C, N) with
-    ``at[..., j, i] = A[i, j]`` (column j contiguous). Rows of A below
-    ``ncols`` ride along as extra right-hand sides (the forward solve).
-    Every pivot is clamped at ``floor`` before its square root. Returns
-    ``at``, whose lower part (i >= j) now holds the factor."""
-    for j0 in range(0, ncols, panel):
-        j1 = min(ncols, j0 + panel)
-        for c in range(j0, j1):
-            piv = torch.sqrt(torch.maximum(at[..., c, c], floor))
-            at[..., c, c] = piv
-            at[..., c, c + 1:] /= piv[..., None]
-            if c + 1 < j1:
-                at[..., c + 1:j1, c + 1:] -= at[..., c, c + 1:j1, None] * at[..., c, None, c + 1:]
-        if j1 < ncols:
-            at[..., j1:ncols, j1:] -= at[..., j0:j1, j1:ncols].transpose(-1, -2) @ at[..., j0:j1, j1:]
-    return at
-
-
-# The likelihood kernel's panel width (csrc/sbv_common.cuh: kTileNB).
+# The GP kernels' panel width (csrc/sbv_common.cuh: kTileNB).
 TILE_PANEL = 32
 
 
 def tiled_cholesky_(at: torch.Tensor, ncols: int, floor, panel: int = TILE_PANEL) -> torch.Tensor:
     """In-place left-looking blocked Cholesky of the first ``ncols``
-    columns of A, stored transposed as in ``floored_cholesky_``, in the
-    order of the likelihood kernel's ``tiled_cholesky``
-    (csrc/sbv_common.cuh): each panel of ``panel`` columns is formed once
-    from the original columns minus the finished factor's product, its
-    diagonal tile is factored column by column (every pivot clamped at
-    ``floor``), and every row below the tile is solved against it with the
-    tile's inverse diagonal. Rows of A below ``ncols`` ride along as extra
-    right-hand sides. Returns ``at``, whose lower part (i >= j) holds the
-    factor."""
+    columns of A, stored transposed: ``at`` is (..., C, N) with
+    ``at[..., j, i] = A[i, j]`` (column j contiguous), in the order of the
+    GP kernels' ``tiled_cholesky`` (csrc/sbv_common.cuh): each panel of
+    ``panel`` columns is formed once from the original columns minus the
+    finished factor's product, its diagonal tile is factored column by
+    column (every pivot clamped at ``floor`` before its square root), and
+    every row below the tile is solved against it with the tile's inverse
+    diagonal. Rows of A below ``ncols`` ride along as extra right-hand
+    sides (the forward solve). Returns ``at``, whose lower part (i >= j)
+    holds the factor."""
     for j0 in range(0, ncols, panel):
         j1 = min(ncols, j0 + panel)
         if j0:
@@ -212,22 +193,20 @@ def tiled_cholesky_(at: torch.Tensor, ncols: int, floor, panel: int = TILE_PANEL
 
 
 def narrow_factor(beta, sigma2, nugget, x0, m0, y0, x1, m1, y1, nu: float,
-                  ncols: int | None = None, factor=floored_cholesky_) -> torch.Tensor:
+                  ncols: int | None = None) -> torch.Tensor:
     """The factored joint panel of one bf16 tier call: the joint
     covariance of [x0; x1] with the masked observation columns y0, y1
     (..., n, r) appended as r extra rows of A, factored over its first
-    ``ncols`` columns (all P by default) with the bf16 pivot floor, by
-    ``factor`` in its kernel's order (``floored_cholesky_``: the
-    prediction and multi-output kernels' 16-column right-looking panels;
-    ``tiled_cholesky_``: the likelihood kernel's). Returns ``at``
-    (..., ncols, P + r), transposed as in ``floored_cholesky_``."""
+    ``ncols`` columns (all P by default) with the bf16 pivot floor, in the
+    GP kernels' order (``tiled_cholesky_``). Returns ``at``
+    (..., ncols, P + r), transposed as in ``tiled_cholesky_``."""
     k = narrow_joint(beta, sigma2, nugget, x0, m0, x1, m1, nu)
     ncols = k.shape[-1] if ncols is None else ncols
     y = torch.cat([y0 * m0.float()[..., None], y1 * m1.float()[..., None]], dim=-2)
     # k is symmetric, so its row j is column j of A; y's row j holds A's
     # observation rows at column j.
     at = torch.cat([k, y], dim=-1)[..., :ncols, :]
-    return factor(at, ncols, sigma2 * BF16_EPS)
+    return tiled_cholesky_(at, ncols, sigma2 * BF16_EPS)
 
 
 def block_loglik_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
@@ -236,7 +215,7 @@ def block_loglik_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y
     coordinates, f32 observations, masks and parameters."""
     m = nn_x.shape[-2]
     at = narrow_factor(beta, sigma2, nugget, nn_x, nn_mask.bool(), nn_y[..., None],
-                       blk_x, blk_mask.bool(), blk_y[..., None], nu, factor=tiled_cholesky_)
+                       blk_x, blk_mask.bool(), blk_y[..., None], nu)
     p = at.shape[-2]
     mb = blk_mask.float()
     diag = torch.diagonal(at, dim1=-2, dim2=-1)[..., m:]

@@ -1,6 +1,7 @@
-// Device code shared by the fused SBV likelihood and prediction kernels.
+// Device code shared by the fused SBV likelihood, prediction and
+// multi-output stats kernels.
 //
-// Both kernels work on one packed block at a time, on an augmented
+// Each kernel works on one packed block at a time, on an augmented
 // covariance PANEL held in a device-memory scratch slice owned by the CTA:
 //
 //     rows    0 .. m-1      the m conditioning neighbours
@@ -9,8 +10,8 @@
 //                           output: N = P + 1, or P + p for p outputs
 //
 // stored column-major with leading dimension N. Only the lower triangle
-// (row >= column) of the first `ncols` columns is formed. A right-looking
-// Cholesky over those columns then yields, in place,
+// (row >= column) of the first `ncols` columns is formed. A Cholesky over
+// those columns then yields, in place,
 //   * the factor of K(NN, NN) in columns < m,
 //   * A^T = (L^-1 K(NN, B))^T in rows m..P-1 of columns < m,
 //   * z^T = (L^-1 y_NN)^T in each observation row of columns < m,
@@ -19,6 +20,15 @@
 // v = L'^-1 (y_B - mu) in each observation row. That is the Pallas kernels'
 // chain chol -> joint solve -> Schur -> chol -> solve, done as one
 // elimination over the joint matrix.
+//
+// Two cores do that elimination. The earlier one (`load_points`,
+// `assemble`, `panel_cholesky`) keeps the padded layout above and factors
+// right-looking in 16-column panels; the kernels' `_panel` entry points
+// keep it callable for side-by-side timings. The tiled core
+// (`load_points_compact`, `assemble_compact`, `tiled_cholesky`; see "the
+// tiled core" below) leaves the masked points out, so m and P above become
+// the block's real counts, and factors left-looking in 32-column panels on
+// the tensor cores: every kernel's main route runs on it.
 //
 // Identity padding: a masked point has zero covariance with every other
 // point, a unit diagonal and y = 0, so it factors as the identity with no
@@ -298,6 +308,27 @@ struct TileSmem {
   static constexpr int kTotal = kDinv + kTileNB;
 };
 static_assert(kTileRows * kTileLdR <= TileSmem::kDiag, "the row buffer must fit in the stages");
+
+// Shared memory of the kernels on the tiled core, in elements of T, for
+// blocks of at most P points: beta (d), ys, nrm and the slots (P each),
+// the block-sum scratch and the two counts, then the work region: the
+// scaled coordinates (d x P) while the joint matrix is assembled, the
+// factorization's buffers (TileSmem) after.
+struct TiledLayout {
+  int d, P;
+  __host__ __device__ TiledLayout(int d_, int P_) : d(d_), P(P_) {}
+  __host__ __device__ int beta() const { return 0; }
+  __host__ __device__ int ys() const { return d; }
+  __host__ __device__ int nrm() const { return d + P; }
+  __host__ __device__ int slot() const { return d + 2 * P; }
+  __host__ __device__ int red() const { return d + 3 * P; }
+  __host__ __device__ int counts() const { return d + 3 * P + kThreads / 32; }
+  __host__ __device__ int work() const { return (counts() + 2 + 1) & ~1; }
+  __host__ __device__ int total() const {
+    const int z = P * d;
+    return work() + (z > TileSmem::kTotal ? z : TileSmem::kTotal);
+  }
+};
 static_assert(kTileRows == 256 && kThreads == 256, "one row of a pass per thread");
 
 template <typename T>
@@ -531,8 +562,9 @@ __device__ void tiled_cholesky(T* __restrict__ A, int ld, int nrows, int ncols, 
 // factors as an identity pivot that touches no other row: leaving it out
 // changes no value of the real rows (and the pivot floor never reaches
 // it). Scaled coordinates go to zt (d x ldz, transposed), observations to
-// ys, squared norms to nrm; n_real[0] gets the number of real points of
-// set 0, n_real[1] that of both sets.
+// ys (ys null: none are staged; y0 and y1 are then not read), squared
+// norms to nrm; n_real[0] gets the number of real points of set 0,
+// n_real[1] that of both sets.
 template <typename T, typename X>
 __device__ void load_points_compact(const X* __restrict__ x0, const T* __restrict__ m0,
                                     const T* __restrict__ y0, int n0,
@@ -572,7 +604,7 @@ __device__ void load_points_compact(const X* __restrict__ x0, const T* __restric
     const X x = i < n0 ? x0[(size_t)i * d + k] : x1[(size_t)(i - n0) * d + k];
     zt[k * ldz + s] = Coords<X, T>::scale(x, beta[k]);
   }
-  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+  for (int i = threadIdx.x; ys && i < P; i += blockDim.x) {
     const int s = slot[i];
     if (s >= 0) ys[s] = i < n0 ? y0[i] : (y1 ? y1[i - n0] : T(0));
   }
@@ -586,18 +618,21 @@ __device__ void load_points_compact(const X* __restrict__ x0, const T* __restric
   __syncthreads();
 }
 
-// The lower triangle of the compacted joint matrix: the covariance of the
-// pc real points in rows and columns < pc, the observations ys in row pc.
-// One warp per column, its lanes down the rows (no index division); the row
-// loop is unrolled so that each lane runs several independent f64 chains
-// (distance, sqrt, exp) at once.
+// The lower triangle of the first ncols columns of the compacted joint
+// matrix: the covariance of the pc real points in rows < pc and, unless ys
+// is null, the observations ys in row pc (a caller with several
+// observation rows writes them itself). One warp per column, its lanes
+// down the rows (no index division); the row loop is unrolled so that each
+// lane runs several independent f64 chains (distance, sqrt, exp) at once.
 template <typename T>
-__device__ void assemble_compact(T* __restrict__ A, int ld, int pc, int d, const T* zt, int ldz,
-                                 const T* nrm, const T* ys, T sigma2, T nugget, int nu_code) {
+__device__ void assemble_compact(T* __restrict__ A, int ld, int pc, int ncols, int d,
+                                 const T* zt, int ldz, const T* nrm, const T* ys, T sigma2,
+                                 T nugget, int nu_code) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int j = warp; j < pc; j += blockDim.x >> 5) {
+  const int last = ys ? pc : pc - 1;
+  for (int j = warp; j < ncols; j += blockDim.x >> 5) {
 #pragma unroll 4
-    for (int i = j + lane; i <= pc; i += 32) {
+    for (int i = j + lane; i <= last; i += 32) {
       T v;
       if (i == pc) {
         v = ys[j];

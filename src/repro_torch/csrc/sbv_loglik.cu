@@ -100,26 +100,6 @@ sbv_loglik_panel_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
   }
 }
 
-// Shared memory of the tiled kernel, in elements of T: beta (d), ys, nrm and
-// the slots (P each), the block-sum scratch and the two counts, then the
-// work region: the scaled coordinates (d x P) while the joint matrix is
-// assembled, the factorization's buffers (TileSmem) after.
-struct TiledLayout {
-  int d, P;
-  __host__ __device__ TiledLayout(int d_, int P_) : d(d_), P(P_) {}
-  __host__ __device__ int beta() const { return 0; }
-  __host__ __device__ int ys() const { return d; }
-  __host__ __device__ int nrm() const { return d + P; }
-  __host__ __device__ int slot() const { return d + 2 * P; }
-  __host__ __device__ int red() const { return d + 3 * P; }
-  __host__ __device__ int counts() const { return d + 3 * P + sbv::kThreads / 32; }
-  __host__ __device__ int work() const { return (counts() + 2 + 1) & ~1; }
-  __host__ __device__ int total() const {
-    const int z = P * d;
-    return work() + (z > sbv::TileSmem::kTotal ? z : sbv::TileSmem::kTotal);
-  }
-};
-
 template <typename T, typename X>
 __global__ void __launch_bounds__(sbv::kThreads, 2)
 sbv_loglik_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
@@ -131,7 +111,7 @@ sbv_loglik_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const int P = m + bs;
-  const TiledLayout L(d, P);
+  const sbv::TiledLayout L(d, P);
   T* beta_s = sm + L.beta();
   T* ys = sm + L.ys();
   T* nrm = sm + L.nrm();
@@ -156,7 +136,7 @@ sbv_loglik_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
     // Leading dimension: the real rows and the observation row.
     const int ld = pc + 1;
     if (n_blk > 0) {
-      sbv::assemble_compact<T>(A, ld, pc, d, work, P, nrm, ys, sigma2, nugget, nu_code);
+      sbv::assemble_compact<T>(A, ld, pc, pc, d, work, P, nrm, ys, sigma2, nugget, nu_code);
       sbv::tiled_cholesky<T>(A, ld, pc + 1, pc, piv_floor, work);
     }
     T logdet = T(0), quad = T(0);
@@ -176,7 +156,7 @@ sbv_loglik_kernel(const T* __restrict__ beta, const T* __restrict__ scal,
 
 template <typename T>
 size_t smem_bytes(int bs, int m, int d) {
-  return sizeof(T) * (size_t)TiledLayout(d, m + bs).total();
+  return sizeof(T) * (size_t)sbv::TiledLayout(d, m + bs).total();
 }
 
 template <typename T>

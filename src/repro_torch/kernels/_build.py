@@ -105,20 +105,25 @@ _SIGNATURES = {
            for pre in ("sbv_loglik", "sbv_loglik_panel")},
     },
     "sbv_predict": {
-        "sbv_predict_f64": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
-        "sbv_predict_f32": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
-        "sbv_predict_bf16": (_I, [_VP] * 10 + [_I] * 6 + [_VP]),
+        **{f"sbv_predict_{v}": (_I, [_VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _LL, _I, _VP])
+           for v in ("f64", "f32", "bf16")},
+        **{f"sbv_predict_panel_{v}": (_I, [_VP] * 10 + [_I] * 6 + [_VP])
+           for v in ("f64", "f32", "bf16")},
         "sbv_predict_scratch_per_cta": (_LL, [_I, _I]),
-        "sbv_predict_smem_bytes": (_LL, [_I, _I, _I, _I]),
-        "sbv_predict_ctas_per_sm": (_I, [_I, _I, _I, _I]),
+        **{f"{pre}_smem_bytes": (_LL, [_I, _I, _I, _I])
+           for pre in ("sbv_predict", "sbv_predict_panel")},
+        **{f"{pre}_ctas_per_sm": (_I, [_I, _I, _I, _I])
+           for pre in ("sbv_predict", "sbv_predict_panel")},
     },
     "sbv_multi_stats": {
-        "sbv_multi_stats_f64": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
-        "sbv_multi_stats_f32": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
-        "sbv_multi_stats_bf16": (_I, [_VP] * 10 + [_I] * 7 + [_VP]),
+        **{f"{pre}_{v}": (_I, [_VP] * 10 + [_I] * 7 + [_VP])
+           for pre in ("sbv_multi_stats", "sbv_multi_stats_panel")
+           for v in ("f64", "f32", "bf16")},
         "sbv_multi_stats_scratch_per_cta": (_LL, [_I, _I, _I]),
-        "sbv_multi_stats_smem_bytes": (_LL, [_I] * 5),
-        "sbv_multi_stats_ctas_per_sm": (_I, [_I] * 5),
+        **{f"{pre}_smem_bytes": (_LL, [_I] * 5)
+           for pre in ("sbv_multi_stats", "sbv_multi_stats_panel")},
+        **{f"{pre}_ctas_per_sm": (_I, [_I] * 5)
+           for pre in ("sbv_multi_stats", "sbv_multi_stats_panel")},
     },
     "matern_cov": {
         "matern_cov_f64": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),

@@ -26,7 +26,7 @@ from . import _build
 from .matern_cov import matern_cov_blocks
 from .sbv_loglik import ladder_dtypes, sbv_loglik_blocks
 from .sbv_multi_stats import sbv_multi_stats_blocks
-from .sbv_predict import sbv_predict_blocks
+from .sbv_predict import sbv_predict_blocks_many
 
 # Blocks recomputed per backward chunk: at m = 200, bs ~ 290 in f64 a block
 # keeps ~17 MB of autograd intermediates, so a chunk holds ~2 GB.
@@ -177,15 +177,17 @@ def sbv_multi_stats(params0: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y, n
                                 blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask, nu, int(chunk))
 
 
-def sbv_predict(params: KernelParams, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float = 3.5):
-    """Batched block conditional mean/variance through the fused kernel:
-    ``(mu, var)`` each (bc, bs_pred). Padded query slots carry mu=0 /
-    var=prior and are dropped by the caller's mask. Not differentiable."""
-    acc = nn_y.dtype
+def sbv_predict_many(params: KernelParams, pieces, nu: float = 3.5):
+    """Batched block conditional mean/variance of each piece of a chunk
+    (``pieces``: ``(q_x, q_mask, nn_x, nn_y, nn_mask)`` tuples, its size
+    buckets or its one uniform piece) through ONE launch of the fused
+    kernel: a list of ``(mu, var)``, each (bc, bs_pred) of its piece.
+    Padded query slots carry mu=0 / var=prior and are dropped by the
+    caller's mask. Not differentiable."""
+    acc = pieces[0][3].dtype
     with torch.no_grad():
-        return sbv_predict_blocks(params.beta.to(acc), params.sigma2.to(acc),
-                                  params.nugget.to(acc), q_x, q_mask, nn_x, nn_y, nn_mask,
-                                  nu=nu)
+        return sbv_predict_blocks_many(params.beta.to(acc), params.sigma2.to(acc),
+                                       params.nugget.to(acc), pieces, nu=nu)
 
 
 def matern_cov(xa, xb, params: KernelParams, nu: float = 3.5) -> torch.Tensor:

@@ -7,7 +7,9 @@ observation columns as extra right-hand sides. On CUDA tensors it launches
 ``csrc/sbv_multi_stats.cu``; on CPU tensors it runs the plain version,
 ``repro_torch.core.multioutput.block_multi_stats`` (``block_multi_stats_narrow``
 for bf16 coordinates). A CUDA tensor never reaches the plain version through
-this wrapper.
+this wrapper. ``_launch("sbv_multi_stats_panel", ...)`` runs the kernel's
+earlier design (padded blocks, ``panel_cholesky``) for side-by-side
+timings; its launches are not counted.
 """
 from __future__ import annotations
 
@@ -29,13 +31,11 @@ def sbv_multi_stats_plain(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn
     return torch.cat([ld[:, None], q], dim=1)
 
 
-def sbv_multi_stats_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
-                         nu: float = 3.5) -> torch.Tensor:
-    """Launch the fused multi-output stats kernel on CUDA tensors: (bc, 1 + p).
-
-    The observation dtype (f64 or f32) is the kernel's working dtype;
-    coordinates are at that dtype, or bf16 with f32 observations (the bf16
-    variant). Boolean masks and the parameters are converted to it."""
+def _launch(prefix: str, beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+            nu: float) -> torch.Tensor:
+    """Check the operands and launch the C entry points ``{prefix}_{variant}``
+    (``sbv_multi_stats``: the kernel; ``sbv_multi_stats_panel``: its earlier
+    design, kept for side-by-side timings). (bc, 1 + p)."""
     dtype = blk_y.dtype
     bc, bs, d = blk_x.shape
     m = nn_x.shape[1]
@@ -60,17 +60,31 @@ def sbv_multi_stats_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_
         return out
     lib = _build.load("sbv_multi_stats")
     with torch.cuda.device(device):
-        grid = _grid(lib, "sbv_multi_stats", bc, device, bs, m, d, p, VARIANT_CODES[variant])
+        grid = _grid(lib, prefix, bc, device, bs, m, d, p, VARIANT_CODES[variant])
         scratch = torch.empty(grid * lib.sbv_multi_stats_scratch_per_cta(bs, m, p), dtype=dtype,
                               device=device)
-        fn = getattr(lib, f"sbv_multi_stats_{variant}")
+        fn = getattr(lib, f"{prefix}_{variant}")
         err = fn(beta.data_ptr(), scal.data_ptr(), ops["blk_x"].data_ptr(),
                  ops["blk_y"].data_ptr(), ops["blk_mask"].data_ptr(), ops["nn_x"].data_ptr(),
                  ops["nn_y"].data_ptr(), ops["nn_mask"].data_ptr(), out.data_ptr(),
                  scratch.data_ptr(), bc, bs, m, d, p, NU_CODES[nu], grid,
                  torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "sbv_multi_stats")
-    _build.LAUNCHES["sbv_multi_stats_bf16" if variant == "bf16" else "sbv_multi_stats"] += 1
+    _build.check(err, prefix)
+    return out
+
+
+def sbv_multi_stats_cuda(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                         nu: float = 3.5) -> torch.Tensor:
+    """Launch the fused multi-output stats kernel on CUDA tensors: (bc, 1 + p).
+
+    The observation dtype (f64 or f32) is the kernel's working dtype;
+    coordinates are at that dtype, or bf16 with f32 observations (the bf16
+    variant). Boolean masks and the parameters are converted to it."""
+    out = _launch("sbv_multi_stats", beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                  nn_mask, nu)
+    if out.shape[0]:
+        _build.LAUNCHES["sbv_multi_stats_bf16" if blk_x.dtype == torch.bfloat16
+                        else "sbv_multi_stats"] += 1
     return out
 
 

@@ -25,9 +25,12 @@ from repro_torch.kernels.flash_attention import _launch as flash_launch  # noqa:
 from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain  # noqa: E402
 from repro_torch.kernels.sbv_loglik import _launch as loglik_launch  # noqa: E402
 from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain  # noqa: E402
+from repro_torch.kernels.sbv_multi_stats import _launch as multi_launch  # noqa: E402
 from repro_torch.kernels.sbv_multi_stats import (sbv_multi_stats_cuda,  # noqa: E402
                                                  sbv_multi_stats_plain)
-from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain  # noqa: E402
+from repro_torch.kernels.sbv_predict import _launch_panel as predict_panel  # noqa: E402
+from repro_torch.kernels.sbv_predict import (sbv_predict_cuda, sbv_predict_cuda_many,  # noqa: E402
+                                             sbv_predict_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -692,6 +695,209 @@ def test_bf16_variants_round_the_scaled_coordinates(dev, kernel, monkeypatch):
         dist[how] = float(torch.linalg.vector_norm(got - flat(run_p())))
         monkeypatch.undo()
     assert dist[None] <= 0.5 * min(dist["beta"], dist["z"]), dist
+
+
+# -- prediction and multi-output stats on the tiled core ---------------------
+#
+# (kind, bs, m, bc): P = m + bs below, at, one above and well above the
+# 32-column panel, m = 4 (the round-0 small bucket), one block, more than
+# 256 rows (two passes), and 'holes': every third point masked in both
+# sets, block 1 with every query (block point) masked, block 2 with no
+# real neighbour.
+PREDICT_CASES = [("plain", 6, 20, 20), ("plain", 8, 24, 20), ("plain", 9, 24, 20),
+                 ("plain", 25, 70, 20), ("plain", 7, 4, 20), ("plain", 25, 40, 1),
+                 ("wide", 30, 240, 4), ("holes", 25, 70, 20)]
+MULTI_CASES = [("plain", 14, 10, 20), ("plain", 22, 10, 20), ("plain", 23, 10, 20),
+               ("plain", 37, 29, 20), ("plain", 20, 4, 20), ("plain", 37, 29, 1),
+               ("wide", 300, 40, 4), ("holes", 37, 29, 20)]
+
+
+def _punch(arrs, i_first, i_second, dev):
+    """'holes': every third point of both sets masked, set one of block 1
+    and set two of block 2 masked whole."""
+    a, b = arrs[i_first], arrs[i_second]
+    a = a & (torch.arange(a.shape[1], device=dev) % 3 != 1)
+    b = b & (torch.arange(b.shape[1], device=dev) % 3 != 2)
+    a[1], b[2] = False, False
+    arrs[i_first], arrs[i_second] = a, b
+    return arrs
+
+
+def _predict_case(case, dev):
+    kind, bs, m, bc = case
+    x, y, beta = _data(n=3000 if kind == "wide" else 800, seed=13)
+    xt = np.random.default_rng(14).uniform(size=(max(150, 8 * bs), 4))
+    index = tpredict.build_train_index(x, y, beta, m_pred=m)
+    packed = tpredict.pack_queries(index, xt, bs_pred=bs, m_pred=m)
+    q_x, q_m, nn_x, nn_y, nn_m = (torch.as_tensor(a).to(dev)[:bc] for a in packed.arrays())
+    arrs = [q_x[:, :bs], q_m[:, :bs], nn_x, nn_y, nn_m]
+    if kind == "holes":
+        arrs = _punch(arrs, 1, 4, dev)
+    return tuple(arrs), beta
+
+
+def _multi_case(case, dev):
+    kind, bs, m, bc = case
+    if kind == "wide":
+        x, y, beta = _multi_data(n=3000, seed=15)
+        packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=10, m=m))
+    else:
+        x, y, beta = _multi_data(seed=16)
+        packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=24, m=max(m, 4)))
+    arrs = [a[:bc] for a in _slice(vecchia.packed_arrays(packed, dev), bs, m)]
+    if kind == "holes":
+        arrs = _punch(arrs, 2, 5, dev)
+    return tuple(arrs), beta
+
+
+def _pred_err(got, want):
+    """Largest error of (mu, var) over every slot, and the output scale."""
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    return max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want)), scale
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 3.5])
+@pytest.mark.parametrize("case", PREDICT_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_predict_tiled_kernel_edges(dev, case, nu):
+    arrs, beta = _predict_case(case, dev)
+    p = _params(beta, dev)
+    par = (p.beta, p.sigma2, p.nugget)
+    want = sbv_predict_plain(*par, *arrs, nu=nu)
+    got = sbv_predict_cuda(*par, *arrs, nu=nu)
+    err, scale = _pred_err(got, want)
+    assert err <= 1e-9 * scale
+    if case[0] == "holes":  # all queries masked / no real neighbour: mu 0, var the prior
+        prior = float(p.sigma2 + p.nugget)
+        for b in (1, 2):
+            assert bool((got[0][b] == 0).all()) and bool((got[1][b] == prior).all())
+    # f32: the solve moves by up to eps32 * cond(K_NN) of the output scale.
+    k_nn = vecchia._masked_cov(arrs[2], arrs[2], arrs[4], arrs[4], *par, nu, identity=True)
+    ev = torch.linalg.eigvalsh(k_nn)
+    cond = float((ev[:, -1] / ev[:, 0]).max())
+    got32 = sbv_predict_cuda(*_cast(par, torch.float32), *_cast(arrs, torch.float32), nu=nu)
+    assert _pred_err(got32, want)[0] <= 10 * torch.finfo(torch.float32).eps * cond * scale
+    b16 = (arrs[0].bfloat16(), arrs[1], arrs[2].bfloat16(), arrs[3].float(), arrs[4])
+    par16 = _cast(par, torch.float32)
+    err16, scale16 = _pred_err(sbv_predict_cuda(*par16, *b16, nu=nu),
+                               sbv_predict_plain(*par16, *b16, nu=nu))
+    assert err16 <= BF16_PRED_TOL * scale16
+
+
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 3.5])
+@pytest.mark.parametrize("case", MULTI_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_multi_stats_tiled_kernel_edges(dev, case, nu):
+    arrs, beta = _multi_case(case, dev)
+    p0 = _multi_params(beta, 3, dev).structure_params()
+    par = (p0.beta, p0.sigma2, p0.nugget)
+    want = sbv_multi_stats_plain(*par, *arrs, nu=nu)
+    got = sbv_multi_stats_cuda(*par, *arrs, nu=nu)
+    torch.testing.assert_close(got, want, rtol=1e-9, atol=0)
+    if case[0] == "holes":  # no real block point: [0, 0, .., 0]
+        assert bool((got[1] == 0).all())
+    got32 = sbv_multi_stats_cuda(*_cast(par, torch.float32), *_cast(arrs, torch.float32), nu=nu)
+    torch.testing.assert_close(got32.double().sum(0), want.sum(0), rtol=5e-4, atol=0)
+    b16 = _bf16(arrs, dev)
+    par16 = _cast(par, torch.float32)
+    want16 = sbv_multi_stats_plain(*par16, *b16, nu=nu)
+    got16 = sbv_multi_stats_cuda(*par16, *b16, nu=nu)
+    assert float(((got16 - want16).abs() / want16.abs().clamp(min=1)).max()) <= BF16_TOL
+
+
+def _variant_operands(par, arrs, variant, dev, predict: bool):
+    if variant == "f32":
+        return _cast(par, torch.float32), _cast(arrs, torch.float32)
+    if variant == "bf16":
+        if predict:
+            q_x, q_m, nn_x, nn_y, nn_m = arrs
+            return _cast(par, torch.float32), (q_x.bfloat16(), q_m, nn_x.bfloat16(),
+                                               nn_y.float(), nn_m)
+        return _cast(par, torch.float32), _bf16(arrs, dev)
+    return par, arrs
+
+
+@pytest.mark.parametrize("variant", ["f64", "f32", "bf16"])
+def test_multi_stats_panel_baseline_agrees_with_tiled(dev, variant):
+    """The earlier design (padded blocks, 16-column right-looking panels),
+    callable for the side-by-side timing, computes the same stats; its
+    launches are not path launches."""
+    arrs, beta = _multi_case(("holes", 37, 29, 20), dev)
+    p0 = _multi_params(beta, 3, dev).structure_params()
+    par, arrs = _variant_operands((p0.beta, p0.sigma2, p0.nugget), arrs, variant, dev, False)
+    before = dict(_build.LAUNCHES)
+    base = multi_launch("sbv_multi_stats_panel", *par, *arrs, nu=3.5)
+    assert _build.LAUNCHES == before
+    got = sbv_multi_stats_cuda(*par, *arrs)
+    rel = float(((got.double() - base.double()).abs() / base.double().abs().clamp(min=1)).max())
+    # f32: two f32 eliminations in different orders, per block within
+    # chip_smoke.py's f32 limit (LADDER_TOL_F32, 3e-3 of max(1, |value|)).
+    assert rel <= {"f64": 1e-10, "f32": 3e-3, "bf16": BF16_TOL}[variant]
+
+
+@pytest.mark.parametrize("variant", ["f64", "f32", "bf16"])
+def test_predict_panel_baseline_agrees_with_tiled(dev, variant):
+    """As for the stats: the earlier predict design agrees with the tiled
+    kernel, masked queries and empty blocks included."""
+    arrs, beta = _predict_case(("holes", 25, 70, 20), dev)
+    p = _params(beta, dev)
+    par, arrs = _variant_operands((p.beta, p.sigma2, p.nugget), arrs, variant, dev, True)
+    before = dict(_build.LAUNCHES)
+    base = predict_panel(*par, *arrs, nu=3.5)
+    assert _build.LAUNCHES == before
+    err, scale = _pred_err(sbv_predict_cuda(*par, *arrs), base)
+    assert err <= {"f64": 1e-10, "f32": 3e-3, "bf16": BF16_PRED_TOL}[variant] * scale
+
+
+@pytest.mark.parametrize("variant", ["f64", "bf16"])
+def test_predict_work_list_launch_equals_per_bucket_launches(dev, variant):
+    """One launch over a chunk's buckets gives, bitwise, what one launch per
+    bucket gives (each block runs the same instructions), and counts one."""
+    from repro_torch.core.buckets import bucket_prediction
+
+    x, y, beta = _data(seed=17)
+    xt = np.random.default_rng(18).uniform(size=(300, 4))
+    index = tpredict.build_train_index(x, y, beta, m_pred=40)
+    packed = tpredict.pack_queries(index, xt, bs_pred=7, m_pred=40)
+    pieces = [tuple(torch.as_tensor(a).to(dev) for a in pc.arrays())
+              for pc in bucket_prediction(packed, n_buckets=3).buckets]
+    assert len({(pc[0].shape[1], pc[2].shape[1]) for pc in pieces}) > 1
+    p = _params(beta, dev)
+    par, pieces = (p.beta, p.sigma2, p.nugget), pieces
+    if variant == "bf16":
+        par = _cast(par, torch.float32)
+        pieces = [(q_x.bfloat16(), q_m, nn_x.bfloat16(), nn_y.float(), nn_m)
+                  for q_x, q_m, nn_x, nn_y, nn_m in pieces]
+    key = "sbv_predict_bf16" if variant == "bf16" else "sbv_predict"
+    before = _build.LAUNCHES[key]
+    many = sbv_predict_cuda_many(*par, pieces)
+    assert _build.LAUNCHES[key] == before + 1
+    each = [sbv_predict_cuda(*par, *pc) for pc in pieces]
+    for (mu_a, var_a), (mu_b, var_b) in zip(many, each):
+        assert torch.equal(mu_a, mu_b) and torch.equal(var_a, var_b)
+
+
+def test_bucketed_predict_one_launch_per_chunk_bitwise(dev, monkeypatch):
+    """predict_sbv with n_buckets launches the kernel once per chunk; its
+    mean, variance and simulated outputs are bitwise those of one launch
+    per bucket, drawn from the same per-bucket generators."""
+    x, y, beta = _data(n=600, seed=19)
+    xt = np.random.default_rng(20).uniform(size=(90, 4))
+    p = _params(beta, dev)
+    kw = dict(bs_pred=5, m_pred=24, n_sims=50, n_buckets=3, chunk_size=40)
+    ops.reset_launch_counts()
+    one = tpredict.predict_sbv(p, x, y, xt, **kw)
+    assert ops.launch_counts()["sbv_predict"] == 3  # 90 points in chunks of 40
+
+    def per_bucket(params, pieces, nu=3.5):
+        acc = pieces[0][3].dtype
+        par = (params.beta.to(acc), params.sigma2.to(acc), params.nugget.to(acc))
+        return [sbv_predict_cuda(*par, *pc, nu=nu) for pc in pieces]
+
+    monkeypatch.setattr(ops, "sbv_predict_many", per_bucket)
+    ops.reset_launch_counts()
+    many = tpredict.predict_sbv(p, x, y, xt, **kw)
+    assert ops.launch_counts()["sbv_predict"] > 3
+    for f in ("mean", "var", "sim_mean", "ci_low", "ci_high"):
+        assert np.array_equal(getattr(one, f), getattr(many, f)), f
 
 
 def test_kernels_refuse_wrong_dtype_mix(dev):
