@@ -387,3 +387,13 @@ def predict_sbv(
         mean, var, sim_mean, sim_std = (a[:, None] for a in (mean, var, sim_mean, sim_std))
     return Prediction(mean=mean, var=var, sim_mean=sim_mean,
                       ci_low=sim_mean - Z975 * sim_std, ci_high=sim_mean + Z975 * sim_std)
+
+
+def mspe(pred: np.ndarray, truth: np.ndarray) -> float:
+    return float(np.mean((pred - truth) ** 2))
+
+
+def rmspe(pred: np.ndarray, truth: np.ndarray) -> float:
+    """Root Mean Squared Percentage Error (paper §6.2)."""
+    denom = np.where(np.abs(truth) > 1e-12, truth, 1.0)
+    return float(np.sqrt(np.mean(((pred - truth) / denom) ** 2)) * 100.0)

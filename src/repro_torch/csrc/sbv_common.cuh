@@ -107,20 +107,19 @@ __device__ __forceinline__ T matern(T r, int nu_code) {
 
 // `matern` with its constant divisions as multiplications by the rounded
 // reciprocals (1/3, 1/15): within an ulp or two of `matern`, and the
-// divisions were most of the assembly's f64 work.
+// divisions were most of the assembly's f64 work. `poly_nodiv` is its
+// polynomial factor, for callers that take exp(-r) another way.
+template <typename T>
+__device__ __forceinline__ T poly_nodiv(T r, int nu_code) {
+  if (nu_code == 0) return T(1);
+  if (nu_code == 1) return T(1) + r;
+  if (nu_code == 2) return T(1) + r + r * r * T(1.0 / 3.0);
+  return T(1) + r + T(0.4) * (r * r) + (r * r * r) * T(1.0 / 15.0);
+}
+
 template <typename T>
 __device__ __forceinline__ T matern_nodiv(T r, int nu_code) {
-  T poly;
-  if (nu_code == 0) {
-    poly = T(1);
-  } else if (nu_code == 1) {
-    poly = T(1) + r;
-  } else if (nu_code == 2) {
-    poly = T(1) + r + r * r * T(1.0 / 3.0);
-  } else {
-    poly = T(1) + r + T(0.4) * (r * r) + (r * r * r) * T(1.0 / 15.0);
-  }
-  return poly * exp(-r);
+  return poly_nodiv(r, nu_code) * exp(-r);
 }
 
 // Shared-memory layout, in elements of T (see smem_elems).

@@ -126,10 +126,9 @@ _SIGNATURES = {
            for pre in ("sbv_multi_stats", "sbv_multi_stats_panel")},
     },
     "matern_cov": {
-        "matern_cov_f64": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
-        "matern_cov_f32": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
-        "matern_cov_bf16": (_I, [_VP] * 5 + [_I] * 5 + [_VP]),
-        "matern_cov_smem_bytes": (_LL, [_I, _I]),
+        **{f"{pre}_{v}": (_I, [_VP] * 5 + [_I] * 5 + [_VP])
+           for pre in ("matern_cov", "matern_cov_rowwise") for v in ("f64", "f32", "bf16")},
+        "matern_cov_ctas_per_sm": (_I, [_I, _I]),
     },
     "flash_attention": {
         fn: (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])

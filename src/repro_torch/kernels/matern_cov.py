@@ -34,9 +34,10 @@ def matern_cov_plain(xa, xb, beta, sigma2, nu: float = 3.5) -> torch.Tensor:
     return torch.as_tensor(sigma2).to(dtype) * matern(torch.sqrt(d2 + 1e-30), nu)
 
 
-def matern_cov_cuda(xa, xb, beta, sigma2, nu: float = 3.5) -> torch.Tensor:
-    """Launch the covariance kernel on CUDA tensors: (B, na, nb) at the
-    coordinates' dtype, or f32 for bf16 coordinates (the bf16 variant)."""
+def _launch(prefix: str, xa, xb, beta, sigma2, nu: float) -> torch.Tensor:
+    """Check the operands and launch the C entry points ``{prefix}_{variant}``
+    (``matern_cov``: the kernel; ``matern_cov_rowwise``: its earlier design,
+    kept for side-by-side timings). (B, na, nb)."""
     if xa.dim() != 3 or xb.dim() != 3 or xa.shape[0] != xb.shape[0] \
             or xa.shape[2] != xb.shape[2]:
         raise ValueError("matern_cov: expected xa (B, na, d) and xb (B, nb, d)")
@@ -46,7 +47,12 @@ def matern_cov_cuda(xa, xb, beta, sigma2, nu: float = 3.5) -> torch.Tensor:
     variant = kernel_variant("matern_cov", xa.dtype, dtype)
     b, na, d = xa.shape
     nb = xb.shape[1]
-    ops = dict(xa=xa.contiguous(), xb=xb.contiguous())
+    # The kernel stages whole 4-byte words, so each coordinate tensor starts
+    # on one (a bf16 view may not).
+    ops = {}
+    for key, t in (("xa", xa), ("xb", xb)):
+        t = t.contiguous()
+        ops[key] = t if t.data_ptr() % 4 == 0 else t.clone()
     device = _check_operands("matern_cov", xa.dtype, dtype, ops, {})
     beta = torch.as_tensor(beta).to(device=device, dtype=dtype).reshape(d).contiguous()
     scal = torch.as_tensor(sigma2).to(device=device, dtype=dtype).reshape(1).contiguous()
@@ -54,13 +60,21 @@ def matern_cov_cuda(xa, xb, beta, sigma2, nu: float = 3.5) -> torch.Tensor:
     if out.numel() == 0:
         return out
     lib = _build.load("matern_cov")
-    fn = getattr(lib, f"matern_cov_{variant}")
+    fn = getattr(lib, f"{prefix}_{variant}")
     with torch.cuda.device(device):
         err = fn(ops["xa"].data_ptr(), ops["xb"].data_ptr(), beta.data_ptr(), scal.data_ptr(),
                  out.data_ptr(), b, na, nb, d, NU_CODES[nu],
                  torch.cuda.current_stream(device).cuda_stream)
-    _build.check(err, "matern_cov")
-    _build.LAUNCHES["matern_cov_bf16" if variant == "bf16" else "matern_cov"] += 1
+    _build.check(err, prefix)
+    return out
+
+
+def matern_cov_cuda(xa, xb, beta, sigma2, nu: float = 3.5) -> torch.Tensor:
+    """Launch the covariance kernel on CUDA tensors: (B, na, nb) at the
+    coordinates' dtype, or f32 for bf16 coordinates (the bf16 variant)."""
+    out = _launch("matern_cov", xa, xb, beta, sigma2, nu)
+    if out.numel():
+        _build.LAUNCHES["matern_cov_bf16" if xa.dtype == torch.bfloat16 else "matern_cov"] += 1
     return out
 
 

@@ -6,14 +6,20 @@ a GPU machine with:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 The kernels are built from ``src/repro_torch/csrc`` on first use. This file
-imports only the port, so it runs where jax is not installed.
+imports only the port (and the checks it shares with ``chip_smoke.py``), so
+it runs where jax is not installed.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import KernelParams, SBVConfig, preprocess  # noqa: E402
+from repro_torch.core import exact_gp as texact  # noqa: E402
+from repro_torch.core import kl as tkl  # noqa: E402
 from repro_torch.core import multioutput as mo  # noqa: E402
 from repro_torch.core import predict as tpredict  # noqa: E402
 from repro_torch.core import vecchia  # noqa: E402
@@ -22,6 +28,7 @@ from repro_torch.kernels.flash_attention import (ROUTES, _kernel_ready,  # noqa:
                                                  flash_attention_cuda, flash_attention_plain,
                                                  flash_route)
 from repro_torch.kernels.flash_attention import _launch as flash_launch  # noqa: E402
+from repro_torch.kernels.matern_cov import _launch as cov_launch  # noqa: E402
 from repro_torch.kernels.matern_cov import matern_cov_cuda, matern_cov_plain  # noqa: E402
 from repro_torch.kernels.sbv_loglik import _launch as loglik_launch  # noqa: E402
 from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain  # noqa: E402
@@ -31,6 +38,9 @@ from repro_torch.kernels.sbv_multi_stats import (sbv_multi_stats_cuda,  # noqa: 
 from repro_torch.kernels.sbv_predict import _launch_panel as predict_panel  # noqa: E402
 from repro_torch.kernels.sbv_predict import (sbv_predict_cuda, sbv_predict_cuda_many,  # noqa: E402
                                              sbv_predict_plain)
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+from chip_smoke import cond_bound, f32_cov_check  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -956,3 +966,160 @@ def test_bucketed_bf16_fit_and_predict_launch_the_variants(dev):
     b = tpredict.predict_sbv(on_cpu.params, x, y, xt, device="cpu", **kw)
     np.testing.assert_allclose(a.mean, b.mean, rtol=0, atol=BF16_PRED_TOL)
     np.testing.assert_allclose(a.var, b.var, rtol=0, atol=BF16_PRED_TOL)
+
+
+# -- the tiled covariance kernel and the exact-GP path -----------------------
+#
+# The tiled kernel against its plain version and against the earlier
+# (row-wise) design, at shapes that reach each store path: odd nb in f64 and
+# nb not a multiple of 4 in f32 (row pitch not a multiple of 16 bytes: the
+# scalar stores), ragged tiles in both directions, na = 1, nb = 1, d = 1
+# (with a bf16 point set of an odd element count: its last staged word is
+# half outside the tensor) and d = 16. f64 is held at rel 1e-12 (the
+# existing covariance limit; the two designs differ by an ulp or two in the
+# sqrt, exp and the Matern's division by 3 and 15). f32 and bf16 are held,
+# with the earlier design, against the exact function of the same inputs
+# beside the plain f32 version (`chip_smoke.f32_cov_check`): 1e-5 wherever
+# the plain version meets it; at d = 1 a few pairs lie ~1e-3 apart, where
+# f32 rounding moves nu = 0.5 by ~1e-4 in both.
+COV_SHAPES = [(2, 37, 61, 10), (1, 70, 130, 3), (3, 1, 129, 2), (2, 65, 1, 4), (1, 37, 61, 1),
+              (1, 150, 257, 16), (2, 130, 256, 10)]
+
+
+def _cov_case(shape, dtype, dev, seed=30):
+    b, na, nb, d = shape
+    rng = np.random.default_rng(seed)
+    xa = torch.as_tensor(rng.uniform(size=(b, na, d)), device=dev)
+    xb = torch.as_tensor(rng.uniform(size=(b, nb, d)), device=dev)
+    work = torch.float64 if dtype == torch.float64 else torch.float32
+    beta = torch.linspace(0.31, 1.43, d, dtype=work, device=dev)
+    return xa.to(dtype), xb.to(dtype), beta, torch.tensor(0.7, dtype=work, device=dev)
+
+
+def _assert_cov(got, xa, xb, beta, s2, nu):
+    """f64: rel 1e-12 against the plain version. f32 coordinates and bf16
+    ones: `f32_cov_check` against the exact function of the same inputs
+    (bf16: of the same rounded scaled coordinates, everything after in f64)
+    beside the plain f32 (bf16-assembly) version."""
+    if xa.dtype == torch.float64:
+        torch.testing.assert_close(got, matern_cov_plain(xa, xb, beta, s2, nu=nu),
+                                   rtol=1e-12, atol=1e-15)
+        return
+    assert got.dtype == torch.float32
+    if xa.dtype == torch.float32:
+        exact = matern_cov_plain(xa.double(), xb.double(), beta.double(), s2.double(), nu=nu)
+    else:
+        ones = torch.ones(beta.shape, dtype=torch.float64, device=beta.device)
+        exact = matern_cov_plain(vecchia.narrow_scaled(xa, beta).double(),
+                                 vecchia.narrow_scaled(xb, beta).double(), ones, s2.double(),
+                                 nu=nu)
+    c = f32_cov_check(got, matern_cov_plain(xa, xb, beta, s2, nu=nu), exact)
+    assert c["ok"], c
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nu", [0.5, 1.5, 2.5, 3.5])
+@pytest.mark.parametrize("shape", COV_SHAPES)
+def test_matern_cov_tiled_kernel_edges(dev, shape, nu, dtype):
+    xa, xb, beta, s2 = _cov_case(shape, dtype, dev)
+    key = "matern_cov_bf16" if dtype == torch.bfloat16 else "matern_cov"
+    before = _build.LAUNCHES[key]
+    got = matern_cov_cuda(xa, xb, beta, s2, nu=nu)
+    rowwise = cov_launch("matern_cov_rowwise", xa, xb, beta, s2, nu)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES[key] == before + 1
+    assert got.shape == shape[:2] + (shape[2],)
+    for k in (got, rowwise):
+        _assert_cov(k, xa, xb, beta, s2, nu)
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, rowwise, rtol=1e-12, atol=1e-15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [33, 100, 300])
+def test_matern_cov_tiled_kernel_stages_any_d(dev, d, dtype):
+    """The coordinates are staged 32 at a time: d = 33 (a second chunk of
+    one coordinate; in bf16 every other point starts mid-word), 100 and 300
+    (past the shared memory of the earlier design in f64), against the plain
+    version, and a point's distance to itself still exactly 0 across
+    chunks."""
+    xa, xb, beta, s2 = _cov_case((2, 70, 131, d), dtype, dev)
+    _assert_cov(matern_cov_cuda(xa, xb, beta, s2, nu=1.5), xa, xb, beta, s2, 1.5)
+    diag = torch.diagonal(matern_cov_cuda(xa, xa, beta, s2, nu=0.5), dim1=-2, dim2=-1)
+    assert bool((diag == s2 * torch.exp(-torch.sqrt(torch.tensor(1e-30, dtype=s2.dtype,
+                                                                 device=dev)))).all())
+
+
+def test_matern_cov_tiled_kernel_walks_more_than_65535_batches(dev):
+    """The persistent grid walks every (b, tile) pair: B above the launch
+    grid's y/z limit, one tile per batch entry."""
+    xa, xb, beta, s2 = _cov_case((70_000, 3, 5, 2), torch.float64, dev)
+    got = matern_cov_cuda(xa, xb, beta, s2)
+    torch.testing.assert_close(got, matern_cov_plain(xa, xb, beta, s2), rtol=1e-12, atol=1e-15)
+    xa32, xb32 = xa.float(), xb.float()
+    torch.testing.assert_close(matern_cov_cuda(xa32, xb32, beta.float(), s2.float()).double(),
+                               matern_cov_plain(xa, xb, beta, s2), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_matern_cov_self_distance_is_exact(dev, dtype):
+    """A point set against itself at nu = 0.5, whose exp(-r) is steepest at
+    r = 0: every diagonal entry is bitwise sigma2 * exp(-sqrt(1e-30)), the
+    value at a distance of exactly 0 (sigma2 itself in f32; in f64 the floor
+    moves it by 1e-15 relative). A distance left at a rounding residue of
+    eps * |z|^2 would move it by ~1e-8."""
+    xa, _, beta, s2 = _cov_case((2, 300, 1, 10), dtype, dev)
+    got = matern_cov_cuda(xa, xa, beta, s2, nu=0.5)
+    floor = torch.tensor(1e-30, dtype=s2.dtype, device=dev)
+    want = s2 * torch.exp(-torch.sqrt(floor))
+    diag = torch.diagonal(got, dim1=-2, dim2=-1)
+    assert bool((diag == want).all()), (diag.min().item(), diag.max().item(), want.item())
+    if dtype != torch.float64:
+        assert bool((diag == s2).all())
+
+
+def test_kl_divergence_kernel_route_matches_plain_route(dev):
+    """Eq. 4 at n = 2000 (d = 10, the paper's beta, nugget 1e-3) through the
+    kernels and through the plain route. The two assemble K (and each
+    block's matrices, principal submatrices of K or Schur complements of
+    them, no worse conditioned) with different roundings, which the
+    log-determinants amplify by at most cond(K): held at 10 eps cond(K) of
+    the two halves' size."""
+    rng = np.random.default_rng(31)
+    n, d = 2000, 10
+    x = rng.uniform(size=(n, d))
+    beta = np.full(d, 5.0)
+    beta[:2] = 0.05
+    p = KernelParams.create(sigma2=1.0, beta=beta, nugget=1e-3, device=dev)
+    packed, _ = preprocess(x, np.zeros(n), beta, SBVConfig(n_blocks=n // 10, m=30))
+    ops.reset_launch_counts()
+    kl = tkl.kl_divergence(p, x, packed)
+    assert ops.launch_counts()["matern_cov"] == 1 and ops.launch_counts()["sbv_loglik"] == 1
+    kl_ref = tkl.kl_divergence(p, x, packed, backend="ref")
+    assert ops.launch_counts()["matern_cov"] == 1 and ops.launch_counts()["sbv_loglik"] == 1
+    xt = torch.as_tensor(x, device=dev)
+    cond = cond_bound(ops.matern_cov(xt[None], xt[None], p)[0], 1e-3)
+    l0 = float(texact.exact_loglik(p, x, np.zeros(n), backend="ref"))
+    tol = 10 * torch.finfo(torch.float64).eps * cond * (2 * abs(l0) + abs(kl_ref))
+    assert kl >= 0 and abs(kl - kl_ref) <= tol, (kl, kl_ref, tol)
+
+
+def test_exact_functions_run_on_cuda_and_match_cpu(dev):
+    """The exact functions through the covariance kernel on the card against
+    the CPU's plain route, at 10 eps cond(K) of each value's size."""
+    rng = np.random.default_rng(32)
+    x, y, xt = rng.uniform(size=(300, 4)), rng.normal(size=300), rng.uniform(size=(40, 4))
+    p = KernelParams.create(sigma2=1.3, beta=np.linspace(0.3, 1.5, 4), nugget=1e-2)
+    xx = torch.as_tensor(x)
+    cond = cond_bound(matern_cov_plain(xx[None], xx[None], p.beta, p.sigma2)[0], 1e-2)
+    tol = 10 * torch.finfo(torch.float64).eps * cond
+    ops.reset_launch_counts()
+    gpu = (texact.exact_loglik(p.to(dev), x, y), texact.exact_logdet(p.to(dev), x),
+           *texact.exact_predict(p.to(dev), x, y, xt))
+    assert ops.launch_counts()["matern_cov"] == 4
+    cpu = (texact.exact_loglik(p, x, y, device="cpu"), texact.exact_logdet(p, x, device="cpu"),
+           *texact.exact_predict(p, x, y, xt, device="cpu"))
+    for g, c in zip(gpu, cpu):
+        assert g.is_cuda
+        scale = max(1.0, float(c.abs().max()))
+        torch.testing.assert_close(g.cpu(), c, rtol=tol, atol=tol * scale)

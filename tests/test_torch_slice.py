@@ -88,7 +88,7 @@ def test_predict_all_neighbours_matches_exact_gp():
                                                         nugget=1e-2)))
     pred = predict_sbv(p, x, y, xt, bs_pred=5, m_pred=80, n_sims=10, device="cpu")
     em, ev = exact_gp.exact_predict(p, torch.as_tensor(x), torch.as_tensor(y),
-                                    torch.as_tensor(xt))
+                                    torch.as_tensor(xt), device="cpu")
     np.testing.assert_allclose(pred.mean, em.numpy(), rtol=0, atol=1e-12)
     np.testing.assert_allclose(pred.var, ev.numpy(), rtol=0, atol=1e-12)
 
@@ -100,10 +100,10 @@ def test_exact_gp_matches_reference():
     ref_p = RefParams.create(sigma2=0.9, beta=[0.3, 0.7, 2.0], nugget=1e-3)
     p = params_from_reference(*_leaves(ref_p))
     tx, ty, txt = (torch.as_tensor(a) for a in (x, y, xt))
-    np.testing.assert_allclose(float(exact_gp.exact_loglik(p, tx, ty)),
+    np.testing.assert_allclose(float(exact_gp.exact_loglik(p, tx, ty, device="cpu")),
                                float(ref_exact.exact_loglik(ref_p, jnp.asarray(x),
                                                             jnp.asarray(y))), rtol=1e-10)
-    for a, b in zip(exact_gp.exact_predict(p, tx, ty, txt),
+    for a, b in zip(exact_gp.exact_predict(p, tx, ty, txt, device="cpu"),
                     ref_exact.exact_predict(ref_p, jnp.asarray(x), jnp.asarray(y),
                                             jnp.asarray(xt))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10, atol=1e-12)
