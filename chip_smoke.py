@@ -14,6 +14,15 @@ path once through the user entry points:
   50,000 held-out points of the same realization;
 * multi-output (VPPE): ``fit_sbv`` (2 x 3) on 200,000 MetaRVM trajectories
   with 32 outputs, and ``predict_sbv`` on 20,000 held-out ones;
+* out of core: the 200,000 training points in an on-disk ``ArrayStore``,
+  the streaming structure (mini-batch k-means, store-backed NNS, a plan of
+  ~65,536-row pieces), value and gradient over the spool with its pieces
+  on the device, half on the device, and on disk (prefetched and
+  synchronous: all bitwise equal), one piece against many, then
+  ``fit_sbv(store, None, cfg, stream_chunk=65536)`` (1 x 3) with its device
+  memory and host RSS beside their models, the multi-output streaming fit
+  (p = 32, n = 50,000, 1 x 2) and ``predict_sbv`` from the store (20,000
+  points; the store-backed against the in-core streaming one on 2,000);
 * the batched covariance kernel at B = 256 (the joint points of 256
   multi-output blocks) beside its earlier row-wise design and a ``fill_`` of
   the same bytes, its store paths and edges, and ``kernels.ops.matern_cov``
@@ -48,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -89,6 +99,14 @@ N_BUCKETS = 4
 # The exact-GP and KL phase: paper Fig. 4 at its paper scale
 # (benchmarks/fig4_kl_mspe.py --scale paper: n = 20,000, bs = 10, m = 30).
 N_EXACT, BS_EXACT, M_EXACT = 20_000, 10, 30
+# The streaming (out-of-core) phase: the single-output path's n, blocks and
+# m from an on-disk store in pieces of ~65,536 member + neighbour rows; the
+# multi-output streaming fit at p = 32 on the first 50,000 MetaRVM rows;
+# the store-backed prediction on 20,000 points in chunks of 10,000, and the
+# store-backed against the in-core streaming prediction on 2,000.
+STREAM_CHUNK, STREAM_INNER = 65_536, 3
+N_MULTI_STREAM, MULTI_STREAM_INNER = 50_000, 2
+N_STREAM_TEST, STREAM_PRED_CHUNK, N_STREAM_BITWISE = 20_000, 10_000, 2_000
 
 
 class SmokeFailure(RuntimeError):
@@ -1204,6 +1222,491 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     return launches
 
 
+def trace_step(fn, path: str) -> dict:
+    """Run ``fn`` once under ``torch.profiler`` (host and device) and read
+    the chrome trace at ``path``: kernels and host launches, the kernels'
+    busy time (the union of their intervals), the host-to-device copies and
+    how much of them overlapped a kernel, and the span from the first to the
+    last device event."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        ev = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    os.remove(path)
+    ker = sorted((e["ts"], e["ts"] + e["dur"]) for e in ev if e.get("cat") == "kernel")
+    h2d = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+           if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    busy = []
+    for a, b in ker:
+        if busy and a <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], b)
+        else:
+            busy.append([a, b])
+    ends = [t for iv in ker + h2d for t in iv]
+    overlap = sum(max(0.0, min(b, y) - max(a, x)) for a, b in h2d for x, y in busy)
+    return dict(kernels=len(ker),
+                launches=sum(1 for e in ev if e.get("name") == "cudaLaunchKernel"),
+                kernel_busy_s=sum(b - a for a, b in busy) / 1e6,
+                span_s=(max(ends) - min(ends)) / 1e6 if ends else 0.0,
+                h2d=len(h2d), h2d_s=sum(b - a for a, b in h2d) / 1e6, h2d_overlap_s=overlap / 1e6)
+
+
+def grad_gap(got, want) -> float:
+    """Largest per-leaf gap of two gradients, relative to the leaf's scale."""
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+               for a, b in zip(got, want))
+
+
+def streaming_phase(dev, results: dict, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cfg, init,
+                    true_p, t_step_incore: float) -> dict:
+    """The out-of-core path: the training set in an on-disk ``ArrayStore``,
+    the streaming structure, the spool's tiers held bitwise against each
+    other, one piece against many, ``fit_sbv(store, None, ...)`` with its
+    device memory and host RSS beside their models, the multi-output
+    streaming fit at p = 32, and the store-backed prediction. Returns the
+    launches of its three path runs (the fits and the prediction)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import multioutput as mo
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core import vecchia
+    from repro_torch.core.fit import (_chunk_grad, _multi_stats_chunk, _multi_wgrad_chunk,
+                                      _piece_backend, fit_sbv)
+    from repro_torch.core.kernels_math import KernelParams
+    from repro_torch.data import streaming as st
+    from repro_torch.data.store import ArrayStore, MemoryStore
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
+    from repro_torch.kernels.sbv_predict import sbv_predict_plain
+    from repro_torch.memwatch import PeakRssSampler
+
+    out = {}
+    n, d = x_tr.shape
+    tmp = tempfile.mkdtemp(prefix="smoke-stream-")
+    try:
+        # 29. The training set on disk (default shards of 131,072 rows).
+        t = time.perf_counter()
+        store = ArrayStore.from_arrays(os.path.join(tmp, "train"), x_tr, y_tr)
+        log(f"phase streaming store: {time.perf_counter() - t:.2f} s to write n={store.n_rows} "
+            f"d={store.d} in {store.n_shards} shards")
+
+        # 30. Structure at the fit's initial beta, taken as the fit takes it
+        # (exp of the log-beta on the device).
+        p0 = KernelParams(*(torch.as_tensor(a).to(dev) for a in init))
+        beta = p0.beta.cpu().numpy()
+        t = time.perf_counter()
+        blocks, radii, vol = st.streaming_kmeans_blocks(store, beta, cfg.n_blocks,
+                                                        n_workers=cfg.n_workers, seed=cfg.seed,
+                                                        ordering=cfg.ordering)
+        t_km = time.perf_counter() - t
+        t = time.perf_counter()
+        neigh, flat = st.streaming_filtered_nns(store, blocks, radii, beta, cfg.m,
+                                                alpha=cfg.alpha, domain_volume=vol)
+        t_nns = time.perf_counter() - t
+        t = time.perf_counter()
+        plan = st.plan_block_chunks(blocks, neigh, cfg.m, STREAM_CHUNK)
+        t_plan = time.perf_counter() - t
+        bs_max = int(max(mb.size for mb in blocks.members))
+        bc_pad = max(len(r) for r in plan)
+        t = time.perf_counter()
+        pieces = [st.pack_block_chunk(store, blocks, neigh, r, m=cfg.m, bs_max=bs_max)
+                  .pad_to_blocks(bc_pad) for r in plan]
+        t_pack = time.perf_counter() - t
+        spool_bytes = sum(sum(a.nbytes for a in (pk.blk_x, pk.blk_y, pk.blk_mask, pk.nn_x,
+                                                  pk.nn_y, pk.nn_mask)) for pk in pieces)
+        log(f"phase streaming structure: k-means {t_km:.2f} s, store-backed NNS {t_nns:.2f} s "
+            f"({flat.gathered_rows} rows gathered), plan {t_plan:.3f} s, pack {t_pack:.2f} s; "
+            f"bc={blocks.n_blocks} bs_max={bs_max} m={cfg.m}; {len(pieces)} pieces of "
+            f"{bc_pad} blocks, spool {spool_bytes / 1e6:.1f} MB")
+        out["structure_s"] = dict(kmeans=t_km, nns=t_nns, plan=t_plan, pack=t_pack)
+
+        # 31. Value and gradient at the same params over one spool in three
+        # tiers, prefetched and (disk) synchronous: all bitwise equal.
+        def evaluate(spool, prefetch):
+            """Loss, gradient, step seconds and the seconds the consumer
+            waited for its next piece."""
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = grad = None
+            waited = 0.0
+            it = spool.iter_arrays(prefetch=prefetch)
+            while True:
+                tw = time.perf_counter()
+                item = next(it, None)
+                waited += time.perf_counter() - tw
+                if item is None:
+                    break
+                v, g = _chunk_grad(p0, item[0], 3.5, item[1], n)
+                loss = v if loss is None else loss + v
+                grad = g if grad is None else tuple(a + b for a, b in zip(grad, g))
+            torch.cuda.synchronize()
+            return loss, grad, time.perf_counter() - t, waited
+
+        # The disk tier alternates prefetch 2 and 0, three times each, so the
+        # two are compared within one stretch of the run.
+        runs = []
+        for label, budget, order in (("device", spool_bytes, (2, 2)),
+                                     ("half", spool_bytes // 2, (2, 2)),
+                                     ("disk", 0, (2, 0) * 3)):
+            t = time.perf_counter()
+            spool = st.PackedChunkSpool(os.path.join(tmp, label), device_budget=budget,
+                                        device=dev)
+            for pk in pieces:
+                spool.add(pk, tag=_piece_backend("auto", pk))
+            t_spool = time.perf_counter() - t
+            times = {}
+            for pf in order:
+                l_, g_, s_, w_ = evaluate(spool, pf)
+                runs.append((label, pf, l_, g_))
+                times.setdefault(pf, []).append((s_, w_))
+            for pf, tw in times.items():
+                log(f"streaming tier {label} prefetch {pf}: {spool.n_device} of {len(spool)} "
+                    f"pieces on the device ({spool.device_bytes / 1e6:.1f} MB), H2D "
+                    f"{spool.disk_bytes_total / 1e6:.1f} MB per step; step "
+                    + ", ".join(f"{a:.3f}" for a, _ in tw) + " s (mean "
+                    f"{sum(a for a, _ in tw) / len(tw):.3f}), waiting for pieces "
+                    + ", ".join(f"{b:.3f}" for _, b in tw)
+                    + f" s (spool built in {t_spool:.2f} s); loss {float(l_)!r}")
+                out[f"step_s_{label}_prefetch{pf}"] = [a for a, _ in tw]
+                out[f"wait_s_{label}_prefetch{pf}"] = [b for _, b in tw]
+            out[f"h2d_bytes_{label}"] = spool.disk_bytes_total
+            # One profiled step: the device's busy share of the unprofiled
+            # step, and whether the copies overlap kernels.
+            tr = None
+            if label != "half":
+                try:
+                    tr = trace_step(lambda: evaluate(spool, 2), os.path.join(tmp, "trace.json"))
+                except Exception as exc:  # a diagnostic: no trace is no failure
+                    log(f"streaming tier {label}: torch.profiler trace not measured ({exc!r})")
+            if tr is not None:
+                fastest = min(a for a, _ in times[2])
+                tr["idle_share"] = 1.0 - tr["kernel_busy_s"] / fastest
+                log(f"streaming tier {label} prefetch 2, one step under torch.profiler: "
+                    f"{tr['kernels']} kernels ({tr['launches']} cudaLaunchKernel), kernels busy "
+                    f"{tr['kernel_busy_s']:.4f} s of a {tr['span_s']:.4f} s profiled span; "
+                    f"device idle {100 * tr['idle_share']:.1f} % of the fastest unprofiled "
+                    f"step {fastest:.3f} s; {tr['h2d']} H2D copies, {tr['h2d_s'] * 1e3:.2f} ms, "
+                    f"{tr['h2d_overlap_s'] * 1e3:.2f} ms of it under a kernel")
+                out[f"trace_{label}"] = tr
+            spool.cleanup()
+        pf2, pf0 = out["step_s_disk_prefetch2"], out["step_s_disk_prefetch0"]
+        log(f"streaming disk tier, prefetch 2 vs 0 in alternation: mean {sum(pf2) / 3:.3f} vs "
+            f"{sum(pf0) / 3:.3f} s per step; prefetch faster in "
+            f"{sum(a < b for a, b in zip(pf2, pf0))} of 3 pairs")
+        ref_loss, ref_grad = runs[0][2], runs[0][3]
+        for label, pf, l_, g_ in runs[1:]:
+            same = bool(torch.equal(l_, ref_loss)) and all(
+                torch.equal(a, b) for a, b in zip(g_, ref_grad))
+            check(same, f"streaming tier {label} prefetch {pf}: value or gradient not bitwise "
+                        f"equal to the device tier's (loss {float(l_)!r} vs {float(ref_loss)!r},"
+                        f" gradient gap {grad_gap(g_, ref_grad):.3e})")
+        log(f"streaming tiers: {len(runs)} evaluations (device and half twice, disk with "
+            f"prefetch 2 and 0 three times each) bitwise equal in loss and every gradient leaf")
+
+        # 31b. The kernel route against the plain one on the same pieces:
+        # the streaming `ref` route (the checkpointed joint form) summed
+        # over the spool, and each piece's per-block values against the
+        # plain version of the kernel.
+        t = time.perf_counter()
+        p_loss = p_grad = None
+        blk_rel = 0.0
+        for pk in pieces:
+            arrs = tuple(torch.as_tensor(a).to(dev) for a in (pk.blk_x, pk.blk_y, pk.blk_mask,
+                                                               pk.nn_x, pk.nn_y, pk.nn_mask))
+            v, g = _chunk_grad(p0, arrs, 3.5, "ref", n)
+            p_loss = v if p_loss is None else p_loss + v
+            p_grad = g if p_grad is None else tuple(a + b for a, b in zip(p_grad, g))
+            pr = (p0.beta, p0.sigma2, p0.nugget)
+            got, want = sbv_loglik_cuda(*pr, *arrs), sbv_loglik_plain(*pr, *arrs)
+            check(bool(torch.isfinite(got).all()), "streaming piece: non-finite kernel output")
+            blk_rel = max(blk_rel, float(((got - want).abs() / want.abs().clamp_min(1e-300))
+                                         .max()))
+        torch.cuda.synchronize()
+        rel_l = abs(float(p_loss) - float(ref_loss)) / abs(float(p_loss))
+        rel_g = grad_gap(ref_grad, p_grad)
+        log(f"streaming kernel route vs plain over the {len(pieces)} spooled pieces "
+            f"({time.perf_counter() - t:.2f} s): loss rel {rel_l:.3e}, gradient rel {rel_g:.3e} "
+            f"(the checkpointed joint form); per-block values max rel {blk_rel:.3e}")
+        check(rel_l <= 1e-10 and rel_g <= 1e-10,
+              f"streaming kernel route vs plain: loss {rel_l:.3e}, gradient {rel_g:.3e} > 1e-10")
+        check(blk_rel <= 1e-9, f"streaming pieces: per-block kernel vs plain {blk_rel:.3e} > 1e-9")
+        out["plain_check"] = dict(loss_rel=rel_l, grad_rel=rel_g, block_rel=blk_rel)
+        del arrs, p_grad, got, want
+
+        # 32. The same structure in one piece: the sum differs in order only.
+        one = st.plan_block_chunks(blocks, neigh, cfg.m, 10 ** 9)
+        check(len(one) == 1, f"one-piece plan has {len(one)} pieces")
+        pk1 = st.pack_block_chunk(store, blocks, neigh, one[0], m=cfg.m, bs_max=bs_max)
+        arrs1 = tuple(torch.as_tensor(a).to(dev) for a in (pk1.blk_x, pk1.blk_y, pk1.blk_mask,
+                                                            pk1.nn_x, pk1.nn_y, pk1.nn_mask))
+        l1, g1 = _chunk_grad(p0, arrs1, 3.5, "auto", n)
+        rel_l = abs(float(l1) - float(ref_loss)) / abs(float(l1))
+        rel_g = grad_gap(ref_grad, g1)
+        log(f"streaming one piece ({pk1.n_blocks} blocks) vs {len(pieces)} pieces: loss rel "
+            f"{rel_l:.3e}, gradient rel {rel_g:.3e}")
+        check(rel_l <= 1e-10 and rel_g <= 1e-10,
+              f"one piece vs many: loss {rel_l:.3e}, gradient {rel_g:.3e} > 1e-10")
+        del arrs1, pk1, g1
+        torch.cuda.empty_cache()
+
+        # 33. The user path: fit_sbv on the store, half the spool on the card.
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_alloc = torch.cuda.memory_allocated(dev)
+        rss = PeakRssSampler().start()
+        t = time.perf_counter()
+        fit = fit_sbv(store, None, cfg, init=init, stream_chunk=STREAM_CHUNK,
+                      device_cache=spool_bytes // 2, inner_steps=STREAM_INNER, outer_rounds=1,
+                      device=dev)
+        torch.cuda.synchronize()
+        t_fit = time.perf_counter() - t
+        rss_delta = rss.stop()
+        peak = torch.cuda.max_memory_allocated(dev) - base_alloc
+        fit_launches = ops.launch_counts()
+        s = fit.stream_stats
+        losses = [h[2] for h in fit.history]
+        step_s = s["inner_time_s"] / s["inner_steps_total"]
+        log(f"phase streaming fit: {t_fit:.2f} s (1 round x {STREAM_INNER} steps, host "
+            f"structure and packing included); {step_s:.3f} s per Adam step over "
+            f"{s['n_pieces']} pieces ({s['device_cached_pieces']} on the device, H2D "
+            f"{s['h2d_bytes_per_step'] / 1e6:.1f} MB per step) beside the in-core step "
+            f"{t_step_incore:.3f} s; losses {losses}; launches {fit_launches}")
+        check(len(losses) == STREAM_INNER and all(math.isfinite(v) for v in losses),
+              "streaming fit: missing or non-finite losses")
+        check(s["n_pieces"] == len(pieces) and 0 < s["device_cached_pieces"] < s["n_pieces"],
+              f"streaming fit: {s['n_pieces']} pieces, {s['device_cached_pieces']} cached")
+        check(losses[0] == float(ref_loss),
+              f"streaming fit: first loss {losses[0]!r} not bitwise the tier check's "
+              f"{float(ref_loss)!r}")
+        want = s["n_pieces"] * STREAM_INNER
+        check(fit_launches["sbv_loglik"] == want,
+              f"streaming fit: loglik kernel launched {fit_launches['sbv_loglik']} times, "
+              f"expected pieces x steps = {want}")
+        room = s["device_cached_bytes"] + s["device_reserve_bytes"]
+        unit = s["backward_blocks"] * (s["bs_max"] + cfg.m) ** 2 * 8
+        sets = peak / unit
+        live = st.backward_live_bytes(s["bs_max"], cfg.m, s["backward_blocks"], 8, 1, d)
+        log(f"streaming fit device memory: peak {peak / 1e9:.3f} GB above the start "
+            f"({sets:.2f} (bs+m)^2 sets of {s['backward_blocks']} blocks, everything included) "
+            f"against cached {s['device_cached_bytes'] / 1e9:.3f} GB + reserve "
+            f"{s['device_reserve_bytes'] / 1e9:.3f} GB (its backward term "
+            f"{live / 1e9:.3f} GB = {live / unit:.2f} sets, counted)")
+        check(peak <= room, f"streaming fit: device peak {peak} B above cached + reserve {room} B")
+        # Host RSS against the model's host terms: on the card the backward
+        # and the cached pieces are device memory (its device_terms).
+        ws = st.working_set_model(s, n, d, cfg.m, STREAM_CHUNK, n_caches=1, device=dev)
+        log(f"streaming fit host RSS: peak delta {rss_delta / 1e6:.1f} MB against "
+            f"working_set_model {ws['total'] / 1e6:.1f} MB of host terms ("
+            + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in ws["terms"].items())
+            + "; device terms, not in RSS: "
+            + ", ".join(f"{k} {v / 1e6:.1f}" for k, v in ws["device_terms"].items())
+            + f"; in-core model {ws['incore_total'] / 1e6:.1f} MB)")
+        check(rss_delta is not None and rss_delta < 2 * ws["total"],
+              f"streaming fit: RSS delta {rss_delta} B not below 2 x {ws['total']} B")
+        out.update(fit_s=t_fit, step_s=step_s, peak_device_bytes=peak, room_bytes=room,
+                   peak_sets=sets, rss_delta=rss_delta, working_set_host=ws["total"],
+                   n_pieces=s["n_pieces"])
+        fitted = fit.params
+        del fit
+        torch.cuda.empty_cache()
+
+        # 34. Multi-output streaming at p = 32 on the first 50,000 rows.
+        xm, ym = xm_tr[:N_MULTI_STREAM], ym_tr[:N_MULTI_STREAM]
+        cfg_m = type(cfg)(n_blocks=N_MULTI_STREAM // 100, m=cfg.m, seed=cfg.seed)
+        init_m = mo.MultiOutputParams.create(sigma2=1.0, beta=0.5, tau2=1e-3, d=xm.shape[1],
+                                             p=ym.shape[1])
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base_alloc = torch.cuda.memory_allocated(dev)
+        t = time.perf_counter()
+        fit_m = fit_sbv(xm, ym, cfg_m, init=init_m, stream_chunk=STREAM_CHUNK,
+                        inner_steps=MULTI_STREAM_INNER, outer_rounds=1, device=dev)
+        torch.cuda.synchronize()
+        t_fit_m = time.perf_counter() - t
+        peak_m = torch.cuda.max_memory_allocated(dev) - base_alloc
+        multi_launches = ops.launch_counts()
+        sm = fit_m.stream_stats
+        room_m = sm["device_cached_bytes"] + sm["device_reserve_bytes"]
+        unit_m = sm["backward_blocks"] * (sm["bs_max"] + cfg.m) ** 2 * 8
+        sets_m = peak_m / unit_m
+        live_m = st.backward_live_bytes(sm["bs_max"], cfg.m, sm["backward_blocks"], 8,
+                                        ym.shape[1], xm.shape[1])
+        log(f"streaming multi fit device memory: peak {peak_m / 1e9:.3f} GB ({sets_m:.2f} sets) "
+            f"against cached {sm['device_cached_bytes'] / 1e9:.3f} GB + reserve "
+            f"{sm['device_reserve_bytes'] / 1e9:.3f} GB (its backward term "
+            f"{live_m / 1e9:.3f} GB = {live_m / unit_m:.2f} sets, counted)")
+        m_losses = [h[2] for h in fit_m.history]
+        want = 2 * sm["n_pieces"] * MULTI_STREAM_INNER + sm["n_pieces"]
+        log(f"phase streaming multi fit: {t_fit_m:.2f} s (n={N_MULTI_STREAM}, p={ym.shape[1]}, "
+            f"1 round x {MULTI_STREAM_INNER} steps, {sm['n_pieces']} pieces); "
+            f"{sm['inner_time_s'] / MULTI_STREAM_INNER:.3f} s per step (two passes); losses "
+            f"{m_losses}; launches {multi_launches}")
+        check(multi_launches["sbv_multi_stats"] == want,
+              f"streaming multi fit: stats kernel launched {multi_launches['sbv_multi_stats']} "
+              f"times, expected 2 x pieces x steps + pieces = {want}")
+        pm = mo.MultiOutputParams(*(torch.as_tensor(a).to(dev) for a in init_m))
+        struct1 = st.streaming_preprocess(MemoryStore(xm, ym), pm.beta.cpu().numpy(), cfg_m,
+                                          10 ** 9)
+        pk1 = st.pack_block_chunk(MemoryStore(xm, ym), struct1.blocks, struct1.neigh,
+                                  struct1.plan[0], m=cfg.m, bs_max=struct1.bs_max)
+        arrs1 = tuple(torch.as_tensor(a).to(dev) for a in (pk1.blk_x, pk1.blk_y, pk1.blk_mask,
+                                                            pk1.nn_x, pk1.nn_y, pk1.nn_mask))
+        with torch.no_grad():
+            ld1, q1 = _multi_stats_chunk(pm, arrs1, 3.5, "auto")
+            ld_p, q_p = _multi_stats_chunk(pm, arrs1, 3.5, "ref")
+        one_m = float(mo.pooled_objective(ld1, q1, N_MULTI_STREAM))
+        rel_m = abs(m_losses[0] - one_m) / abs(one_m)
+        log(f"streaming multi first loss {m_losses[0]!r} vs one piece {one_m!r}: rel {rel_m:.3e}")
+        check(rel_m <= 1e-10, f"streaming multi first loss vs one piece rel {rel_m:.3e} > 1e-10")
+        # The stats kernel and the pass-B gradient against the plain
+        # (checkpointed joint form) route on the same piece.
+        st_rel = max(abs(float(ld1) - float(ld_p)) / abs(float(ld_p)),
+                     float(((q1 - q_p).abs() / q_p.abs()).max()))
+        w1 = 1.0 / q1
+        p_m = ym.shape[1]
+        g_k = _multi_wgrad_chunk(pm, w1, arrs1, 3.5, "auto", N_MULTI_STREAM, p_m)
+        g_p = _multi_wgrad_chunk(pm, w1, arrs1, 3.5, "ref", N_MULTI_STREAM, p_m)
+        mg_rel = grad_gap(g_k, g_p)
+        log(f"streaming multi one piece ({pk1.n_blocks} blocks): stats kernel vs plain max rel "
+            f"{st_rel:.3e}, pass-B gradient rel {mg_rel:.3e}")
+        check(st_rel <= 1e-10 and mg_rel <= 1e-10,
+              f"streaming multi: stats {st_rel:.3e} or gradient {mg_rel:.3e} vs plain > 1e-10")
+        s2 = fit_m.params.sigma2.detach().cpu().numpy()
+        check(all(math.isfinite(v) for v in m_losses) and bool(np.isfinite(s2).all())
+              and bool((s2 > 0).all()), "streaming multi fit: non-finite loss or sigma2")
+        # The backward's device peak on this piece at p and 4p outputs (the
+        # observations repeated), against the counted live set plus the
+        # stats kernel's scratch.
+        peaks_p = {}
+        for reps in (1, 4):
+            a_r = arrs1[:1] + (arrs1[1].repeat(1, 1, reps),) + arrs1[2:4] + (
+                arrs1[4].repeat(1, 1, reps),) + arrs1[5:]
+            pm_r = mo.MultiOutputParams.create(sigma2=1.0, beta=0.5, tau2=1e-3, d=xm.shape[1],
+                                               p=p_m * reps)
+            pm_r = mo.MultiOutputParams(*(torch.as_tensor(a).to(dev) for a in pm_r))
+            with torch.no_grad():
+                w_r = 1.0 / _multi_stats_chunk(pm_r, a_r, 3.5, "auto")[1]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_r = torch.cuda.memory_allocated(dev)
+            _multi_wgrad_chunk(pm_r, w_r, a_r, 3.5, "auto", N_MULTI_STREAM, p_m * reps)
+            torch.cuda.synchronize()
+            pk_r = torch.cuda.max_memory_allocated(dev) - base_r
+            k_r = pk1.bs_max + cfg.m
+            live_r = st.backward_live_bytes(pk1.bs_max, cfg.m, ops.BACKWARD_CHUNK, 8,
+                                            p_m * reps, xm.shape[1])
+            scratch_r = pk1.n_blocks * (k_r + 1) * k_r * 8
+            unit_r = ops.BACKWARD_CHUNK * k_r ** 2 * 8
+            peaks_p[p_m * reps] = pk_r
+            log(f"multi backward device peak at p={p_m * reps}: {pk_r / 1e9:.3f} GB = "
+                f"{pk_r / unit_r:.2f} sets of {ops.BACKWARD_CHUNK} blocks at bs+m={k_r} against "
+                f"the counted {live_r / unit_r:.2f} sets + the kernel's scratch "
+                f"{scratch_r / unit_r:.2f}")
+            check(pk_r <= live_r + scratch_r,
+                  f"multi backward peak at p={p_m * reps}: {pk_r} B above {live_r + scratch_r} B")
+            del a_r, w_r
+        out["multi"] = dict(fit_s=t_fit_m, step_s=sm["inner_time_s"] / MULTI_STREAM_INNER,
+                            n_pieces=sm["n_pieces"], peak_device_bytes=peak_m, room_bytes=room_m,
+                            stats_rel=st_rel, grad_rel=mg_rel, backward_peaks=peaks_p)
+        del fit_m, arrs1, pk1, g_k, g_p
+        torch.cuda.empty_cache()
+
+        # 35. Prediction from the store: 20,000 points in chunks of 10,000
+        # at the generator's parameters (the smoke's MSPE gate), then the
+        # store-backed against the in-core streaming prediction at the
+        # fitted ones.
+        kw = dict(bs_pred=BS_PRED, m_pred=M_PRED, n_sims=N_SIMS, chunk_size=STREAM_PRED_CHUNK,
+                  stream_chunk=STREAM_CHUNK, seed=SEED, device=dev)
+        xt, yt = x_te[:N_STREAM_TEST], y_te[:N_STREAM_TEST]
+        # The path's first chunk, its inputs and its kernel outputs, kept for
+        # the plain check below.
+        first = []
+        many = tpredict.batched_block_predict_many
+
+        def keep_first(params, arrs, **k):
+            res = many(params, arrs, **k)
+            if not first:
+                first.append((params, arrs, res))
+            return res
+
+        tpredict.batched_block_predict_many = keep_first
+        try:
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pred = tpredict.predict_sbv(true_p, store, None, xt, **kw)
+            torch.cuda.synchronize()
+            t_pred = time.perf_counter() - t
+            pred_launches = ops.launch_counts()
+        finally:
+            tpredict.batched_block_predict_many = many
+        n_chunks = math.ceil(N_STREAM_TEST / STREAM_PRED_CHUNK)
+        mspe = float(np.mean((pred.mean - yt) ** 2))
+        var_y = float(np.var(np.concatenate([y_tr, y_te])))
+        log(f"phase streaming predict: {t_pred:.2f} s for {N_STREAM_TEST} points in {n_chunks} "
+            f"chunks from the store; MSPE {mspe:.5f} vs var(y) {var_y:.5f}; launches "
+            f"{pred_launches}")
+        check(pred_launches["sbv_predict"] == n_chunks,
+              f"streaming predict: kernel launched {pred_launches['sbv_predict']} times, "
+              f"expected {n_chunks}")
+        for f in ("mean", "var", "sim_mean", "ci_low", "ci_high"):
+            a = getattr(pred, f)
+            check(a.shape == (N_STREAM_TEST,) and bool(np.isfinite(a).all()),
+                  f"streaming predict: bad {f}")
+        check(mspe < 0.5 * var_y, f"streaming MSPE {mspe:.4f} not below 0.5 var(y)")
+        # Chunk 0's kernel outputs against the plain version on its inputs:
+        # 1e-10 of the output scale, or 10 eps cond(K_NN) at the generator's
+        # nugget 1e-8, as the in-core predict check holds them.
+        prm, arrs_c, res_c = first[0]
+        pr = (prm.beta, prm.sigma2, prm.nugget)
+        p_err, p_scale, p_cond = 0.0, 1.0, 1.0
+        for a_c, (mu_k, var_k) in zip(arrs_c, res_c):
+            msk = a_c[1].bool()
+            for got, want in zip((mu_k, var_k), sbv_predict_plain(*pr, *a_c)):
+                p_err = max(p_err, float((got - want).abs()[msk].max()))
+                p_scale = max(p_scale, float(want.abs()[msk].max()))
+            k_nn = vecchia._masked_cov(a_c[2], a_c[2], a_c[4].bool(), a_c[4].bool(), *pr, 3.5,
+                                       identity=True)
+            ev = torch.linalg.eigvalsh(k_nn)
+            p_cond = max(p_cond, float((ev[:, -1] / ev[:, 0]).max()))
+            del k_nn, ev
+        p_tol = max(1e-10, 10 * 2.2e-16 * p_cond)
+        log(f"streaming predict chunk 0 ({arrs_c[0][0].shape[0]} blocks): kernel vs plain max abs "
+            f"err {p_err:.3e} (|out| max {p_scale:.3g}, max cond(K_NN) {p_cond:.3e}, tolerance "
+            f"{p_tol:.1e} x {p_scale:.3g})")
+        check(p_err <= p_tol * p_scale,
+              f"streaming predict chunk 0: kernel vs plain {p_err:.3e} > {p_tol:.1e} x {p_scale:.3g}")
+        out["predict_plain_err"] = p_err
+        del first, arrs_c, res_c
+        xb = x_te[:N_STREAM_BITWISE]
+        t = time.perf_counter()
+        p_store = tpredict.predict_sbv(fitted, store, None, xb, **kw)
+        t_ps = time.perf_counter() - t
+        p_mem = tpredict.predict_sbv(fitted, x_tr, y_tr, xb, **kw)
+        same = [f for f in ("mean", "var", "sim_mean", "ci_low", "ci_high")
+                if np.array_equal(getattr(p_store, f), getattr(p_mem, f))]
+        log(f"streaming predict at the fitted params, {N_STREAM_BITWISE} points: store-backed "
+            f"{t_ps:.2f} s; bitwise equal to the in-core streaming prediction in {same}; MSPE "
+            f"{float(np.mean((p_store.mean - y_te[:N_STREAM_BITWISE]) ** 2)):.5f} (not checked: "
+            f"{STREAM_INNER} Adam steps)")
+        check(len(same) == 5, f"streaming predict: store vs in-core differ outside {same}")
+        out["predict_s"] = t_pred
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    results["streaming"] = out
+    return {"sbv_loglik": fit_launches["sbv_loglik"],
+            "sbv_multi_stats": multi_launches["sbv_multi_stats"],
+            "sbv_predict": pred_launches["sbv_predict"]}
+
+
 def main() -> int:
     import torch
 
@@ -1722,6 +2225,16 @@ def main() -> int:
         f"conditional + {N_SIMS} simulations {dev_ms:.1f} ms")
     del pred_m, fit_m, arrs_p
     torch.cuda.empty_cache()
+
+    # 29.-35. The streaming (out-of-core) fit and prediction.
+    t = time.perf_counter()
+    stream_launches = streaming_phase(dev, results, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cfg,
+                                      init, true_p, t_step)
+    log(f"phase streaming (out-of-core) fit and prediction: {time.perf_counter() - t:.1f} s; "
+        f"launches {stream_launches}")
+    for kname in ("sbv_loglik", "sbv_predict"):
+        launches[kname] += stream_launches[kname]
+    multi_launches["sbv_multi_stats"] += stream_launches["sbv_multi_stats"]
 
     # 12. The batched covariance kernel, on the joint points of 256 real
     # blocks of the multi-output structure (na = nb = m + bs_max).

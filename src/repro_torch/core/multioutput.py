@@ -32,7 +32,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .kernels_math import KernelParams, cast_params
-from .vecchia import _LOG2PI, _cholesky, _masked_cov, _solve_lower, narrow_factor, packed_arrays
+from .vecchia import _LOG2PI, block_multi_stats, checkpointed_blocks, narrow_factor, packed_arrays
 
 
 class MultiOutputParams(NamedTuple):
@@ -103,31 +103,6 @@ def as_multi_params(params, p: int, d: int) -> MultiOutputParams:
     raise TypeError(f"cannot coerce {type(params).__name__} to MultiOutputParams")
 
 
-def block_multi_stats(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
-                      nu: float = 3.5):
-    """Per-block ``(logdet0 (bc,), q0 (bc, p))`` from one Cholesky each.
-
-    The counterpart of the reference's vmapped ``_block_multi_stats_one``:
-    the joint (m + bs) covariance of [NN; B] is factored once and the
-    masked (m + bs, p) observations go through one triangular solve. With
-    ``sigma2 = 1, nugget = tau2`` these are the unit-variance stats. A
-    block that is not positive definite gives NaN, as in the reference."""
-    blk_mask = blk_mask.bool()
-    nn_mask = nn_mask.bool()
-    m = nn_x.shape[-2]
-    x = torch.cat([nn_x, blk_x], dim=-2)
-    mask = torch.cat([nn_mask, blk_mask], dim=-1)
-    zero = torch.zeros((), dtype=blk_y.dtype, device=blk_y.device)
-    yv = torch.cat([torch.where(nn_mask[..., None], nn_y, zero),
-                    torch.where(blk_mask[..., None], blk_y, zero)], dim=-2)
-    sigma = _masked_cov(x, x, mask, mask, beta, sigma2, nugget, nu, identity=True)
-    chol = _cholesky(sigma)
-    vb = _solve_lower(chol, yv)[..., m:, :]
-    diag = torch.diagonal(chol, dim1=-2, dim2=-1)[..., m:]
-    logdet0 = 2.0 * torch.sum(torch.where(blk_mask, torch.log(diag), zero), dim=-1)
-    return logdet0, torch.sum(vb * vb, dim=-2)
-
-
 def block_multi_stats_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
                              nu: float = 3.5):
     """Per-block ``(logdet0 (bc,), q0 (bc, p))`` on the bf16-assembly tier:
@@ -142,6 +117,18 @@ def block_multi_stats_narrow(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x,
     logdet0 = 2.0 * torch.sum(torch.log(torch.clamp(diag, min=1e-30)) * blk_mask.float(), dim=-1)
     vb = at[..., m:, n:]
     return logdet0, torch.sum(vb * vb, dim=-2)
+
+
+def batched_multi_stats_remat(params0: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                              nn_mask, nu: float = 3.5):
+    """Dataset totals ``(logdet0, q0 (p,))`` of one piece, with the
+    per-block stats (``block_multi_stats``, the joint form of the
+    reference's ``_block_multi_stats_one``) checkpointed in slices of
+    ``vecchia.MAP_BATCH`` blocks: the streaming ``ref`` route."""
+    ld, q = checkpointed_blocks(
+        lambda *a: block_multi_stats(params0.beta, params0.sigma2, params0.nugget, *a, nu=nu),
+        (blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask))
+    return ld.sum(), q.sum(dim=0)
 
 
 def _cast_multi(params: MultiOutputParams, dtype) -> MultiOutputParams:

@@ -55,8 +55,8 @@ class _FlatBlocks:
     """Block members flattened once for fast candidate slicing.
 
     The NNS loops below touch members only through ``rows_of_blocks`` /
-    ``points_of_blocks``, so a store-backed twin with the same bookkeeping
-    can replace this class when streaming is ported.
+    ``points_of_blocks``, so the store-backed twin with the same bookkeeping
+    (``repro_torch.data.streaming.LazyFlatBlocks``) runs them unchanged.
     """
 
     def __init__(self, x_scaled: np.ndarray, blocks: BlockStructure):

@@ -18,6 +18,14 @@ covariance per block serve all p outputs, through ``torch.linalg`` (cuSOLVER
 on the GPU) as in the reference, where the fused predict kernels stay
 single-output. An (n, 1) ``y`` squeezes to the single-output path.
 
+Out of core: a row store for the training set (``y_train=None``) and/or
+``stream_chunk`` builds the training index from mini-batch k-means passes
+over the store, with candidate coordinates gathered on demand
+(``data.streaming.LazyFlatBlocks``) and each chunk's neighbour rows
+gathered once (``localize_neighbors``); a store ``x_test`` is read one
+window at a time. The packed chunks are bitwise the in-core streaming
+index's, and every chunk is still one predict kernel launch.
+
 The reference draws its simulation noise from ``jax.random``; that stream
 cannot be reproduced here, so ``predict_sbv`` takes an injected ``eps`` for
 exact comparisons and otherwise draws from a ``torch.Generator`` on the
@@ -31,6 +39,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.data.store import as_store, is_store
+from repro_torch.data.streaming import (DEFAULT_STRUCT_BATCH, LazyFlatBlocks,
+                                        localize_neighbors, streaming_kmeans_blocks)
 from repro_torch.device import resolve_device
 
 from .blocks import BlockStructure, build_blocks, scale_inputs
@@ -54,22 +65,42 @@ class Prediction:
 
 @dataclass
 class TrainIndex:
-    """Host-side training-set structure reused across prediction chunks."""
+    """Host-side training-set structure reused across prediction chunks.
 
-    x: np.ndarray          # (n, d) raw training inputs
-    y: np.ndarray          # (n,) training observations
-    xs: np.ndarray         # (n, d) scaled inputs
+    In-core indexes hold the raw and scaled arrays; store-backed indexes
+    (``build_train_index(..., stream_chunk=)`` or a store) hold lazy row
+    views with ``xs=None``, the store, and the scaled-domain volume the
+    filtered kNN needs."""
+
+    x: np.ndarray          # (n, d) raw training inputs (or lazy row view)
+    y: np.ndarray          # (n,) training observations (or lazy row view)
+    xs: np.ndarray | None  # (n, d) scaled inputs; None when store-backed
     beta: np.ndarray       # (d,) structure scaling
     blocks: BlockStructure # coarse blocks for the filtered kNN
-    flat: _FlatBlocks      # flattened block members, built once
+    flat: _FlatBlocks | None = None  # flattened block members, built once
+    store: object = None             # row store behind a streaming index
     domain_volume: float | None = None
 
 
 def build_train_index(x_train, y_train, beta, m_pred: int, n_workers: int = 1,
                       seed: int = 0, stream_chunk: int | None = None) -> TrainIndex:
-    """Scale + coarse-block the training set once; reused per chunk."""
-    if stream_chunk is not None:
-        raise NotImplementedError("store-backed (streaming) training indexes are not ported")
+    """Scale + coarse-block the training set once; reused per chunk.
+
+    A row store as ``x_train`` (``y_train=None``) and/or ``stream_chunk``
+    builds the out-of-core index: mini-batch k-means passes over the store
+    at the fixed structure batch (the index does not depend on the
+    caller's window), and a flat index that gathers candidates from the
+    store through a bounded cache. In-core arrays with ``stream_chunk`` run
+    the same code over a ``MemoryStore``, so the two agree bitwise."""
+    if is_store(x_train) or stream_chunk is not None:
+        store = as_store(x_train, y_train)
+        beta = np.broadcast_to(np.asarray(beta, dtype=np.float64), (store.d,))
+        bc_train = max(1, store.n_rows // max(4 * m_pred, 64))
+        blocks, radii, vol = streaming_kmeans_blocks(store, beta, bc_train, n_workers=n_workers,
+                                                     seed=seed, batch_rows=DEFAULT_STRUCT_BATCH)
+        return TrainIndex(x=store.x_rows, y=store.y_rows, xs=None, beta=beta, blocks=blocks,
+                          flat=LazyFlatBlocks(blocks, radii, store, beta), store=store,
+                          domain_volume=vol)
     x_train = np.asarray(x_train, dtype=np.float64)
     y_train = np.asarray(y_train, dtype=np.float64)
     beta = np.broadcast_to(np.asarray(beta, dtype=np.float64), (x_train.shape[1],))
@@ -105,10 +136,16 @@ def pack_queries(index: TrainIndex, x_test, bs_pred: int, m_pred: int, alpha: fl
     test_blocks = build_blocks(xs_test, bc_pred, n_workers, index.beta, seed=seed + 1)
     neigh = filtered_knn_points(index.xs, index.blocks, test_blocks.centers, m_pred, alpha,
                                 flat=index.flat, domain_volume=index.domain_volume)
+    if index.store is not None:
+        # Gather the union of the neighbour rows once and remap (values and
+        # order kept: the packed arrays are bit-identical).
+        x_tr, y_tr, neigh = localize_neighbors(index.store, neigh)
+    else:
+        x_tr, y_tr = index.x, index.y
     bs_max = max(mb.size for mb in test_blocks.members)
     if pad_shapes:
         bs_max = round_up(bs_max, 8)
-    packed = pack_prediction(x_test, index.x, index.y, test_blocks, neigh, m_pred,
+    packed = pack_prediction(x_test, x_tr, y_tr, test_blocks, neigh, m_pred,
                              bs_max=bs_max, dtype=dtype)
     if offset:
         packed.q_idx[packed.q_mask] += offset
@@ -122,13 +159,22 @@ def iter_query_chunks(index: TrainIndex, x_test, bs_pred: int, m_pred: int,
                       chunk_size: int | None = None, dtype=np.float64):
     """Yield ``(chunk_id, PackedPrediction)`` over the test set, with the
     reference's chunking protocol: step clamped to >= bs_pred, per-chunk
-    seed, scatter offsets, padded shapes in chunked mode."""
-    x_test = np.asarray(x_test, dtype=np.float64)
-    n_test = x_test.shape[0]
+    seed, scatter offsets, padded shapes in chunked mode. ``x_test`` may be
+    a row store, read one window at a time (``chunk_size`` is then
+    required)."""
+    if is_store(x_test):
+        if chunk_size is None:
+            raise ValueError("x_test is a store: pass chunk_size to bound the per-window read")
+        n_test = x_test.n_rows
+        window = lambda a, b: x_test.read_slice(a, b)[0]
+    else:
+        x_test = np.asarray(x_test, dtype=np.float64)
+        n_test = x_test.shape[0]
+        window = lambda a, b: x_test[a:b]
     step = n_test if chunk_size is None else max(int(chunk_size), bs_pred)
     for ci, start in enumerate(range(0, n_test, step)):
         stop = min(n_test, start + step)
-        yield ci, pack_queries(index, x_test[start:stop], bs_pred, m_pred, alpha=alpha,
+        yield ci, pack_queries(index, window(start, stop), bs_pred, m_pred, alpha=alpha,
                                seed=seed + ci, n_workers=n_workers, offset=start,
                                pad_shapes=chunk_size is not None, dtype=dtype)
 
@@ -322,12 +368,19 @@ def predict_sbv(
     outputs); every result is then (n_test, p). An (n, 1) ``y_train`` runs
     the single-output path and returns (n_test, 1) results.
 
-    Streaming indexes, tuning records and multi-host sharding are not
-    ported yet and raise ``NotImplementedError``."""
-    for name, val in (("stream_chunk", stream_chunk), ("tuning", tuning),
-                      ("multihost", multihost)):
+    Out of core: ``x_train`` (with ``y_train=None``) and/or ``x_test`` may
+    be row stores, and ``stream_chunk`` selects the streaming training index
+    (``build_train_index``); in-core arrays with ``stream_chunk`` take the
+    identical code, so store-backed and in-core streaming predictions agree
+    bitwise. A store ``x_test`` without ``chunk_size`` is read in windows of
+    ``stream_chunk`` rows.
+
+    Tuning records and multi-host sharding are not ported yet and raise
+    ``NotImplementedError`` (ROADMAP queue 1 items 11 and 10)."""
+    for name, val, item in (("tuning", tuning, 11), ("multihost", multihost, 10)):
         if val is not None:
-            raise NotImplementedError(f"predict_sbv({name}=) is not ported yet")
+            raise NotImplementedError(f"predict_sbv({name}=) is not ported yet "
+                                      f"(ROADMAP queue 1 item {item})")
     tier = None
     if precision is not None:
         from .buckets import acc_dtype, as_policy
@@ -336,13 +389,19 @@ def predict_sbv(
         if pol.tier != "f64":
             tier = pol.tier
             dtype = acc_dtype(tier)  # queries pack at the accumulation width
-    y_train = np.asarray(y_train)
     n_outputs = 1
-    squeeze_back = y_train.ndim == 2 and y_train.shape[1] == 1
-    if squeeze_back:
-        y_train = y_train[:, 0]
-    elif y_train.ndim == 2:
-        n_outputs = y_train.shape[1]
+    squeeze_back = False
+    if is_store(x_train):
+        y0 = np.asarray(as_store(x_train, y_train).read_slice(0, 1)[1])
+        if y0.ndim == 2:
+            n_outputs = y0.shape[1]
+    else:
+        y_train = np.asarray(y_train)
+        squeeze_back = y_train.ndim == 2 and y_train.shape[1] == 1
+        if squeeze_back:
+            y_train = y_train[:, 0]
+        elif y_train.ndim == 2:
+            n_outputs = y_train.shape[1]
     dev = resolve_device(device)
     params = type(params)(*(torch.as_tensor(a).to(dev) for a in params))
     if n_outputs > 1:
@@ -350,9 +409,15 @@ def predict_sbv(
     elif isinstance(params, MultiOutputParams):
         params = params.output_params(0)
     beta = params.beta.detach().cpu().numpy() if beta_struct is None else beta_struct
-    x_test = np.asarray(x_test, dtype=np.float64)
-    n_test = x_test.shape[0]
-    index = build_train_index(x_train, y_train, np.asarray(beta), m_pred, n_workers, seed)
+    if is_store(x_test):
+        n_test = x_test.n_rows
+        if chunk_size is None:
+            chunk_size = stream_chunk  # bound the test-window reads too
+    else:
+        x_test = np.asarray(x_test, dtype=np.float64)
+        n_test = x_test.shape[0]
+    index = build_train_index(x_train, y_train, np.asarray(beta), m_pred, n_workers, seed,
+                              stream_chunk=stream_chunk)
 
     out_shape = (n_test,) if n_outputs == 1 else (n_test, n_outputs)
     mean, var, sim_mean, sim_std = (np.zeros(out_shape) for _ in range(4))

@@ -25,6 +25,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .kernels_math import KernelParams, cast_params, matern
 
@@ -117,6 +118,85 @@ def block_loglik(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_ma
     diag = torch.diagonal(chol_new, dim1=-2, dim2=-1)
     logdet = 2.0 * torch.sum(torch.where(blk_mask, torch.log(diag), zero), dim=-1)
     return -0.5 * n_real * _LOG2PI - 0.5 * logdet - 0.5 * torch.sum(v * v, dim=-1)
+
+
+def block_multi_stats(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                      nu: float = 3.5):
+    """Per-block ``(logdet0 (bc,), q0 (bc, p))`` from one Cholesky each.
+
+    The joint-assembly form (the reference's ``_block_multi_stats_one``,
+    and with p = 1 its ``_block_loglik_joint_one``): the (m + bs)
+    covariance of [NN; B] is factored once and the masked (m + bs, p)
+    observations go through one triangular solve; with L = [[L11, 0],
+    [L21, L22]], Sigma_new = L22 L22^T and L22^-1 (y_B - mu) is the tail of
+    L^-1 [y_NN; y_B]. With ``sigma2 = 1, nugget = tau2`` these are the
+    multi-output unit-variance stats. A block that is not positive
+    definite gives NaN, as in the reference."""
+    blk_mask = blk_mask.bool()
+    nn_mask = nn_mask.bool()
+    m = nn_x.shape[-2]
+    x = torch.cat([nn_x, blk_x], dim=-2)
+    mask = torch.cat([nn_mask, blk_mask], dim=-1)
+    zero = torch.zeros((), dtype=blk_y.dtype, device=blk_y.device)
+    yv = torch.cat([torch.where(nn_mask[..., None], nn_y, zero),
+                    torch.where(blk_mask[..., None], blk_y, zero)], dim=-2)
+    sigma = _masked_cov(x, x, mask, mask, beta, sigma2, nugget, nu, identity=True)
+    chol = _cholesky(sigma)
+    vb = _solve_lower(chol, yv)[..., m:, :]
+    diag = torch.diagonal(chol, dim1=-2, dim2=-1)[..., m:]
+    logdet0 = 2.0 * torch.sum(torch.where(blk_mask, torch.log(diag), zero), dim=-1)
+    return logdet0, torch.sum(vb * vb, dim=-2)
+
+
+def block_loglik_joint(beta, sigma2, nugget, blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask,
+                       nu: float = 3.5) -> torch.Tensor:
+    """Per-block log-densities (bc,) in the joint-assembly form: the same
+    value as ``block_loglik`` from one factorization instead of the chain
+    chol -> solve -> Schur -> chol."""
+    logdet, q = block_multi_stats(beta, sigma2, nugget, blk_x, blk_y[..., None], blk_mask, nn_x,
+                                  nn_y[..., None], nn_mask, nu=nu)
+    n_real = blk_mask.bool().sum(dim=-1).to(blk_y.dtype)
+    return -0.5 * n_real * _LOG2PI - 0.5 * logdet - 0.5 * q[..., 0]
+
+
+def batched_block_loglik_joint(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                               nn_mask, nu: float = 3.5) -> torch.Tensor:
+    """Joint-assembly batched likelihood (same value as
+    ``batched_block_loglik``)."""
+    return block_loglik_joint(params.beta, params.sigma2, params.nugget, blk_x, blk_y,
+                              blk_mask, nn_x, nn_y, nn_mask, nu=nu).sum()
+
+
+# Blocks per checkpointed slice of the remat forms (the reference's
+# ``lax.map`` batch, ``_MAP_BATCH`` in repro.core.fit).
+MAP_BATCH = 16
+
+
+def checkpointed_blocks(per_block_fn, arrays, batch: int = MAP_BATCH):
+    """``per_block_fn(*arrays)`` over slices of ``batch`` blocks, each under
+    ``torch.utils.checkpoint``: the backward recomputes one slice at a time
+    from its inputs, so the live set is a few ``batch x (bs+m)^2`` buffers
+    however many blocks there are. Returns the per-block outputs
+    concatenated (a tuple of them when ``per_block_fn`` returns a tuple)."""
+    bc = arrays[0].shape[0]
+    parts = [checkpoint(per_block_fn, *(a[s:s + batch] for a in arrays), use_reentrant=False)
+             for s in range(0, bc, batch)]
+    if isinstance(parts[0], tuple):
+        return tuple(torch.cat(cols) for cols in zip(*parts))
+    return torch.cat(parts)
+
+
+def batched_block_loglik_joint_remat(params: KernelParams, blk_x, blk_y, blk_mask, nn_x, nn_y,
+                                     nn_mask, nu: float = 3.5,
+                                     batch: int = MAP_BATCH) -> torch.Tensor:
+    """Joint assembly with a checkpointed body (the reference's
+    ``batched_block_loglik_joint_remat`` under ``lax.map(batch_size=16)``):
+    the streaming ``ref`` route's likelihood of one spooled piece."""
+    beta, sigma2, nugget = params.beta, params.sigma2, params.nugget
+    per_block = checkpointed_blocks(
+        lambda *a: block_loglik_joint(beta, sigma2, nugget, *a, nu=nu),
+        (blk_x, blk_y, blk_mask, nn_x, nn_y, nn_mask), batch)
+    return per_block.sum()
 
 
 # -- the bf16-assembly tier (the Pallas kernels' narrow form) ---------------

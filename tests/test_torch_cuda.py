@@ -1123,3 +1123,81 @@ def test_exact_functions_run_on_cuda_and_match_cpu(dev):
         assert g.is_cuda
         scale = max(1.0, float(c.abs().max()))
         torch.testing.assert_close(g.cpu(), c, rtol=tol, atol=tol * scale)
+
+
+# -- the streaming (out-of-core) fit on the card ------------------------------
+
+
+def _stream_fit(dev, **kw):
+    from repro_torch.core.fit import fit_sbv
+
+    x, y, _ = _data(n=1500, d=4, seed=41)
+    return fit_sbv(x, y, SBVConfig(n_blocks=24, m=20, seed=0), inner_steps=3, outer_rounds=2,
+                   stream_chunk=300, device=dev, **kw)
+
+
+def _fits_equal(a, b):
+    return ([h[2] for h in a.history] == [h[2] for h in b.history]
+            and all(torch.equal(u, v) for u, v in zip(a.params, b.params)))
+
+
+def test_streaming_device_tier_matches_disk_tier_bitwise(dev):
+    """Pieces resident on the card all round against pieces staged from disk
+    through pinned memory and the spool's copy stream every step: the same
+    fit, bit for bit; each step launches the kernel once per piece."""
+    ops.reset_launch_counts()
+    on_dev = _stream_fit(dev, device_cache=1 << 30, prefetch=0)
+    s = on_dev.stream_stats
+    assert s["n_pieces"] > 3 and s["device_cached_pieces"] == s["n_pieces"]
+    assert ops.launch_counts()["sbv_loglik"] == 2 * 3 * s["n_pieces"]
+    disk = _stream_fit(dev, device_cache=0, prefetch=0)
+    assert disk.stream_stats["h2d_bytes_per_step"] == disk.stream_stats["spool_bytes"]
+    assert on_dev.params.log_beta.is_cuda and _fits_equal(on_dev, disk)
+
+
+def test_streaming_prefetch_matches_synchronous_bitwise(dev):
+    """The copy thread stages disk pieces two ahead on its own stream; the
+    consumer waits on each copy's event. Against the synchronous loop, and
+    a mixed-tier spool against both."""
+    sync = _stream_fit(dev, device_cache=0, prefetch=0)
+    pre = _stream_fit(dev, device_cache=0, prefetch=2)
+    half = _stream_fit(dev, device_cache=sync.stream_stats["spool_bytes"] // 2, prefetch=2)
+    assert 0 < half.stream_stats["device_cached_pieces"] < half.stream_stats["n_pieces"]
+    assert _fits_equal(pre, sync) and _fits_equal(half, sync)
+
+
+def test_device_cache_budget_within_free_memory(dev):
+    from repro_torch.data.streaming import device_cache_budget
+
+    free, total = torch.cuda.mem_get_info(dev)
+    budget = device_cache_budget(device=dev)
+    reserved = device_cache_budget(frac=0.5, reserve_bytes=1 << 30, device=dev)
+    free_after = torch.cuda.mem_get_info(dev)[0]
+    assert 0 < budget <= max(free, free_after) <= total
+    assert reserved <= max(0, max(free, free_after) // 2 - (1 << 30))
+    assert device_cache_budget(reserve_bytes=2 * total, device=dev) == 0
+    auto = _stream_fit(dev).stream_stats
+    assert auto["device_cached_pieces"] == auto["n_pieces"]
+    assert 0 < auto["device_cache_budget"] <= free
+
+
+def test_bf16_piece_spool_round_trip_on_cuda(dev, tmp_path):
+    """A bf16-cast piece spooled to disk (uint16 under ``__bf16__``) and
+    staged back to the card through pinned memory: every array bitwise."""
+    from repro_torch.core.buckets import cast_packed
+    from repro_torch.data.streaming import PackedChunkSpool
+
+    x, y, beta = _data(n=600, d=4, seed=42)
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=12, m=20))
+    piece = cast_packed(packed, "bf16")
+    keys = ("blk_x", "blk_y", "blk_mask", "nn_x", "nn_y", "nn_mask")
+    for budget in (0, 1 << 30):
+        sp = PackedChunkSpool(str(tmp_path / f"sp{budget}"), device_budget=budget, device=dev)
+        sp.add(piece)
+        sp.add(piece)
+        for prefetch in (0, 2):
+            for arrs, _ in sp.iter_arrays(prefetch=prefetch):
+                for a, k in zip(arrs, keys):
+                    want = torch.as_tensor(getattr(piece, k))
+                    assert a.is_cuda and a.dtype == want.dtype and torch.equal(a.cpu(), want), k
+        sp.cleanup()

@@ -86,7 +86,8 @@ def test_entry_points_refuse_without_device_when_no_cuda(monkeypatch):
         predict_sbv(KernelParams.create(beta=[0.5, 0.5]), x, y, x[:5], bs_pred=2, m_pred=4)
 
 
-@pytest.mark.parametrize("kw", [{"distributed": object()}, {"stream_chunk": 10},
+@pytest.mark.parametrize("kw", [{"distributed": object()},
+                                {"stream_chunk": 10, "distributed": object()},
                                 {"tuning": object()}, {"multihost": object()}])
 def test_unported_options_raise(kw):
     from repro_torch.core import SBVConfig

@@ -227,9 +227,9 @@ def test_convert_round_trips_and_params_api(problem):
         mo.as_multi_params(object(), 3, 3)
 
 
-@pytest.mark.parametrize("kw", [{"tuning": object()}, {"stream_chunk": 100},
-                                {"device_cache": 2}, {"multihost": object()},
-                                {"distributed": object()}])
+@pytest.mark.parametrize("kw", [{"tuning": object()}, {"stream_chunk": 100, "n_buckets": 2},
+                                {"stream_chunk": 100, "device_cache": 2, "multihost": object()},
+                                {"multihost": object()}, {"distributed": object()}])
 def test_multi_unported_options_raise(problem, kw):
     x, y, _, _, _ = problem
     with pytest.raises(NotImplementedError):
