@@ -23,6 +23,16 @@ path once through the user entry points:
   memory and host RSS beside their models, the multi-output streaming fit
   (p = 32, n = 50,000, 1 x 2) and ``predict_sbv`` from the store (20,000
   points; the store-backed against the in-core streaming one on 2,000);
+* distributed (paper Alg. 1) and multi-host (Alg. 2), on the streaming
+  store: ``fit_sbv(distributed=(make_worker_mesh(4), "workers"))`` in core
+  (1 x 3, the 4 workers sharing the card) with its loss and gradient and a
+  bucketed evaluation against the serial ones, one 25,000-point prediction
+  chunk over 4 shards against the serial chunk, the streaming fit over the
+  mesh against the streaming phase's serial fit, ``python -m
+  repro_torch.launch.fit_gp --distributed-hosts 2`` (2 rank processes on
+  the card, gloo) against that fit, and ``predict_sbv(multihost=)`` on 2
+  ranks (this script's ``--predict-rank`` mode) against the serial
+  prediction of 20,000 points;
 * the batched covariance kernel at B = 256 (the joint points of 256
   multi-output blocks) beside its earlier row-wise design and a ``fill_`` of
   the same bytes, its store paths and edges, and ``kernels.ops.matern_cov``
@@ -107,6 +117,10 @@ N_EXACT, BS_EXACT, M_EXACT = 20_000, 10, 30
 STREAM_CHUNK, STREAM_INNER = 65_536, 3
 N_MULTI_STREAM, MULTI_STREAM_INNER = 50_000, 2
 N_STREAM_TEST, STREAM_PRED_CHUNK, N_STREAM_BITWISE = 20_000, 10_000, 2_000
+# The distributed phase: the in-core and streaming fits over 4 workers and
+# the multi-host fit and prediction on 2 rank processes, all on the one
+# card; each rank's wall-clock limit and the rendezvous timeout.
+N_WORKERS, DIST_INNER, N_RANKS, N_MH_TEST, RANK_TIMEOUT = 4, 3, 2, 20_000, 400
 
 
 class SmokeFailure(RuntimeError):
@@ -1261,13 +1275,15 @@ def grad_gap(got, want) -> float:
 
 
 def streaming_phase(dev, results: dict, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cfg, init,
-                    true_p, t_step_incore: float) -> dict:
-    """The out-of-core path: the training set in an on-disk ``ArrayStore``,
-    the streaming structure, the spool's tiers held bitwise against each
-    other, one piece against many, ``fit_sbv(store, None, ...)`` with its
-    device memory and host RSS beside their models, the multi-output
-    streaming fit at p = 32, and the store-backed prediction. Returns the
-    launches of its three path runs (the fits and the prediction)."""
+                    true_p, t_step_incore: float, store_dir: str) -> dict:
+    """The out-of-core path: the training set in an on-disk ``ArrayStore``
+    at ``store_dir`` (kept for the distributed phase), the streaming
+    structure, the spool's tiers held bitwise against each other, one piece
+    against many, ``fit_sbv(store, None, ...)`` with its device memory and
+    host RSS beside their models, the multi-output streaming fit at
+    p = 32, and the store-backed prediction. Returns the launches of its
+    three path runs (the fits and the prediction); ``results['streaming']``
+    keeps the fit's history and device cache for the distributed phase."""
     import shutil
     import tempfile
 
@@ -1292,7 +1308,7 @@ def streaming_phase(dev, results: dict, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cf
     try:
         # 29. The training set on disk (default shards of 131,072 rows).
         t = time.perf_counter()
-        store = ArrayStore.from_arrays(os.path.join(tmp, "train"), x_tr, y_tr)
+        store = ArrayStore.from_arrays(store_dir, x_tr, y_tr)
         log(f"phase streaming store: {time.perf_counter() - t:.2f} s to write n={store.n_rows} "
             f"d={store.d} in {store.n_shards} shards")
 
@@ -1510,6 +1526,7 @@ def streaming_phase(dev, results: dict, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cf
             + f"; in-core model {ws['incore_total'] / 1e6:.1f} MB)")
         check(rss_delta is not None and rss_delta < 2 * ws["total"],
               f"streaming fit: RSS delta {rss_delta} B not below 2 x {ws['total']} B")
+        out.update(history=fit.history, device_cache=spool_bytes // 2)
         out.update(fit_s=t_fit, step_s=step_s, peak_device_bytes=peak, room_bytes=room,
                    peak_sets=sets, rss_delta=rss_delta, working_set_host=ws["total"],
                    n_pieces=s["n_pieces"])
@@ -1705,6 +1722,341 @@ def streaming_phase(dev, results: dict, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cf
     return {"sbv_loglik": fit_launches["sbv_loglik"],
             "sbv_multi_stats": multi_launches["sbv_multi_stats"],
             "sbv_predict": pred_launches["sbv_predict"]}
+
+
+def _gap(got, want) -> float:
+    """Largest relative difference of a loss and its gradient leaves."""
+    v = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+    return max(v, grad_gap(got[1], want[1]))
+
+
+def predict_rank(work: str) -> int:
+    """One rank of the phase's multi-host prediction (``python3 chip_smoke.py
+    --predict-rank DIR``, started by ``multihost.spawn_ranks``): the
+    training set from the store in ``DIR/train``, the queries, params and
+    keyword arguments (device included) from ``DIR``, then
+    ``predict_sbv(multihost=)``; writes its results, launches and seconds
+    to ``DIR/pred.rank<r>.npz``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core.kernels_math import KernelParams
+    from repro_torch.data.store import ArrayStore
+    from repro_torch.kernels import ops
+    from repro_torch.multihost import MultihostContext
+
+    ctx = MultihostContext.from_env()
+    store = ArrayStore(os.path.join(work, "train"))
+    x, y = store.read_slice(0, store.n_rows)
+    xq = np.load(os.path.join(work, "xq.npy"))
+    with np.load(os.path.join(work, "params.npz")) as z:
+        params = KernelParams(*(torch.as_tensor(z[k]) for k in KernelParams._fields))
+    with open(os.path.join(work, "predict.json")) as f:
+        kw = json.load(f)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    pred = tpredict.predict_sbv(params, x, y, xq, multihost=ctx, **kw)
+    if torch.device(kw["device"]).type == "cuda":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    np.savez(os.path.join(work, f"pred.rank{ctx.rank}.npz"), seconds=secs,
+             allreduce_s=ctx.allreduce_s, launches=ops.launch_counts()["sbv_predict"],
+             **{f: getattr(pred, f) for f in ("mean", "var", "sim_mean", "ci_low", "ci_high")})
+    ctx.shutdown()
+    return 0
+
+
+def distributed_phase(dev, results: dict, x_tr, y_tr, x_te, cfg, init, true_p, index,
+                      work: str) -> dict:
+    """Paper Alg. 1 steps 4-5 and Alg. 2 on the one card: the in-core fit
+    over a 4-worker mesh (``fit_sbv(distributed=)``, every worker on the
+    card), its loss and gradient and a bucketed evaluation against the
+    serial ones, one prediction chunk over 4 shards against the serial
+    chunk, the streaming fit over the mesh against the streaming phase's
+    serial fit, then the multi-host fit (``fit_gp --distributed-hosts 2``)
+    and the multi-host prediction on 2 rank processes sharing the card.
+    ``work`` holds the streaming phase's store (``work/train``). Returns
+    the launches of the parent's path runs and each rank's."""
+    import torch
+
+    from repro_torch.core import buckets
+    from repro_torch.core import distributed as dist
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core import vecchia
+    from repro_torch.core.fit import _value_and_grad, fit_sbv, neg_loglik_fn
+    from repro_torch.core.pipeline import SBVConfig
+    from repro_torch.core.vecchia import bucketed_loglik
+    from repro_torch.data.store import ArrayStore
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sbv_predict import sbv_predict_plain
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.multihost import spawn_ranks
+
+    out = {}
+    store_dir = os.path.join(work, "train")
+    mesh = make_worker_mesh(N_WORKERS)
+    cfg_w = SBVConfig(n_blocks=cfg.n_blocks, m=cfg.m, seed=cfg.seed, n_workers=N_WORKERS)
+    log(f"worker mesh: {N_WORKERS} workers on {sorted(set(map(str, mesh.devices)))}")
+
+    # 36. The in-core fit over the mesh, through the user entry point.
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit = fit_sbv(x_tr, y_tr, cfg_w, init=init, distributed=(mesh, "workers"), outer_rounds=1,
+                  inner_steps=DIST_INNER, device=dev)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t
+    fit_launches = ops.launch_counts()
+    losses = [h[2] for h in fit.history]
+    log(f"phase distributed fit: {t_fit:.2f} s (1 round x {DIST_INNER} steps over {N_WORKERS} "
+        f"workers, preprocess included); losses {losses}; launches {fit_launches}")
+    check(len(losses) == DIST_INNER and all(math.isfinite(v) for v in losses),
+          "distributed fit: missing or non-finite losses")
+    check(fit_launches["sbv_loglik"] == N_WORKERS * DIST_INNER,
+          f"distributed fit: loglik kernel launched {fit_launches['sbv_loglik']} times, "
+          f"expected workers x steps = {N_WORKERS * DIST_INNER}")
+
+    # 37. Loss and gradient at the initial params, 4 shards against the
+    # serial closure on the same packed structure, timed in turns.
+    packed = fit.packed
+    p0 = init.to(device=dev)
+    serial_fn = neg_loglik_fn(packed, 3.5, "auto", device=dev)
+    dist_fn = dist.distributed_neg_loglik_fn(packed, 3.5, mesh, "workers")
+    evals, secs = {}, {"serial": [], "mesh": []}
+    for label in ("serial", "mesh", "mesh", "serial"):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        evals[label] = _value_and_grad(serial_fn if label == "serial" else dist_fn, p0)
+        torch.cuda.synchronize()
+        secs[label].append(time.perf_counter() - t)
+        if label == "mesh":
+            n_launch = ops.launch_counts()["sbv_loglik"]
+            check(n_launch == N_WORKERS,
+                  f"distributed evaluation: {n_launch} loglik launches, expected {N_WORKERS}")
+    rel = _gap(evals["mesh"], evals["serial"])
+    log(f"distributed loss and gradient at the initial params ({packed.n_blocks} blocks, "
+        f"{N_WORKERS} shards of {-(-packed.n_blocks // N_WORKERS)}): max rel gap to the serial "
+        f"closure {rel:.3e}; step (value + gradient) serial {secs['serial']} s, mesh "
+        f"{secs['mesh']} s; the fit's first loss {losses[0]!r} vs {float(evals['mesh'][0])!r}")
+    check(rel <= 1e-12, f"distributed vs serial loss/gradient rel {rel:.3e} > 1e-12")
+    check(abs(losses[0] - float(evals["mesh"][0])) <= 1e-12 * abs(losses[0]),
+          "distributed fit: first loss differs from the checked evaluation")
+    # The 4-worker structure's loss and gradient through the plain version
+    # (what neg_loglik_fn(packed, 3.5, "ref") differentiates), in 500-block
+    # pieces: the whole batch at once would hold ~35 GB of intermediates.
+    arrs_p = vecchia.packed_arrays(packed, dev)
+    t = time.perf_counter()
+    ref_loss = ref_grad = None
+    for s0 in range(0, packed.n_blocks, 500):
+        piece = tuple(a[s0:s0 + 500] for a in arrs_p)
+        v, g = _value_and_grad(
+            lambda p: -vecchia.batched_block_loglik(p, *piece) / packed.n_points, p0)
+        ref_loss = v if ref_loss is None else ref_loss + v
+        ref_grad = g if ref_grad is None else tuple(a + b for a, b in zip(ref_grad, g))
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t
+    rel_ref = _gap(evals["mesh"], (ref_loss, ref_grad))
+    log(f"distributed loss and gradient vs the plain version on the same {packed.n_blocks} "
+        f"blocks (bs_max={packed.bs_max}, m={packed.m}; {t_ref:.2f} s): max rel {rel_ref:.3e}")
+    check(rel_ref <= 1e-10, f"distributed vs plain loss/gradient rel {rel_ref:.3e} > 1e-10")
+    out.update(fit_s=t_fit, step_serial_s=secs["serial"], step_mesh_s=secs["mesh"], rel=rel,
+               rel_plain=rel_ref)
+    del serial_fn, dist_fn, evals, arrs_p, ref_grad
+    torch.cuda.empty_cache()
+
+    # 38. One bucketed evaluation over the mesh against the serial one.
+    bk = buckets.bucket_blocks(packed, n_buckets=N_BUCKETS)
+    with torch.no_grad():
+        want = bucketed_loglik(p0, bk)
+        ops.reset_launch_counts()
+        got = dist.distributed_bucketed_loglik(p0, bk, mesh)
+        torch.cuda.synchronize()
+        bk_launches = ops.launch_counts()["sbv_loglik"]
+        want_ref = bucketed_loglik(p0, bk, backend="ref")
+    rel_b = abs(float(got) - float(want)) / abs(float(want))
+    rel_br = abs(float(got) - float(want_ref)) / abs(float(want_ref))
+    log(f"distributed bucketed evaluation ({bk.n_buckets} buckets x {N_WORKERS} shards, "
+        f"{bk_launches} launches): rel {rel_b:.3e} to the serial bucketed loglik, "
+        f"{rel_br:.3e} to its plain version")
+    check(rel_b <= 1e-12, f"distributed bucketed vs serial rel {rel_b:.3e} > 1e-12")
+    check(rel_br <= 1e-10, f"distributed bucketed vs plain rel {rel_br:.3e} > 1e-10")
+    out.update(bucketed_rel=rel_b, bucketed_rel_plain=rel_br)
+    check(bk_launches == bk.n_buckets * N_WORKERS,
+          f"distributed bucketed: {bk_launches} launches, expected {bk.n_buckets * N_WORKERS}")
+    del bk, packed, fit
+    torch.cuda.empty_cache()
+
+    # 39. One 25,000-point prediction chunk over 4 shards against the
+    # serial chunk (owners from a 4-worker blocking of the queries).
+    _, chunk = next(tpredict.iter_query_chunks(index, x_te, BS_PRED, M_PRED, seed=SEED,
+                                               n_workers=N_WORKERS, chunk_size=CHUNK))
+    arrs = tuple(torch.as_tensor(a).to(dev) for a in chunk.arrays())
+    n_q = chunk.n_queries
+
+    def scattered(pk, mu, var):
+        m_, v_ = np.zeros(N_TEST), np.zeros(N_TEST)
+        tpredict.scatter_packed(pk, (mu, m_), (var, v_))
+        return m_, v_
+
+    m_s, v_s = scattered(chunk, *tpredict.batched_block_predict(true_p, *arrs))
+    ops.reset_launch_counts()
+    sharded, mu, var = dist.sharded_packed_predict(true_p, chunk, mesh)
+    torch.cuda.synchronize()
+    pr_launches = ops.launch_counts()["sbv_predict"]
+    m_d, v_d = scattered(sharded, mu, var)
+    p_err = max(float(np.abs(m_d - m_s).max()), float(np.abs(v_d - v_s).max()))
+    bitwise = bool(np.array_equal(m_d, m_s) and np.array_equal(v_d, v_s))
+    sh_ms = cuda_ms(lambda: dist.sharded_packed_predict(true_p, chunk, mesh))
+    se_ms = cuda_ms(lambda: tpredict.batched_block_predict(true_p, *arrs))
+    log(f"sharded prediction chunk ({chunk.n_blocks} blocks, {n_q} points, {N_WORKERS} shards, "
+        f"{pr_launches} launches): bitwise {bitwise}, max abs err {p_err:.3e}; "
+        f"{sh_ms:.3f} ms (reorder and gather included) against one launch {se_ms:.3f} ms")
+    check(p_err <= 1e-12, f"sharded prediction vs serial err {p_err:.3e} > 1e-12")
+    check(pr_launches == N_WORKERS, f"sharded prediction: {pr_launches} launches")
+    # The sharded chunk's kernel outputs against the plain version on its
+    # own (reordered, padded) arrays, within the main path's limit at the
+    # true params: 10 eps cond(K_NN) of the output scale.
+    s_arrs = tuple(torch.as_tensor(a).to(dev) for a in sharded.arrays())
+    pr_t = (true_p.beta.double(), true_p.sigma2.double(), true_p.nugget.double())
+    want_p = sbv_predict_plain(*pr_t, *s_arrs)
+    msk = s_arrs[1]
+    nn_m = s_arrs[4].bool()
+    ev = torch.linalg.eigvalsh(vecchia._masked_cov(s_arrs[2], s_arrs[2], nn_m, nn_m, *pr_t, 3.5,
+                                                   identity=True))
+    cond = float((ev[:, -1] / ev[:, 0]).max())
+    scale = max(1.0, max(float(w.abs()[msk].max()) for w in want_p))
+    errs_pl = [float((g - w).abs()[msk].max()) for g, w in zip((mu, var), want_p)]
+    tol = max(1e-10, 10 * 2.2e-16 * cond)
+    log(f"sharded prediction chunk vs the plain version on its arrays: max abs err mu/var "
+        f"{errs_pl[0]:.3e}/{errs_pl[1]:.3e} (|out| max {scale:.3g}, max cond(K_NN) {cond:.3e}, "
+        f"limit {tol:.1e} x {scale:.3g})")
+    check(max(errs_pl) <= tol * scale,
+          f"sharded prediction vs plain err {max(errs_pl):.3e} > {tol:.1e} x {scale:.3g}")
+    out.update(predict_bitwise=bitwise, predict_err=p_err, sharded_ms=sh_ms, serial_ms=se_ms,
+               predict_err_plain=errs_pl)
+    del arrs, mu, var, s_arrs, want_p, ev
+    torch.cuda.empty_cache()
+
+    # 40. The streaming fit over the mesh, against the streaming phase's
+    # serial fit of the same store (every piece padded to 4 shards).
+    stream = results["streaming"]
+    store = ArrayStore(store_dir)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fit_s = fit_sbv(store, None, cfg_w, init=init, stream_chunk=STREAM_CHUNK,
+                    device_cache=stream["device_cache"], inner_steps=STREAM_INNER,
+                    outer_rounds=1, distributed=(mesh, "workers"), device=dev)
+    torch.cuda.synchronize()
+    t_fs = time.perf_counter() - t
+    s_launches = ops.launch_counts()
+    st_ = fit_s.stream_stats
+    hist = [h[2] for h in fit_s.history]
+    ser = [h[2] for h in stream["history"]]
+    rel_s = max(abs(a - b) / abs(b) for a, b in zip(hist, ser))
+    want = st_["n_pieces"] * N_WORKERS * STREAM_INNER
+    log(f"phase distributed streaming fit: {t_fs:.2f} s ({st_['n_pieces']} pieces x "
+        f"{N_WORKERS} shards, {st_['inner_time_s'] / STREAM_INNER:.3f} s per step beside the "
+        f"serial {stream['step_s']:.3f} s); history {hist} vs serial {ser}: max rel {rel_s:.3e}; "
+        f"launches {s_launches}")
+    check(len(hist) == len(ser) and rel_s <= 1e-10,
+          f"distributed streaming history vs serial rel {rel_s:.3e} > 1e-10")
+    check(s_launches["sbv_loglik"] == want,
+          f"distributed streaming fit: {s_launches['sbv_loglik']} launches, expected {want}")
+    out.update(stream_fit_s=t_fs, stream_rel=rel_s,
+               stream_step_s=st_["inner_time_s"] / STREAM_INNER)
+    del fit_s
+    torch.cuda.empty_cache()
+
+    # 41. The multi-host fit: 2 rank processes sharing the card, through
+    # the fit driver.
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT / "src"), env.get("PYTHONPATH"))
+                                        if p)
+    result = os.path.join(work, "mh.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fit_gp", "--store", store_dir,
+           "--distributed-hosts", str(N_RANKS), "--blocks", str(cfg.n_blocks),
+           "--m", str(cfg.m), "--inner-steps", str(STREAM_INNER), "--outer-rounds", "1",
+           "--stream-chunk", str(STREAM_CHUNK), "--seed", str(SEED), "--device", str(dev),
+           "--timeout", str(RANK_TIMEOUT), "--result-json", result]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=str(ROOT), env=env, capture_output=True, text=True,
+                          timeout=RANK_TIMEOUT + 60)
+    t_mh = time.perf_counter() - t
+    for line in proc.stdout.splitlines():
+        if "[fit_gp]" in line:
+            log(line)
+    check(proc.returncode == 0, f"multi-host fit failed ({proc.returncode}):\n"
+                                f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    with open(result) as f:
+        merged = json.load(f)
+    gap = abs(merged["nll"] - ser[-1])
+    log(f"phase multi-host fit: {t_mh:.2f} s for {N_RANKS} ranks (start, structure, "
+        f"{STREAM_INNER} steps); nll {merged['nll']!r}, spread {merged['max_nll_spread']!r}, "
+        f"|nll - serial streaming| {gap:.3e}")
+    rank_fit = []
+    for rk in merged["ranks"]:
+        s_ = rk["stats"]
+        log(f"multi-host rank {rk['rank']}: owned {s_['owned_rows']} rows in "
+            f"{s_['owned_blocks']} blocks (+{s_['halo_rows']} halo rows, "
+            f"{s_['halo_blocks']} blocks, {s_['halo_rounds']} rounds), exchange "
+            f"{s_['exchange_bytes'] / 1e6:.1f} MB in {s_['exchange_s']:.2f} s, "
+            f"{s_['n_pieces']} pieces ({s_['lockstep_chunks']} lockstep slots), step "
+            f"{rk['step_s']:.3f} s, fit {rk['t_fit_s']:.2f} s, all-reduce {rk['allreduce_s']:.2f} s; "
+            f"peak RSS delta {rk['peak_rss_bytes'] / 1e6:.1f} MB against host terms "
+            f"{rk['working_set_bytes'] / 1e6:.1f} MB; launches {rk['launches']}")
+        check(rk["launches"]["sbv_loglik"] > 0,
+              f"multi-host rank {rk['rank']}: no loglik kernel launch")
+        check(rk["peak_rss_bytes"] is not None
+              and rk["peak_rss_bytes"] <= 2 * rk["working_set_bytes"],
+              f"multi-host rank {rk['rank']}: peak RSS {rk['peak_rss_bytes']} B above 2 x "
+              f"{rk['working_set_bytes']} B")
+        rank_fit.append(rk["launches"]["sbv_loglik"])
+    check(merged["max_nll_spread"] == 0.0, f"multi-host spread {merged['max_nll_spread']}")
+    check(gap <= 1e-8, f"multi-host nll vs serial streaming {gap:.3e} > 1e-8")
+    out.update(mh_fit_s=t_mh, mh_gap=gap, mh_ranks=merged["ranks"])
+
+    # 42. The multi-host prediction on 2 ranks against the serial one.
+    xq = x_te[:N_MH_TEST]
+    np.save(os.path.join(work, "xq.npy"), xq)
+    np.savez(os.path.join(work, "params.npz"),
+             **{k: getattr(true_p, k).cpu().numpy() for k in type(true_p)._fields})
+    kw = dict(bs_pred=BS_PRED, m_pred=M_PRED, n_sims=N_SIMS, chunk_size=STREAM_PRED_CHUNK,
+              seed=SEED, device=str(dev))
+    with open(os.path.join(work, "predict.json"), "w") as f:
+        json.dump(kw, f)
+    t = time.perf_counter()
+    want = tpredict.predict_sbv(true_p, x_tr, y_tr, xq, **kw)
+    t_ser = time.perf_counter() - t
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--predict-rank", work],
+                        N_RANKS, timeout_s=RANK_TIMEOUT)
+    t_mhp = time.perf_counter() - t
+    for r, (code, text) in enumerate(ranks):
+        check(code == 0, f"multi-host predict rank {r} failed ({code}):\n{text[-4000:]}")
+    rank_pred = []
+    for r in range(N_RANKS):
+        with np.load(os.path.join(work, f"pred.rank{r}.npz")) as z:
+            same = [f for f in ("mean", "var") if np.array_equal(z[f], getattr(want, f))]
+            sim = max(float(np.abs(z[f] - getattr(want, f)).max())
+                      for f in ("sim_mean", "ci_low", "ci_high"))
+            log(f"multi-host predict rank {r}: {float(z['seconds']):.2f} s, launches "
+                f"{int(z['launches'])}, all-reduce {float(z['allreduce_s']):.3f} s; bitwise "
+                f"serial in {same}; simulation columns max abs diff {sim:.3e}")
+            check(len(same) == 2, f"multi-host predict rank {r}: mean/var not bitwise serial")
+            check(sim <= 1e-8, f"multi-host predict rank {r}: simulation diff {sim:.3e} > 1e-8")
+            check(int(z["launches"]) > 0, f"multi-host predict rank {r}: no predict launch")
+            rank_pred.append(int(z["launches"]))
+    log(f"phase multi-host predict: {t_mhp:.2f} s for {N_MH_TEST} points on {N_RANKS} ranks "
+        f"(start included) against the serial {t_ser:.2f} s")
+    out.update(mh_predict_s=t_mhp, serial_predict_s=t_ser)
+    results["distributed"] = out
+    return {"sbv_loglik": fit_launches["sbv_loglik"] + bk_launches + s_launches["sbv_loglik"],
+            "sbv_predict": pr_launches, "rank_sbv_loglik": rank_fit,
+            "rank_sbv_predict": rank_pred}
 
 
 def main() -> int:
@@ -2226,15 +2578,34 @@ def main() -> int:
     del pred_m, fit_m, arrs_p
     torch.cuda.empty_cache()
 
-    # 29.-35. The streaming (out-of-core) fit and prediction.
-    t = time.perf_counter()
-    stream_launches = streaming_phase(dev, results, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr, cfg,
-                                      init, true_p, t_step)
-    log(f"phase streaming (out-of-core) fit and prediction: {time.perf_counter() - t:.1f} s; "
-        f"launches {stream_launches}")
+    # 29.-35. The streaming (out-of-core) fit and prediction, then 36.-42.
+    # the distributed (Alg. 1) and multi-host (Alg. 2) paths on its store.
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="smoke-dist-")
+    try:
+        t = time.perf_counter()
+        stream_launches = streaming_phase(dev, results, x_tr, y_tr, x_te, y_te, xm_tr, ym_tr,
+                                          cfg, init, true_p, t_step,
+                                          os.path.join(work, "train"))
+        log(f"phase streaming (out-of-core) fit and prediction: {time.perf_counter() - t:.1f} s;"
+            f" launches {stream_launches}")
+        for kname in ("sbv_loglik", "sbv_predict"):
+            launches[kname] += stream_launches[kname]
+        multi_launches["sbv_multi_stats"] += stream_launches["sbv_multi_stats"]
+        t = time.perf_counter()
+        dist_launches = distributed_phase(dev, results, x_tr, y_tr, x_te, cfg, init, true_p,
+                                          index, work)
+        log(f"phase distributed (Alg. 1) and multi-host (Alg. 2): "
+            f"{time.perf_counter() - t:.1f} s; launches {dist_launches}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    # The ranks' launches happen in their own processes, each counted there.
     for kname in ("sbv_loglik", "sbv_predict"):
-        launches[kname] += stream_launches[kname]
-    multi_launches["sbv_multi_stats"] += stream_launches["sbv_multi_stats"]
+        launches[kname] += dist_launches[kname] + sum(dist_launches[f"rank_{kname}"])
+        results[kname]["rank_launches"] = dist_launches[f"rank_{kname}"]
 
     # 12. The batched covariance kernel, on the joint points of 256 real
     # blocks of the multi-output structure (na = nb = m + bs_max).
@@ -2368,7 +2739,8 @@ def main() -> int:
                         "launches": count[kname], "max_abs_err": r["max_abs_err"],
                         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "baseline_ms": r.get("baseline_ms"), "fill_ms": r.get("fill_ms")})
+                        "baseline_ms": r.get("baseline_ms"), "fill_ms": r.get("fill_ms"),
+                        "rank_launches": r.get("rank_launches")})
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))
@@ -2378,4 +2750,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--predict-rank"]:
+        sys.exit(predict_rank(sys.argv[2]))
     sys.exit(main())

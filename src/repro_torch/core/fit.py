@@ -27,6 +27,15 @@ each piece's value and gradient in spool order: one likelihood kernel
 launch per piece on CUDA (two multi-output stats launches per piece, for
 the pooled objective's two passes).
 
+In-process distributed (``distributed=(mesh, axis)``, a
+``launch.mesh.WorkerMesh``): every likelihood evaluation, in core or per
+streaming piece, slices the block axis over the mesh's workers, owner by
+owner, and adds the per-shard sums in worker order (``core.distributed``):
+one kernel launch per shard. Multi-host (``multihost=``, a
+``repro_torch.multihost`` comm): each rank process builds, packs and
+spools only its own partition of a row store, and the ranks all-reduce
+``[loss, grad]`` once per lockstep chunk slot per step.
+
 ``fit_neldermead`` is the reference's derivative-free path (scipy
 Nelder-Mead at one structure pass), its loss through the same kernel.
 """
@@ -42,17 +51,19 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.data.store import as_store, is_store
+from repro_torch.data.store import PartitionedStore, as_store, is_store
 from repro_torch.data.streaming import (DEFAULT_STRUCT_BATCH, PackedChunkSpool,
-                                        device_cache_budget, pack_block_chunk,
-                                        stream_reserve_bytes, streaming_moments,
-                                        streaming_preprocess)
+                                        device_cache_budget, multihost_preprocess,
+                                        pack_block_chunk, stream_reserve_bytes,
+                                        streaming_moments, streaming_preprocess)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.optim import adam_init, adam_update
 
 from .buckets import (BucketedBlocks, _group, apply_precision, as_policy, assign_precision,
                       bucket_blocks, bucket_ceilings, cast_packed)
+from .distributed import (distributed_neg_loglik_fn, mesh_devices, place_shards,
+                          shard_blocks_by_owner, sum_over_shards)
 from .kernels_math import KernelParams, cast_params
 from .multioutput import (MultiOutputParams, as_multi_params, batched_multi_stats_remat,
                           multi_profile_neg_loglik_fn, pooled_objective, profile_sigma2,
@@ -62,7 +73,7 @@ from .pipeline import SBVConfig, preprocess
 from .vecchia import MAP_BATCH, batched_block_loglik_joint_remat, packed_arrays, packed_loglik
 
 # Where each unported option lands (ROADMAP queue 1).
-_UNPORTED = {"distributed": 8, "multihost": 10, "tuning": 11}
+_UNPORTED = {"tuning": 11}
 
 
 @dataclass
@@ -146,15 +157,30 @@ def fit_sbv(
     without a probe. ``FitResult.stream_stats`` reports pieces, bytes and
     tiers.
 
-    ``distributed``, ``multihost`` and ``tuning`` are not ported yet and
-    raise ``NotImplementedError`` (ROADMAP queue 1 items 8, 10 and 11)."""
+    ``distributed=(mesh, axis)`` (a ``launch.mesh.WorkerMesh``; workers
+    may share a device) works with both paths: in core it shards the
+    monolithic packed likelihood (``core.distributed``), streaming it
+    shards every spooled piece, whose block count is rounded up to the
+    worker count. The parameters live on ``device``, by default the mesh's
+    first device. ``multihost=`` (a ``repro_torch.multihost`` comm) runs
+    the MULTI-PROCESS streaming fit: each rank process builds, packs and
+    spools only its own row partition and the ranks all-reduce
+    ``[loss, grad]`` once per chunk per step; with a ``LoopbackComm`` it is
+    bitwise the single-process streaming fit. Multi-output fits take
+    neither, as in the reference.
+
+    ``tuning`` is not ported yet and raises ``NotImplementedError``
+    (ROADMAP queue 1 item 11)."""
     if cfg is None:
         raise TypeError("fit_sbv requires an SBVConfig")
-    for name, val in (("distributed", distributed), ("multihost", multihost),
-                      ("tuning", tuning)):
-        if val is not None:
-            raise NotImplementedError(f"fit_sbv({name}=) is not ported yet "
-                                      f"(ROADMAP queue 1 item {_UNPORTED[name]})")
+    if tuning is not None:
+        raise NotImplementedError("fit_sbv(tuning=) is not ported yet "
+                                  f"(ROADMAP queue 1 item {_UNPORTED['tuning']})")
+    if multihost is not None and not (is_store(x) or stream_chunk is not None):
+        raise ValueError("multihost= requires the streaming path: pass a "
+                         "row store and/or set stream_chunk")
+    if device is None and distributed is not None:
+        device = mesh_devices(*distributed)[0]
     stream = dict(spool_dir=spool_dir, device_cache=device_cache, prefetch=prefetch,
                   precision=precision)
     if is_store(x):
@@ -168,14 +194,26 @@ def fit_sbv(
             init1 = init.output_params(0) if isinstance(init, MultiOutputParams) else init
             return fit_sbv(x, np.asarray(y)[:, 0], cfg, init=init1, nu=nu, lr=lr,
                            inner_steps=inner_steps, outer_rounds=outer_rounds, backend=backend,
-                           verbose=verbose, device=device, n_buckets=n_buckets,
-                           stream_chunk=stream_chunk, **stream)
+                           verbose=verbose, device=device, distributed=distributed,
+                           n_buckets=n_buckets, stream_chunk=stream_chunk, multihost=multihost,
+                           **stream)
         store = None if stream_chunk is None else as_store(x, y)
         multi = np.asarray(y).ndim == 2
+    if multi and (multihost is not None or distributed is not None):
+        raise NotImplementedError("multi-output fits do not support "
+                                  "multihost=/distributed= yet")
     if store is not None:
         if not multi:
+            if multihost is not None:
+                if distributed is not None:
+                    raise ValueError("multihost and in-process distributed= are "
+                                     "mutually exclusive (one device per host)")
+                if n_buckets:
+                    raise NotImplementedError("bucketed piece shapes are not wired "
+                                              "into the multihost mode yet")
             return _fit_sbv_streaming(store, cfg, init, nu, lr, inner_steps, outer_rounds,
-                                      backend, verbose, device, stream_chunk, n_buckets, **stream)
+                                      backend, verbose, device, stream_chunk, n_buckets,
+                                      distributed=distributed, comm=multihost, **stream)
         if n_buckets:
             raise NotImplementedError("bucketed pieces are not wired into the "
                                       "multi-output streaming fit (as in the reference)")
@@ -209,7 +247,10 @@ def fit_sbv(
             tiers = assign_precision(params, packed, policy, nu=nu, backend=backend)
             packed = (apply_precision(packed, tiers) if isinstance(packed, BucketedBlocks)
                       else cast_packed(packed, tiers[0]))
-        loss_fn = neg_loglik_fn(packed, nu, backend, device=dev)
+        if distributed is not None:
+            loss_fn = distributed_neg_loglik_fn(packed, nu, *distributed, backend=backend)
+        else:
+            loss_fn = neg_loglik_fn(packed, nu, backend, device=dev)
 
         state = adam_init(params)
         for it in range(inner_steps):
@@ -289,9 +330,17 @@ def _chunk_loglik(params: KernelParams, arrays, nu: float, backend: str) -> torc
     raise ValueError(f"unknown backend {backend!r}")
 
 
-def _chunk_grad(params: KernelParams, arrays, nu: float, backend: str, n_points: int):
-    """``(value, grads)`` of one piece's ``-loglik / n`` contribution."""
-    return _value_and_grad(lambda p: -_chunk_loglik(p, arrays, nu, backend) / n_points, params)
+def _chunk_grad(params: KernelParams, arrays, nu: float, backend: str, n_points: int,
+                shard_devices=None):
+    """``(value, grads)`` of one piece's ``-loglik / n`` contribution; with
+    ``shard_devices``, the piece's block axis is sliced over them and the
+    per-shard logliks are added in worker order (``core.distributed``)."""
+    if shard_devices is None:
+        return _value_and_grad(lambda p: -_chunk_loglik(p, arrays, nu, backend) / n_points,
+                               params)
+    shards = place_shards(arrays, shard_devices)
+    ll = lambda p, a: _chunk_loglik(p, a, nu, backend)
+    return _value_and_grad(lambda p: -sum_over_shards(p, shards, ll) / n_points, params)
 
 
 def _multi_stats_chunk(params: MultiOutputParams, arrays, nu: float, backend: str):
@@ -353,7 +402,7 @@ def _spool_budget(device_cache, struct, cfg, d: int, n_out: int, tier, backend: 
     pieces in flight. A uniform piece holds bc_pad x (bs_max + m) points of
     d coordinates, ``n_out`` observations and a mask byte each; bucketed
     pieces are smaller."""
-    bc_pad = max(len(r) for r in struct.plan)
+    bc_pad = max((len(r) for r in struct.plan), default=1)
     coord = 2 if tier == "bf16" else (4 if tier else int(np.dtype(cfg.dtype).itemsize))
     acc = 4 if tier else int(np.dtype(cfg.dtype).itemsize)
     piece_bytes = bc_pad * (struct.bs_max + cfg.m) * (d * coord + n_out * acc + 1)
@@ -377,19 +426,24 @@ def _new_stream_stats(tier, **extra) -> dict:
 @contextmanager
 def _stream_round(store, beta, cfg, stream_chunk: int, outer: int, n_out: int, tier,
                   backend: str, stats: dict, dev, spool_dir=None, device_cache=None,
-                  prefetch: int = 2, precision=None):
+                  prefetch: int = 2, precision=None, comm=None):
     """One outer round's streaming structure and an empty spool sized for
     it: yields ``(struct, spool)`` for the caller to fill and iterate, then
     records the spool in ``stats`` and removes it. (``precision`` is the
-    caller's: it casts the pieces.)"""
-    struct = streaming_preprocess(store, beta, cfg, stream_chunk)
+    caller's: it casts the pieces.) With a host ``comm``, the structure is
+    this rank's share (``multihost_preprocess`` over a ``PartitionedStore``)
+    and the spool directory is the rank's own."""
+    if comm is None:
+        struct, name = streaming_preprocess(store, beta, cfg, stream_chunk), f"round{outer}"
+    else:
+        struct = multihost_preprocess(store, beta, cfg, stream_chunk, comm)
+        name = f"rank{comm.rank}-round{outer}"
     budget, sizing = _spool_budget(device_cache, struct, cfg, store.d, n_out, tier, backend,
                                    prefetch, dev)
     stats.update(sizing)
     stats["device_cache_budget"] = max(stats["device_cache_budget"], budget)
     work_dir = spool_dir or tempfile.mkdtemp(prefix="sbv-spool-")
-    spool = PackedChunkSpool(os.path.join(work_dir, f"round{outer}"), device_budget=budget,
-                             device=dev)
+    spool = PackedChunkSpool(os.path.join(work_dir, name), device_budget=budget, device=dev)
     try:
         yield struct, spool
         _record_spool(stats, struct, spool)
@@ -412,8 +466,44 @@ def _record_spool(stats: dict, struct, spool) -> None:
     )
 
 
+def _serial_step(params, spool, nu, n: int, prefetch: int, shard_devices):
+    """One step's ``(loss, grad)``: every piece's value and gradient summed
+    on the device in spool order."""
+    loss = grad = None
+    for arrays, piece_backend in spool.iter_arrays(prefetch=prefetch):
+        v, g = _chunk_grad(params, arrays, nu, piece_backend, n, shard_devices)
+        loss = v if loss is None else loss + v
+        grad = g if grad is None else tuple(a + b for a, b in zip(grad, g))
+    return float(loss), grad
+
+
+def _lockstep_step(params, spool, nu, n: int, prefetch: int, comm, n_lock: int):
+    """One step's ``(loss, grad)`` across ranks: one ``[loss, grad]``
+    all-reduce per lockstep slot, ``n_lock`` slots (a rank out of pieces
+    sends zeros), summed on the host in slot order."""
+    sizes = [p.numel() for p in params]
+    loss, gsum = 0.0, np.zeros(sum(sizes))
+    pieces = spool.iter_arrays(prefetch=prefetch)
+    for _ in range(n_lock):
+        entry = next(pieces, None)
+        vec = np.zeros(1 + gsum.size)
+        if entry is not None:
+            arrays, piece_backend = entry
+            v, g = _chunk_grad(params, arrays, nu, piece_backend, n)
+            vec = np.concatenate([[float(v)], torch.cat(
+                [t.reshape(-1) for t in g]).detach().cpu().numpy()])
+        red = comm.allreduce(vec)
+        loss += float(red[0])
+        gsum = gsum + red[1:]
+    pieces.close()
+    grad = tuple(torch.as_tensor(a).reshape(p.shape).to(p)
+                 for a, p in zip(np.split(gsum, np.cumsum(sizes)[:-1]), params))
+    return loss, grad
+
+
 def _fit_sbv_streaming(store, cfg, init, nu, lr, inner_steps, outer_rounds, backend, verbose,
-                       device, stream_chunk, n_buckets=None, **spooling) -> FitResult:
+                       device, stream_chunk, n_buckets=None, distributed=None, comm=None,
+                       **spooling) -> FitResult:
     """Out-of-core fit: every pass holds ~``stream_chunk`` data rows.
 
     Per outer round: streaming structure (mini-batch k-means + store-backed
@@ -426,23 +516,50 @@ def _fit_sbv_streaming(store, cfg, init, nu, lr, inner_steps, outer_rounds, back
     over the pieces IN SPOOL ORDER: the likelihood is a sum over blocks, so
     chunked accumulation differs from the monolithic fit only in float
     summation order, and the tier a piece waits in changes nothing.
-    ``spooling``: ``spool_dir``, ``device_cache``, ``prefetch``,
-    ``precision``."""
+
+    ``distributed=(mesh, axis)`` shards every piece's block axis over the
+    mesh's workers (owner-contiguous, masked padding to the shard count,
+    which every piece's block count is rounded up to), one kernel launch
+    per shard; the block reorder changes only the summation order.
+
+    ``comm`` (a ``repro_torch.multihost`` comm) makes it the multi-process
+    fit: one rank process per partition of the row store, construction and
+    packing per rank (``multihost_preprocess``), one ``[loss, grad]``
+    all-reduce per lockstep chunk slot per step (``_lockstep_step``). The
+    reduced vector, 1 + n_param float64 scalars, is identical bytes on
+    every rank, so the replicated Adam state stays in lockstep and every
+    rank finishes with identical parameters. With a ``LoopbackComm`` the
+    fit is bitwise the serial one; across ranks it differs only in
+    summation order. ``spooling``: ``spool_dir``, ``device_cache``,
+    ``prefetch``, ``precision``."""
     dev = resolve_device(device)
     tier = _streaming_tier(spooling.get("precision"))
     prefetch = spooling.get("prefetch", 2)
+    shard_devices = None if distributed is None else mesh_devices(*distributed)
+    n_shards = 1 if shard_devices is None else len(shard_devices)
+    if comm is not None and not isinstance(store, PartitionedStore):
+        store = PartitionedStore(store, comm.size, comm.rank)
     n, d = store.n_rows, store.d
     if init is None:
-        _, var_y = streaming_moments(store)
+        _, var_y = streaming_moments(store, comm=comm)
         init = KernelParams.create(sigma2=var_y, beta=0.5, nugget=1e-3, d=d)
     params = KernelParams(*(torch.as_tensor(a).to(dev).detach() for a in init))
     history = []
-    stats = _new_stream_stats(tier)
+    if comm is None:
+        stats = _new_stream_stats(tier, n_shards=n_shards)
+    else:
+        stats = _new_stream_stats(tier, n_hosts=comm.size, rank=comm.rank, lockstep_chunks=0,
+                                  allreduce_scalars_per_chunk=1 + sum(p.numel() for p in params))
 
     for outer in range(outer_rounds):
         with _stream_round(store, params.beta.detach().cpu().numpy(), cfg, stream_chunk, outer,
-                           1, tier, backend, stats, dev, **spooling) as (struct, spool):
-            bc_pad = max(len(r) for r in struct.plan)
+                           1, tier, backend, stats, dev, comm=comm,
+                           **spooling) as (struct, spool):
+            # A rank packs from its row table (owned and halo rows).
+            rows = store if comm is None else struct.table
+            # One shared shape (per rank: only [loss, grad] crosses ranks),
+            # its block count a multiple of the shard count.
+            bc_pad = round_up(max((len(r) for r in struct.plan), default=1), n_shards)
             if n_buckets:
                 # GLOBAL bucket ceilings + per-cell bc padding: every chunk's
                 # pieces land on one of <= occupied-cells shapes.
@@ -458,9 +575,10 @@ def _fit_sbv_streaming(store, cfg, init, nu, lr, inner_steps, outer_rounds, back
                                                  m_ceils):
                         # Same clamp bucket_blocks applies to piece shapes.
                         key = (min(bs_c, struct.bs_max), min(m_c, cfg.m))
-                        cell_bc[key] = max(cell_bc.get(key, 0), round_up(idx.size, 8))
+                        cell_bc[key] = max(cell_bc.get(key, 0),
+                                           round_up(round_up(idx.size, 8), n_shards))
             for ranks in struct.plan:
-                packed = pack_block_chunk(store, struct.blocks, struct.neigh, ranks, m=cfg.m,
+                packed = pack_block_chunk(rows, struct.blocks, struct.neigh, ranks, m=cfg.m,
                                           bs_max=struct.bs_max, dtype=cfg.dtype)
                 if n_buckets:
                     bucketed = bucket_blocks(packed, ceilings=(bs_ceils, m_ceils))
@@ -473,21 +591,27 @@ def _fit_sbv_streaming(store, cfg, init, nu, lr, inner_steps, outer_rounds, back
                 for pk in pieces:
                     if tier:
                         pk = cast_packed(pk, tier)
+                    if shard_devices is not None:
+                        # Owner-contiguous reorder; the shape is unchanged.
+                        pk = shard_blocks_by_owner(pk, n_shards)
                     spool.add(pk, tag=_piece_backend(backend, pk))
+            n_lock = len(spool)
+            if comm is not None:
+                n_lock = int(comm.allreduce_scalar(float(len(spool)), op="max"))
+                stats.update(lockstep_chunks=n_lock, **struct.stats)
 
             state = adam_init(params)
             t_inner = time.perf_counter()
             for it in range(inner_steps):
-                loss = grad = None
-                for arrays, piece_backend in spool.iter_arrays(prefetch=prefetch):
-                    v, g = _chunk_grad(params, arrays, nu, piece_backend, n)
-                    loss = v if loss is None else loss + v
-                    grad = g if grad is None else tuple(a + b for a, b in zip(grad, g))
+                if comm is None:
+                    loss, grad = _serial_step(params, spool, nu, n, prefetch, shard_devices)
+                else:
+                    loss, grad = _lockstep_step(params, spool, nu, n, prefetch, comm, n_lock)
                 params, state = adam_update(grad, state, params, lr)
-                history.append((outer, it, float(loss)))
+                history.append((outer, it, loss))
                 if verbose and it % 10 == 0:
-                    print(f"[fit-stream] outer={outer} it={it} nll/n={float(loss):.6f} "
-                          f"pieces={len(spool)} (device-cached {spool.n_device})")
+                    print(f"[fit-stream] outer={outer} it={it} nll/n={loss:.6f} "
+                          f"pieces={len(spool)}/{n_lock} (device-cached {spool.n_device})")
             stats["inner_time_s"] += time.perf_counter() - t_inner
             stats["inner_steps_total"] += inner_steps
     return FitResult(params=params, history=history, packed=None, stream_stats=stats)

@@ -43,6 +43,7 @@ from repro_torch.data.store import as_store, is_store
 from repro_torch.data.streaming import (DEFAULT_STRUCT_BATCH, LazyFlatBlocks,
                                         localize_neighbors, streaming_kmeans_blocks)
 from repro_torch.device import resolve_device
+from repro_torch.multihost import partition_blocks
 
 from .blocks import BlockStructure, build_blocks, scale_inputs
 from .kernels_math import KernelParams, cast_params
@@ -194,7 +195,10 @@ def block_predict(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask, nu: fl
     chol = _cholesky(sigma_con)
     a = _solve_lower(chol, sigma_cross)                  # (bc, m, bs)
     z = _solve_lower(chol, ynn[..., None])                # (bc, m, 1)
-    mu = (a.transpose(-1, -2) @ z)[..., 0]
+    # An elementwise product and sum, not a batched matmul, so that a block's
+    # mean does not depend on how many blocks share the call (a batch of one
+    # takes another BLAS path): a rank's span of a chunk gives the serial bits.
+    mu = torch.sum(a * z, dim=-2)
     var = (sigma2 + nugget) - torch.sum(a * a, dim=-2)
     return mu, torch.clamp(var, min=1e-12)
 
@@ -319,6 +323,17 @@ def _chunk_generator(seed: int, chunk_id: int, device: torch.device,
     return torch.Generator(device=device).manual_seed(int(state) & (2**63 - 1))
 
 
+def _slice_prediction_blocks(p: PackedPrediction, lo: int, hi: int) -> PackedPrediction:
+    """A contiguous block-row view of a packed chunk (every field's leading
+    axis is the block count; ``q_idx`` stays global, so the scatter of a
+    slice lands in the right test rows)."""
+    if (lo, hi) == (0, p.n_blocks):
+        return p
+    return PackedPrediction(q_x=p.q_x[lo:hi], q_mask=p.q_mask[lo:hi], q_idx=p.q_idx[lo:hi],
+                            nn_x=p.nn_x[lo:hi], nn_y=p.nn_y[lo:hi], nn_mask=p.nn_mask[lo:hi],
+                            owners=p.owners[lo:hi])
+
+
 def predict_sbv(
     params: KernelParams | MultiOutputParams,
     x_train: np.ndarray,
@@ -375,12 +390,23 @@ def predict_sbv(
     bitwise. A store ``x_test`` without ``chunk_size`` is read in windows of
     ``stream_chunk`` rows.
 
-    Tuning records and multi-host sharding are not ported yet and raise
-    ``NotImplementedError`` (ROADMAP queue 1 items 11 and 10)."""
-    for name, val, item in (("tuning", tuning, 11), ("multihost", multihost, 10)):
-        if val is not None:
-            raise NotImplementedError(f"predict_sbv({name}=) is not ported yet "
-                                      f"(ROADMAP queue 1 item {item})")
+    ``multihost`` (a ``repro_torch.multihost`` comm) shards every chunk's
+    prediction BLOCKS by rank: each rank computes its contiguous block span
+    of every piece (``multihost.partition_blocks``; one predict launch per
+    chunk for all of its spans), draws the WHOLE chunk's simulation noise
+    and keeps its span's rows, so every block gets the serial path's
+    draws, scatters into zero-filled result columns, and ONE all-reduce
+    sum per call merges the disjoint columns (x + 0 is exact, so the sum
+    IS an all-gather). Every rank must pass identical training and test
+    data; all ranks return the full result: mean and variance bitwise the
+    serial call's, the simulation columns equal up to the reductions'
+    order. A ``LoopbackComm`` reproduces the serial call bitwise.
+
+    Tuning records are not ported yet and raise ``NotImplementedError``
+    (ROADMAP queue 1 item 11)."""
+    if tuning is not None:
+        raise NotImplementedError("predict_sbv(tuning=) is not ported yet "
+                                  "(ROADMAP queue 1 item 11)")
     tier = None
     if precision is not None:
         from .buckets import acc_dtype, as_policy
@@ -436,18 +462,36 @@ def predict_sbv(
             from .buckets import cast_prediction
 
             pieces = [cast_prediction(pc, tier) for pc in pieces]
-        arrs = [tuple(torch.as_tensor(a).to(dev) for a in piece.arrays()) for piece in pieces]
+        # Each piece's block span on this rank (all of it without a comm).
+        spans = [(0, pc.n_blocks) if multihost is None
+                 else partition_blocks(pc.n_blocks, multihost.size)[multihost.rank]
+                 for pc in pieces]
+        work = [(bi, _slice_prediction_blocks(pc, lo, hi), lo)
+                for bi, (pc, (lo, hi)) in enumerate(zip(pieces, spans)) if hi > lo]
+        if not work:
+            continue
+        arrs = [tuple(torch.as_tensor(a).to(dev) for a in sub.arrays()) for _, sub, _ in work]
         conds = batched_block_predict_many(params, arrs, nu=nu, backend=backend)
-        for bi, (piece, (mu_b, var_b)) in enumerate(zip(pieces, conds)):
+        for (bi, sub, lo), (mu_b, var_b) in zip(work, conds):
             # The uniform layout keeps the per-chunk stream; buckets draw
-            # from independent per-bucket streams, as in the reference.
+            # from independent per-bucket streams, as in the reference. A
+            # span takes its rows of the whole piece's draws.
             b_id = bi if n_buckets else None
-            shape = (n_sims,) + piece.q_mask.shape + out_shape[1:]
-            eps_c = None if eps is None else eps(ci, b_id, shape)
-            gen = None if eps_c is not None else _chunk_generator(seed, ci, dev, b_id)
-            sm_b, ss_b = _simulate(mu_b, var_b, n_sims, eps=eps_c, generator=gen)
-            scatter_packed(piece, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
+            shape = (n_sims,) + pieces[bi].q_mask.shape + out_shape[1:]
+            if eps is not None:
+                eps_c = eps(ci, b_id, shape)
+            else:
+                eps_c = torch.randn(shape, generator=_chunk_generator(seed, ci, dev, b_id),
+                                    dtype=mu_b.dtype, device=dev)
+            sm_b, ss_b = _simulate(mu_b, var_b, n_sims,
+                                   eps=eps_c[:, lo:lo + sub.n_blocks])
+            scatter_packed(sub, (mu_b, mean), (var_b, var), (sm_b, sim_mean),
                            (ss_b, sim_std))
+    if multihost is not None:
+        # Ranks filled disjoint result rows; one all-reduce sum of the
+        # zero-initialized columns is an exact all-gather.
+        mean, var, sim_mean, sim_std = multihost.allreduce(
+            np.stack([mean, var, sim_mean, sim_std]))
     if squeeze_back:
         mean, var, sim_mean, sim_std = (a[:, None] for a in (mean, var, sim_mean, sim_std))
     return Prediction(mean=mean, var=var, sim_mean=sim_mean,

@@ -1,6 +1,6 @@
 """Streaming (out-of-core) SBV construction over a row store, and the spool.
 
-Counterpart of the single-process half of ``repro.data.streaming``. Every
+Counterpart of ``repro.data.streaming``. Every
 stage of the in-core preprocessing pipeline (scale -> block -> order ->
 NNS -> pack) assumes the full ``(n, d)`` dataset sits in host RAM. This
 module rebuilds each stage as a pass over ``store.iter_chunks(rows)``
@@ -26,12 +26,17 @@ windows, so the resident working set is bounded by the chunk size, not
   producer thread reads into pinned host memory and copies to the card on
   a side stream while the card computes on the previous piece.
 
+The multi-host half (``multihost_preprocess`` and its helpers) runs the
+same stages per rank process over a ``PartitionedStore``, communicating
+through a ``repro_torch.multihost`` comm: a per-window k-means
+all-reduce, the membership all-to-all into a ``HostRowTable`` and the
+halo exchange of the filtered NNS (see the section's comment below).
+
 The host half is numpy and bitwise the reference's: the same store gives
-the same blocks, neighbour lists, plans and packed pieces. A
+the same blocks, neighbour lists, plans and packed pieces, and the same
+partitioned store and comm give the same per-rank structures. A
 ``MemoryStore`` and an ``ArrayStore`` holding the same rows give identical
 structures, packings and fits; the spool's tiers change nothing bitwise.
-The multi-host half of the reference (``multihost_preprocess`` and its
-helpers) is not ported yet.
 """
 from __future__ import annotations
 
@@ -43,7 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.blocks import BlockStructure, _maxmin_order, most_relevant_dim, scale_inputs
-from repro_torch.core.nns import _FlatBlocks, filtered_nns
+from repro_torch.core.nns import _FlatBlocks, _one_block, filtered_nns, nns_radius
 from repro_torch.core.packing import PackedBlocks, pack_blocks
 from repro_torch.core.vecchia import MAP_BATCH
 from repro_torch.kernels.ops import BACKWARD_CHUNK
@@ -59,7 +64,7 @@ MAX_D2_ENTRIES = 2 << 20      # bound on distance-tile size (entries)
 # -- chunked moments -------------------------------------------------------
 
 
-def streaming_moments(store, batch_rows: int = DEFAULT_STRUCT_BATCH):
+def streaming_moments(store, batch_rows: int = DEFAULT_STRUCT_BATCH, comm=None):
     """(mean, variance) of y accumulated chunk-wise (population variance,
     matching ``np.var`` up to summation order).
 
@@ -70,16 +75,23 @@ def streaming_moments(store, batch_rows: int = DEFAULT_STRUCT_BATCH):
     for the streaming fit); the shifted form keeps full precision there
     while still visiting identical windows on either store backend, so
     MemoryStore/ArrayStore parity stays bitwise.
+
+    ``comm`` (a ``repro_torch.multihost`` host comm) all-reduces the pass
+    sums so each host only walks its own partition of the rows.
     """
     n = store.n_rows
     s = 0.0
     for _, _, yw in store.iter_chunks(batch_rows):
         s += float(np.sum(yw))
+    if comm is not None:
+        s = float(comm.allreduce(np.asarray([s]))[0])
     mean = s / max(n, 1)
     ss = 0.0
     for _, _, yw in store.iter_chunks(batch_rows):
         r = yw - mean
         ss += float(np.sum(r * r))
+    if comm is not None:
+        ss = float(comm.allreduce(np.asarray([ss]))[0])
     return mean, ss / max(n, 1)
 
 
@@ -755,6 +767,577 @@ def streaming_preprocess(
                            domain_volume=vol, plan=plan, bs_max=bs_max)
 
 
+# -- multi-host construction (Alg. 2 across processes) ---------------------
+#
+# The single-process streaming build above bounds RAM; this section bounds
+# it PER HOST. Each rank process owns one `PartitionedStore`
+# row range, and the stages communicate exactly like the paper's MPI
+# pipeline:
+#
+#   k-means      — per-host labeling of local windows; per-window
+#                  (count, sum) all-reduce, so every host applies the
+#                  identical center update (the single-process trajectory
+#                  when partition bounds align to the window grid);
+#   membership   — each local row is sent once to the host owning its
+#                  block (Alg. 2's MPI_Alltoall), giving the owner a
+#                  `HostRowTable` of ~n/P rows: the only copy of the data
+#                  it keeps resident;
+#   filtered NNS — each host sweeps only its owned query blocks; foreign
+#                  candidate blocks admitted by the coarse filter
+#                  (dist <= lam + radius_j, replicated centers/radii) are
+#                  pulled from their owners in lockstep halo-exchange
+#                  rounds — `_one_block` runs UNCHANGED over a flat-blocks
+#                  view that raises `_HaloMiss` for absent blocks, so the
+#                  candidate-set semantics are identical to the
+#                  single-process sweep;
+#   packing      — `plan_block_chunks(ranks=owned)` + the unchanged
+#                  `pack_block_chunk` against the row table, spooled to a
+#                  per-host `PackedChunkSpool`.
+#
+# No stage materializes the full dataset or the full packed set on any
+# process. With `LoopbackComm` (P=1) every all-reduce is the identity and
+# the construction is bitwise the single-process one (held in
+# tests/test_torch_multihost.py, as real gloo ranks are).
+
+
+@dataclass
+class MultihostStructure:
+    """One host's share of a multi-process streaming preprocessing round."""
+
+    blocks: BlockStructure     # global order/centers/host-owners; members
+                               # filled for owned (+ fetched halo) blocks,
+                               # None elsewhere; labels are LOCAL rows only
+    neigh: list                # neighbor ids for owned blocks, [] elsewhere
+    table: "HostRowTable"      # rows of owned blocks + fetched halo rows
+    host_of_block: np.ndarray  # (bc,) owning host per block id
+    sizes: np.ndarray          # (bc,) GLOBAL block sizes
+    domain_volume: float
+    plan: list                 # rank-chunks over owned ranks only
+    bs_max: int                # GLOBAL max block size (shared piece shapes)
+    stats: dict
+
+
+class HostRowTable:
+    """Sorted (global id -> row) table of the rows a host keeps resident.
+
+    Built from the membership exchange (rows of owned blocks) and grown
+    by halo fetches; `read_rows` serves any subset in requested order via
+    one searchsorted, so `pack_block_chunk` runs against it unchanged.
+    """
+
+    def __init__(self, d: int):
+        self._d = int(d)
+        self.gid = np.empty(0, np.int64)
+        self.x = np.empty((0, self._d))
+        self.y = np.empty(0)
+
+    @property
+    def d(self) -> int:
+        return self._d
+
+    @property
+    def n_rows(self) -> int:
+        return int(self.gid.size)
+
+    def add(self, ids: np.ndarray, x: np.ndarray, y: np.ndarray) -> None:
+        ids = np.asarray(ids, np.int64)
+        if ids.size == 0:
+            return
+        gid = np.concatenate([self.gid, ids])
+        order = np.argsort(gid, kind="stable")
+        self.gid = gid[order]
+        self.x = np.concatenate([self.x, np.asarray(x, np.float64)])[order]
+        self.y = np.concatenate([self.y, np.asarray(y, np.float64)])[order]
+
+    def read_rows(self, idx: np.ndarray):
+        idx = np.asarray(idx, np.int64)
+        pos = np.searchsorted(self.gid, idx)
+        if idx.size:
+            bad = (pos >= self.gid.size) | (self.gid[np.minimum(pos, self.gid.size - 1)] != idx)
+            if bad.any():
+                raise KeyError(
+                    f"{int(bad.sum())} rows absent from this host's table "
+                    f"(first: {idx[bad][:5].tolist()})")
+        return self.x[pos], self.y[pos]
+
+
+def multihost_kmeans_blocks(
+    pstore,
+    beta: np.ndarray,
+    n_blocks: int,
+    comm,
+    seed: int = 0,
+    epochs: int = 2,
+    batch_rows: int = DEFAULT_STRUCT_BATCH,
+    ordering: str = "random",
+):
+    """`streaming_kmeans_blocks` with per-window (count, sum) all-reduce.
+
+    Every host walks only its `PartitionedStore` windows but applies the
+    same center update per GLOBAL window (hosts whose partition misses a
+    window contribute zeros), so the center trajectory — and, with
+    window-aligned partitions, its exact floats — matches the
+    single-process mini-batch k-means. The rng stream (seeding, empty-
+    block reseeds, the final permutation) is consumed identically on all
+    hosts, so everything replicated stays replicated.
+
+    Returns ``(blocks, labels_local, radii, domain_volume,
+    host_of_block)`` where ``blocks.members`` is filled ONLY for blocks
+    this host owns (ascending global ids, the single-process member
+    order) and ``blocks.labels`` holds the host's LOCAL rows.
+    """
+    rng = np.random.default_rng(seed)
+    n, d = pstore.n_rows, pstore.d
+    beta = np.broadcast_to(np.asarray(beta, dtype=np.float64), (d,))
+    k = min(int(n_blocks), n)
+    batch_rows = max(1, int(batch_rows))
+    n_windows = -(-n // batch_rows)
+
+    init_idx = rng.choice(n, size=k, replace=False)
+    centers = scale_inputs(pstore.read_rows(init_idx)[0], beta)
+
+    def _local_windows(gstart, it, pending):
+        """Local (xs, lab) pieces of the global window at ``gstart``."""
+        pieces = []
+        while pending[0] is not None and \
+                gstart <= pending[0][0] < gstart + batch_rows:
+            a, xw, _ = pending[0]
+            xs = scale_inputs(xw, beta)
+            pieces.append((a, xs))
+            pending[0] = next(it, None)
+        return pieces
+
+    for _ in range(max(int(epochs), 0)):
+        counts = np.zeros(k)
+        c2 = np.sum(centers * centers, axis=1)
+        it = pstore.iter_chunks(batch_rows)
+        pending = [next(it, None)]
+        for gstart in range(0, n, batch_rows):
+            k_c = np.zeros(k)
+            sums = np.zeros((k, d))
+            for _, xs in _local_windows(gstart, it, pending):
+                lab = _assign_chunk(xs, centers, c2)
+                kc_w, s_w = _label_sums(lab, xs, k)
+                k_c += kc_w
+                sums += s_w
+            red = comm.allreduce(np.concatenate([k_c[:, None], sums], axis=1))
+            k_c, sums = red[:, 0], red[:, 1:]
+            counts += k_c
+            nz = k_c > 0
+            centers[nz] += (sums[nz] - k_c[nz, None] * centers[nz]) / counts[nz, None]
+            c2 = np.sum(centers * centers, axis=1)
+        empty = counts == 0
+        if empty.any():
+            re_idx = rng.choice(n, size=int(empty.sum()), replace=False)
+            centers[empty] = scale_inputs(pstore.read_rows(re_idx)[0], beta)
+
+    # Final labeling pass: LOCAL labels; exact global centroids/extents
+    # via one all-reduce of the per-host accumulators.
+    n_local = pstore.n_local
+    local_start = pstore.start
+    labels_local = np.empty(n_local, dtype=np.int64)
+    counts = np.zeros(k)
+    sums = np.zeros((k, d))
+    mins = np.full(d, np.inf)
+    maxs = np.full(d, -np.inf)
+    c2 = np.sum(centers * centers, axis=1)
+    for a, xw, _ in pstore.iter_chunks(batch_rows):
+        xs = scale_inputs(xw, beta)
+        lab = _assign_chunk(xs, centers, c2)
+        labels_local[a - local_start:a - local_start + xs.shape[0]] = lab
+        k_c, s_c = _label_sums(lab, xs, k)
+        counts += k_c
+        sums += s_c
+        np.minimum(mins, xs.min(axis=0), out=mins)
+        np.maximum(maxs, xs.max(axis=0), out=maxs)
+    counts = comm.allreduce(counts)
+    sums = comm.allreduce(sums)
+    mins = comm.allreduce(mins, op="min")
+    maxs = comm.allreduce(maxs, op="max")
+
+    occupied = np.nonzero(counts > 0)[0]
+    centers = sums[occupied] / counts[occupied][:, None]
+    sizes = counts[occupied]
+    dprime = most_relevant_dim(beta)
+    coord_order = np.argsort(centers[:, dprime], kind="stable")
+    centers = centers[coord_order]
+    sizes = np.rint(sizes[coord_order]).astype(np.int64)
+    bc = occupied.size
+    old_to_new = np.full(k, -1, dtype=np.int64)
+    old_to_new[occupied[coord_order]] = np.arange(bc)
+    labels_local = old_to_new[labels_local]
+
+    # Radius pass against the final centers; max all-reduced per block.
+    r2 = np.zeros(bc)
+    for a, xw, _ in pstore.iter_chunks(batch_rows):
+        xs = scale_inputs(xw, beta)
+        lab = labels_local[a - local_start:a - local_start + xs.shape[0]]
+        d2 = np.sum((xs - centers[lab]) ** 2, axis=1)
+        np.maximum.at(r2, lab, d2)
+    r2 = comm.allreduce(r2, op="max")
+    radii = np.sqrt(r2)
+
+    # Block -> owning HOST by quantile bucketing of the center coordinate
+    # (the per-process analogue of the in-process worker owners).
+    if comm.size > 1:
+        qs = np.quantile(centers[:, dprime],
+                         np.linspace(0.0, 1.0, comm.size + 1)[1:-1])
+        host_of_block = np.searchsorted(qs, centers[:, dprime], side="right")
+    else:
+        host_of_block = np.zeros(bc, dtype=np.int64)
+    host_of_block = host_of_block.astype(np.int64)
+
+    if ordering == "random":
+        order = rng.permutation(bc)
+    elif ordering == "coord":
+        order = np.arange(bc)
+    elif ordering == "maxmin":
+        order = _maxmin_order(centers, rng)
+    else:
+        raise ValueError(f"unknown streaming ordering {ordering!r}")
+    rank_of_block = np.empty(bc, dtype=np.int64)
+    rank_of_block[order] = np.arange(bc)
+
+    ext = maxs - mins
+    med = np.median(ext[ext > 0]) if np.any(ext > 0) else 1.0
+    ext = np.maximum(ext, 1e-6 * med)
+    domain_volume = float(np.prod(ext))
+
+    blocks = BlockStructure(
+        labels=labels_local,
+        order=np.asarray(order, dtype=np.int64),
+        rank_of_block=rank_of_block,
+        centers=centers,
+        owners=host_of_block.astype(np.int32),
+        members=[None] * bc,
+    )
+    return blocks, radii, domain_volume, host_of_block, sizes
+
+
+def _membership_exchange(pstore, blocks: BlockStructure, host_of_block,
+                         comm) -> HostRowTable:
+    """Route every local row to the host owning its block (Alg. 2
+    alltoall) and fill ``blocks.members`` for this host's owned blocks.
+
+    Rows travel with their global ids and labels; the receiver sorts by
+    global id, so member lists come out ascending — the single-process
+    member order — and the returned ``HostRowTable`` holds exactly the
+    rows of the owned blocks.
+    """
+    me = comm.rank
+    labels = blocks.labels
+    dest = host_of_block[labels] if labels.size else np.empty(0, np.int64)
+    gids = pstore.start + np.arange(pstore.n_local, dtype=np.int64)
+    payloads = {}
+    # One bulk local read, then slice per destination (bounded by the
+    # partition size, which is the point of the partitioned store).
+    if labels.size:
+        xw, yw = pstore.parent.read_slice(pstore.start, pstore.stop)
+        for h in range(comm.size):
+            sel = np.nonzero(dest == h)[0]
+            if sel.size:
+                payloads[h] = {"ids": gids[sel], "lab": labels[sel],
+                               "x": xw[sel], "y": yw[sel]}
+    got = comm.exchange(payloads)
+
+    bc = blocks.n_blocks
+    if got:
+        gid = np.concatenate([p["ids"] for p in got.values()])
+        lab = np.concatenate([p["lab"] for p in got.values()])
+        xr = np.concatenate([p["x"] for p in got.values()])
+        yr = np.concatenate([p["y"] for p in got.values()])
+        order = np.argsort(gid, kind="stable")
+        gid, lab, xr, yr = gid[order], lab[order], xr[order], yr[order]
+    else:
+        gid = np.empty(0, np.int64)
+        lab = np.empty(0, np.int64)
+        xr = np.empty((0, pstore.d))
+        yr = np.empty(0)
+    by_block = np.argsort(lab, kind="stable")
+    counts = np.bincount(lab, minlength=bc)
+    splits = np.split(gid[by_block], np.cumsum(counts)[:-1])
+    for b in np.nonzero(host_of_block == me)[0]:
+        blocks.members[int(b)] = splits[b].astype(np.int64)
+    table = HostRowTable(pstore.d)
+    table.add(gid, xr, yr)
+    return table
+
+
+class _HaloMiss(Exception):
+    """A candidate block's members aren't resident yet (needs a fetch)."""
+
+    def __init__(self, missing):
+        super().__init__(f"missing blocks {sorted(missing)[:8]}")
+        self.missing = list(missing)
+
+
+class _IdFlatView:
+    """Virtual ``flat_idx``: flat position -> global row id, served from
+    per-block id arrays (no O(n) replicated index array per host)."""
+
+    def __init__(self, starts: np.ndarray, ids: dict):
+        self._starts = starts
+        self._ids = ids
+
+    def __getitem__(self, pos):
+        pos = np.asarray(pos, np.int64)
+        scalar = pos.ndim == 0
+        p = np.atleast_1d(pos)
+        out = np.empty(p.size, np.int64)
+        blk = np.searchsorted(self._starts, p, side="right") - 1
+        for b in np.unique(blk):
+            ids = self._ids.get(int(b))
+            if ids is None:
+                raise _HaloMiss([int(b)])
+            sel = blk == b
+            out[sel] = ids[p[sel] - self._starts[b]]
+        return out[0] if scalar else out
+
+
+class HaloFlatBlocks:
+    """`_FlatBlocks` interface over owned + halo-fetched blocks.
+
+    Index bookkeeping (sizes/starts/radii) is GLOBAL — it derives from
+    the replicated k-means summaries, O(bc) per host. Member ids and
+    scaled coordinates exist only for owned blocks (lazily scaled from
+    the row table) and for halo blocks ingested by `_fetch_halo`; asking
+    for any other block raises `_HaloMiss`, which the NNS sweep turns
+    into the next halo-exchange round. Because `_one_block` sees the
+    exact same candidate admission, concat order, and coordinates as the
+    single-process sweep, the neighbor lists match it exactly wherever
+    the (eps-level) center differences don't flip a tie.
+    """
+
+    def __init__(self, sizes: np.ndarray, radii: np.ndarray, n_rows: int,
+                 d: int, table: HostRowTable, members: list,
+                 host_of_block: np.ndarray, rank: int):
+        self.sizes = np.asarray(sizes, np.int64)
+        self.starts = np.concatenate([[0], np.cumsum(self.sizes)])
+        self.radii = np.asarray(radii)
+        self.n_rows = int(n_rows)
+        self.d = int(d)
+        self._table = table
+        self._ids: dict[int, np.ndarray] = {
+            int(b): members[int(b)]
+            for b in np.nonzero(host_of_block == rank)[0]
+        }
+        self._owned = set(self._ids)
+        self._coords: dict[int, np.ndarray] = {}
+        self._beta = None  # set by the sweep before any gather
+        self.halo_rows = 0
+        self.halo_blocks = 0
+        self.flat_idx = _IdFlatView(self.starts, self._ids)
+
+    def has_block(self, b: int) -> bool:
+        return int(b) in self._ids
+
+    def ingest(self, b: int, ids: np.ndarray, pts_scaled: np.ndarray) -> None:
+        b = int(b)
+        if b in self._ids:
+            return
+        self._ids[b] = np.asarray(ids, np.int64)
+        self._coords[b] = pts_scaled
+        self.halo_rows += int(ids.size)
+        self.halo_blocks += 1
+
+    def rows_of_blocks(self, block_ids: np.ndarray) -> np.ndarray:
+        if block_ids.size == 0:
+            return np.empty(0, dtype=np.int64)
+        return np.concatenate(
+            [np.arange(self.starts[b], self.starts[b + 1]) for b in block_ids]
+        )
+
+    def _coords_of(self, b: int) -> np.ndarray:
+        b = int(b)
+        pts = self._coords.get(b)
+        if pts is None:
+            ids = self._ids.get(b)
+            if ids is None:
+                raise _HaloMiss([b])
+            pts = scale_inputs(self._table.read_rows(ids)[0], self._beta)
+            self._coords[b] = pts
+        return pts
+
+    def points_of_blocks(self, block_ids: np.ndarray) -> np.ndarray:
+        if block_ids.size == 0:
+            return np.empty((0, self.d))
+        missing = [int(b) for b in block_ids if int(b) not in self._ids]
+        if missing:
+            raise _HaloMiss(missing)
+        out = [self._coords_of(b) for b in block_ids]
+        return out[0] if len(out) == 1 else np.concatenate(out)
+
+
+def _fetch_halo(comm, needs, flat: HaloFlatBlocks, members: list,
+                table: HostRowTable, host_of_block, beta) -> None:
+    """One lockstep halo-exchange round (request + reply alltoalls).
+
+    COLLECTIVE: all hosts must call together, `needs` may be empty.
+    Requested blocks are served by their owners from the row table
+    (member order = ascending global ids, same as local blocks); arrivals
+    are ingested into the flat index AND the row table, so both the NNS
+    retry and the later packing see them.
+    """
+    req: dict[int, list] = {}
+    for b in needs:
+        req.setdefault(int(host_of_block[b]), []).append(int(b))
+    got = comm.exchange({
+        h: {"blocks": np.asarray(sorted(bs), np.int64)}
+        for h, bs in req.items() if h != comm.rank
+    })
+    replies = {}
+    for src, p in got.items():
+        bids = p["blocks"]
+        mlists = [members[int(b)] for b in bids]
+        sizes = np.asarray([mm.size for mm in mlists], np.int64)
+        ids = (np.concatenate(mlists) if mlists else np.empty(0, np.int64))
+        xg, yg = table.read_rows(ids)
+        replies[src] = {"blocks": bids, "sizes": sizes,
+                        "ids": ids, "x": xg, "y": yg}
+    got2 = comm.exchange(replies)
+    for p in got2.values():
+        off = 0
+        new_ids, new_x, new_y = [], [], []
+        for b, sz in zip(p["blocks"], p["sizes"]):
+            sz = int(sz)
+            ids_b = p["ids"][off:off + sz]
+            if not flat.has_block(int(b)):
+                flat.ingest(int(b), ids_b,
+                            scale_inputs(p["x"][off:off + sz], beta))
+                members[int(b)] = ids_b.astype(np.int64)
+                new_ids.append(ids_b)
+                new_x.append(p["x"][off:off + sz])
+                new_y.append(p["y"][off:off + sz])
+            off += sz
+        if new_ids:
+            table.add(np.concatenate(new_ids), np.concatenate(new_x),
+                      np.concatenate(new_y))
+
+
+def multihost_filtered_nns(
+    blocks: BlockStructure, sizes: np.ndarray, radii: np.ndarray,
+    table: HostRowTable, host_of_block: np.ndarray, beta: np.ndarray,
+    m: int, comm, alpha: float = 100.0, domain_volume: float = 1.0,
+):
+    """Per-host filtered NNS over owned query blocks with halo exchange.
+
+    Round 0 proactively fetches every foreign preceding block the coarse
+    filter admits at the base Eq. 7 radius (computable from replicated
+    centers/radii alone — the Alg. 2 candidate exchange); the doubling
+    fallback inside `_one_block` then drives additional lockstep rounds
+    only for queries whose ball came up short. All hosts run the same
+    number of exchange rounds (an all-reduce counts outstanding misses),
+    so no host can deadlock waiting for a peer.
+    """
+    me = comm.rank
+    bc = blocks.n_blocks
+    centers = blocks.centers
+    ranks = blocks.rank_of_block
+    n, d = int(np.sum(sizes)), centers.shape[1] if bc else table.d
+    lam = nns_radius(n, m, d, domain_volume, alpha)
+    flat = HaloFlatBlocks(sizes, radii, n, d, table, blocks.members,
+                          host_of_block, me)
+    flat._beta = np.broadcast_to(np.asarray(beta, np.float64), (d,))
+    c2 = np.sum(centers * centers, axis=1)
+
+    owned_q = [int(b) for b in np.nonzero(host_of_block == me)[0]
+               if ranks[b] > 0]
+    # Center distances with the EXACT chunked expression of the
+    # single-process `filtered_nns` sweep (same center_chunk grid, same
+    # GEMM shapes), so a LoopbackComm run reproduces its floats bitwise.
+    center_chunk = max(16, min(2048, MAX_D2_ENTRIES // max(bc, 1)))
+    dist_cache: dict[int, np.ndarray] = {}
+    owned_set = set(owned_q)
+    for s in range(0, bc, center_chunk):
+        e = min(bc, s + center_chunk)
+        if not owned_set.intersection(range(s, e)):
+            continue
+        q = centers[s:e]
+        dc = np.sum(q * q, axis=1)[:, None] - 2.0 * q @ centers.T + c2[None, :]
+        np.sqrt(np.maximum(dc, 0.0, out=dc), out=dc)
+        for bi in range(s, e):
+            if bi in owned_set:
+                dist_cache[bi] = dc[bi - s]
+
+    # Round 0: the admitted-at-lam candidate exchange.
+    needs = set()
+    for bi in owned_q:
+        keep = (dist_cache[bi] <= lam + radii) & (ranks < ranks[bi])
+        for j in np.nonzero(keep)[0]:
+            j = int(j)
+            if not flat.has_block(j):
+                needs.add(j)
+    _fetch_halo(comm, needs, flat, blocks.members, table, host_of_block, beta)
+
+    neigh: list = [np.empty(0, np.int64)] * bc
+    pending = owned_q
+    rounds = 1
+    while True:
+        misses: set[int] = set()
+        still = []
+        for bi in pending:
+            try:
+                neigh[bi] = _one_block(bi, centers[bi], dist_cache[bi], lam,
+                                       m, ranks, flat)
+            except _HaloMiss as e:
+                misses.update(int(b) for b in e.missing)
+                still.append(bi)
+        outstanding = comm.allreduce_scalar(float(len(misses)))
+        if outstanding == 0:
+            break
+        _fetch_halo(comm, misses, flat, blocks.members, table,
+                    host_of_block, beta)
+        pending = still
+        rounds += 1
+        if rounds > 64:
+            raise RuntimeError("halo-exchange NNS failed to converge")
+    stats = {"halo_rounds": rounds, "halo_blocks": flat.halo_blocks,
+             "halo_rows": flat.halo_rows}
+    return neigh, flat, stats
+
+
+def multihost_preprocess(
+    pstore, beta: np.ndarray, cfg, stream_chunk: int, comm,
+    struct_batch: int | None = None,
+) -> MultihostStructure:
+    """The multi-process `streaming_preprocess`: every stage holds only
+    this host's share (partition windows, owned-block rows, admitted halo
+    blocks) while the replicated summaries stay O(bc)."""
+    bytes0 = getattr(comm, "bytes_sent", 0) + getattr(comm, "bytes_recv", 0)
+    secs0 = getattr(comm, "exchange_s", 0.0)
+    blocks, radii, vol, host_of_block, sizes = multihost_kmeans_blocks(
+        pstore, beta, cfg.n_blocks, comm, seed=cfg.seed,
+        batch_rows=struct_batch or DEFAULT_STRUCT_BATCH,
+        ordering=cfg.ordering,
+    )
+    table = _membership_exchange(pstore, blocks, host_of_block, comm)
+    owned_rows = table.n_rows
+    neigh, _flat, halo_stats = multihost_filtered_nns(
+        blocks, sizes, radii, table, host_of_block, beta, cfg.m, comm,
+        alpha=cfg.alpha, domain_volume=vol,
+    )
+    owned_ranks = np.sort(blocks.rank_of_block[host_of_block == comm.rank])
+    plan = plan_block_chunks(blocks, neigh, cfg.m, stream_chunk,
+                             ranks=owned_ranks)
+    bs_max = int(sizes.max()) if sizes.size else 0
+    if cfg.bs_max is not None:
+        bs_max = max(bs_max, cfg.bs_max)
+    stats = {
+        "n_hosts": comm.size, "rank": comm.rank,
+        "rows_local": pstore.n_local, "owned_rows": owned_rows,
+        "owned_blocks": int(np.sum(host_of_block == comm.rank)),
+        "exchange_bytes": getattr(comm, "bytes_sent", 0)
+        + getattr(comm, "bytes_recv", 0) - bytes0,
+        "exchange_s": getattr(comm, "exchange_s", 0.0) - secs0,
+        **halo_stats,
+    }
+    return MultihostStructure(
+        blocks=blocks, neigh=neigh, table=table,
+        host_of_block=host_of_block, sizes=sizes, domain_volume=vol,
+        plan=plan, bs_max=bs_max, stats=stats,
+    )
+
+
 # -- prediction-side gather ------------------------------------------------
 
 
@@ -784,13 +1367,19 @@ def working_set_model(stream_stats: dict, n_rows: int, d: int, m: int,
       the cached pieces ARE host RSS, so they count double (buffer +
       transfer transient). Only present when the run cached pieces.
 
+    MULTI-HOST runs (``stream_stats`` carrying ``n_hosts > 1`` from the
+    multihost fit) get the reference's PER-HOST version of the n-scaled
+    terms: the NNS scan and index arrays cover only the rows this host can
+    touch (owned-block rows + ingested halo rows), and two terms are added,
+    the resident ``HostRowTable`` (+ exchange transients) and the
+    partition-pass window spike of the membership exchange.
+
     On a CUDA ``device`` the device-grad and device-spool terms live in
     device memory: they are returned under ``device_terms`` and left out
     of ``terms`` and ``total``, which then model host RSS alone.
 
     The same constants applied to the WHOLE dataset give
-    ``incore_total``: what the monolithic path would hold resident. The
-    multi-host terms of the reference wait for the multi-host fit.
+    ``incore_total``: what the monolithic path would hold resident.
     """
     st = stream_stats
     joint2 = (st["bs_max"] + m) ** 2
@@ -803,6 +1392,12 @@ def working_set_model(stream_stats: dict, n_rows: int, d: int, m: int,
         "index_arrays": 4 * n_rows * 8 + st["bc"] * m * 8,
         "gather_caches": n_caches * (32 << 20),
     }
+    if st.get("n_hosts", 1) > 1:
+        resident = int(st["owned_rows"]) + int(st.get("halo_rows", 0))
+        terms["nns_scan"] = 3 * resident * d * 8
+        terms["index_arrays"] = 4 * resident * 8 + st["bc"] * m * 8
+        terms["row_table"] = 3 * resident * (d + 2) * 8
+        terms["partition_pass"] = 3 * int(st["rows_local"]) * (d + 1) * 8
     if st.get("device_cached_bytes"):
         terms["device_spool"] = 2 * st["device_cached_bytes"]
     device_terms = {}

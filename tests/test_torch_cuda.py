@@ -1201,3 +1201,102 @@ def test_bf16_piece_spool_round_trip_on_cuda(dev, tmp_path):
                     want = torch.as_tensor(getattr(piece, k))
                     assert a.is_cuda and a.dtype == want.dtype and torch.equal(a.cpu(), want), k
         sp.cleanup()
+
+
+# -- distributed (Alg. 1) and multi-host (Alg. 2) on the card -----------------
+
+
+def _mesh_problem(dev, k=4):
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    x, y, beta = _data(n=1200)
+    packed, _ = preprocess(x, y, beta, SBVConfig(n_blocks=30, m=30, n_workers=k))
+    return packed, _params(beta, dev), make_worker_mesh(k)
+
+
+def test_distributed_shards_match_one_shard_on_card(dev):
+    """4 workers on the card against the serial loss closure: one kernel
+    launch per shard, loss within 1e-12, gradient within 1e-11. A
+    gradient leaf sums per-block terms of both signs, so the shard order
+    moves it by more than the loss: one leaf (-1.17) moved by 1.0e-12 of
+    its size in the first run on an H100."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.fit import _value_and_grad, neg_loglik_fn
+
+    packed, p, mesh = _mesh_problem(dev)
+    assert all(d.type == "cuda" for d in mesh.devices)
+    v1, g1 = _value_and_grad(neg_loglik_fn(packed, 3.5, "auto", device=dev), p)
+    before = _build.LAUNCHES["sbv_loglik"]
+    v4, g4 = _value_and_grad(dist.distributed_neg_loglik_fn(packed, 3.5, mesh), p)
+    assert _build.LAUNCHES["sbv_loglik"] - before == 4
+    np.testing.assert_allclose(float(v4), float(v1), rtol=1e-12)
+    for a, b in zip(g4, g1):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-11)
+
+
+def test_distributed_bucketed_evaluation_on_card(dev):
+    from repro_torch.core import buckets
+    from repro_torch.core import distributed as dist
+
+    packed, p, mesh = _mesh_problem(dev)
+    bk = buckets.bucket_blocks(packed, n_buckets=3)
+    want = vecchia.bucketed_loglik(p, bk)
+    before = _build.LAUNCHES["sbv_loglik"]
+    got = dist.distributed_bucketed_loglik(p, bk, mesh)
+    assert _build.LAUNCHES["sbv_loglik"] - before == 4 * bk.n_buckets
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-12)
+
+
+def test_sharded_predict_on_card_is_bitwise(dev):
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    x, y, beta = _data(n=1200)
+    index = tpredict.build_train_index(x, y, beta, 40, n_workers=4)
+    xq = np.random.default_rng(3).uniform(size=(300, 4))
+    packed = tpredict.pack_queries(index, xq, bs_pred=8, m_pred=40, n_workers=4)
+    p = _params(beta, dev)
+    mu, var = tpredict.batched_block_predict(p, *(torch.as_tensor(a).to(dev)
+                                                  for a in packed.arrays()))
+    before = _build.LAUNCHES["sbv_predict"]
+    sharded, mu4, var4 = dist.sharded_packed_predict(p, packed, make_worker_mesh(4))
+    assert _build.LAUNCHES["sbv_predict"] - before == 4
+    got, want = (np.zeros((2, 300)) for _ in range(2))
+    tpredict.scatter_packed(packed, (mu, want[0]), (var, want[1]))
+    tpredict.scatter_packed(sharded, (mu4, got[0]), (var4, got[1]))
+    np.testing.assert_array_equal(got, want)
+
+
+def test_two_rank_gloo_fit_on_card(dev, tmp_path):
+    """``fit_gp --distributed-hosts 2 --device cuda`` at the CPU tests'
+    fixture: 2 ranks share the card, spread 0.0, within 1e-8 of the serial
+    streaming fit on the card, each rank launching the kernel."""
+    import json
+    import os
+    import subprocess
+
+    from repro_torch.core.fit import fit_sbv
+    from repro_torch.data.store import ArrayStore
+
+    rng = np.random.default_rng(0)
+    x, y = rng.uniform(size=(2000, 4)), rng.normal(size=2000)
+    store = ArrayStore.from_arrays(str(tmp_path / "s"), x, y, shard_rows=512)
+    kw = dict(blocks=24, m=8, inner_steps=4, outer_rounds=2, stream_chunk=600)
+    serial = fit_sbv(store, None, SBVConfig(n_blocks=24, m=8, seed=0), inner_steps=4,
+                     outer_rounds=2, stream_chunk=600, device=dev)
+    result = str(tmp_path / "r.json")
+    cmd = [sys.executable, "-m", "repro_torch.launch.fit_gp", "--store", store.path,
+           "--distributed-hosts", "2", "--seed", "0", "--device", "cuda", "--timeout", "240",
+           "--result-json", result]
+    for k, v in kw.items():
+        cmd += [f"--{k.replace('_', '-')}", str(v)]
+    root = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    proc = subprocess.run(cmd, cwd=str(root), env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with open(result) as f:
+        merged = json.load(f)
+    assert merged["max_nll_spread"] == 0.0
+    assert abs(merged["nll"] - serial.history[-1][2]) <= 1e-8
+    assert all(rk["launches"]["sbv_loglik"] > 0 for rk in merged["ranks"])

@@ -86,9 +86,10 @@ def test_entry_points_refuse_without_device_when_no_cuda(monkeypatch):
         predict_sbv(KernelParams.create(beta=[0.5, 0.5]), x, y, x[:5], bs_pred=2, m_pred=4)
 
 
-@pytest.mark.parametrize("kw", [{"distributed": object()},
-                                {"stream_chunk": 10, "distributed": object()},
-                                {"tuning": object()}, {"multihost": object()}])
+@pytest.mark.parametrize("kw", [{"stream_chunk": 10, "multihost": object(), "n_buckets": 2},
+                                {"stream_chunk": 10, "tuning": object()},
+                                {"tuning": object()},
+                                {"stream_chunk": 10, "multihost": object(), "tuning": object()}])
 def test_unported_options_raise(kw):
     from repro_torch.core import SBVConfig
     from repro_torch.core.fit import fit_sbv

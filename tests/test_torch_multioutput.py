@@ -229,7 +229,8 @@ def test_convert_round_trips_and_params_api(problem):
 
 @pytest.mark.parametrize("kw", [{"tuning": object()}, {"stream_chunk": 100, "n_buckets": 2},
                                 {"stream_chunk": 100, "device_cache": 2, "multihost": object()},
-                                {"multihost": object()}, {"distributed": object()}])
+                                {"stream_chunk": 100, "distributed": object()},
+                                {"distributed": object()}])
 def test_multi_unported_options_raise(problem, kw):
     x, y, _, _, _ = problem
     with pytest.raises(NotImplementedError):

@@ -448,17 +448,14 @@ def test_streaming_entry_points_need_a_device_without_cuda(small, monkeypatch):
                              stream_chunk=300, bs_pred=4, m_pred=8)
 
 
-@pytest.mark.parametrize("kw,item", [({"distributed": object()}, 8),
-                                     ({"multihost": object()}, 10),
-                                     ({"tuning": object()}, 11)])
+@pytest.mark.parametrize("kw,item", [({"tuning": object()}, 11)])
 def test_unported_streaming_options_name_their_roadmap_item(small, kw, item):
     x, y, ref_p = small
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         fit_sbv(x, y, SBVConfig(**CFG), stream_chunk=300, device="cpu", **kw)
-    if "distributed" not in kw:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            tpredict.predict_sbv(params_from_reference(*_leaves(ref_p)), x, y, x[:20],
-                                 device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        tpredict.predict_sbv(params_from_reference(*_leaves(ref_p)), x, y, x[:20],
+                             device="cpu", **kw)
 
 
 # -- the joint-assembly likelihood (the streaming ref route's body) ----------
