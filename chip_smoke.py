@@ -121,6 +121,16 @@ N_STREAM_TEST, STREAM_PRED_CHUNK, N_STREAM_BITWISE = 20_000, 10_000, 2_000
 # the multi-host fit and prediction on 2 rank processes, all on the one
 # card; each rank's wall-clock limit and the rendezvous timeout.
 N_WORKERS, DIST_INNER, N_RANKS, N_MH_TEST, RANK_TIMEOUT = 4, 3, 2, 20_000, 400
+# The checkpoints, tuning and serving phase: the autotuner on a 20,000-row
+# stride sample of the training set (the reference's default), the server at
+# the main path's widths with its default chunk, 32 drain-mode requests over
+# the 50,000 held-out points, 48 continuous-mode requests of log-uniform
+# sizes in 1-8,192 (2 cancelled), and the serve CLI on 20,000 training points
+# of the generator (cut from the main path's 200,000: each of its processes
+# rebuilds the data) serving 50,000 points, alone and on 2 ranks.
+TUNE_SAMPLE, TUNE_REPEATS, SERVE_CHUNK = 20_000, 3, 4096
+N_DRAIN_REQ, N_CONT_REQ, N_CANCEL, MAX_REQ = 32, 48, 2, 8192
+SERVE_CLI_TRAIN, SERVE_CLI_TEST = 20_000, 50_000
 
 
 class SmokeFailure(RuntimeError):
@@ -2059,6 +2069,427 @@ def distributed_phase(dev, results: dict, x_tr, y_tr, x_te, cfg, init, true_p, i
             "rank_sbv_predict": rank_pred}
 
 
+def _launch_line(step: str, counts: dict) -> dict:
+    """Print one step's GP kernel launches (the f64 and bf16 variants of the
+    likelihood and the predict kernel), each on its own line."""
+    for k in ("sbv_predict", "sbv_predict_bf16", "sbv_loglik", "sbv_loglik_bf16"):
+        log(f"serving step {step} launches {k}: {counts.get(k, 0)}")
+    return counts
+
+
+def _chunk_line(label: str, n_points: int, wall: float, timer) -> dict:
+    s = timer.summary()
+    row = dict(points_per_s=n_points / wall, wall_s=wall, n_chunks=s["n_chunks"],
+               pack_s=s["pack_s"], compute_s=s["compute_s"], land_wait_s=s["land_wait_s"],
+               wall_s_per_chunk=wall / max(s["n_chunks"], 1))
+    log(f"serving {label}: {n_points} points in {s['n_chunks']} chunks of {SERVE_CHUNK}, "
+        f"{wall:.3f} s ({row['points_per_s']:.0f} points/s); per chunk: pack "
+        f"{s['pack_s']:.4f} s, compute {s['compute_s']:.5f} s (CUDA events: kernel + copies "
+        f"back), land wait {s['land_wait_s']:.4f} s, wall {row['wall_s_per_chunk']:.4f} s")
+    return row
+
+
+def hold_served_chunk(label: str, dev, params, pk, mean, var) -> dict:
+    """One served chunk's kernel launch held against its plain version.
+
+    ``pk`` is the chunk packed as the server packed it (the same index,
+    seed, offset and padding), ``mean`` / ``var`` the served results its
+    query indices point into. The predict wrapper runs on the chunk's
+    operands and is held against ``sbv_predict_plain`` within 10 eps
+    cond(K_NN) of the output scale (the main path's limit), and the served
+    rows must be bitwise the wrapper's output: the server launched the same
+    kernel on the same operands. The launch is a comparison one: the caller
+    has read the step's counts already."""
+    import torch
+
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core import vecchia
+    from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
+
+    a = tpredict.upload_packed(pk, dev)
+    with torch.no_grad():
+        pr = (params.beta.double(), params.sigma2.double(), params.nugget.double())
+        got = sbv_predict_cuda(*pr, *a)
+        want = sbv_predict_plain(*pr, *a)
+        nn_m = a[4].bool()
+        ev = torch.linalg.eigvalsh(vecchia._masked_cov(a[2], a[2], nn_m, nn_m, *pr, 3.5,
+                                                       identity=True))
+    msk = a[1].bool()
+    cond = float((ev[:, -1] / ev[:, 0]).max())
+    scale = max(1.0, max(float(w.abs()[msk].max()) for w in want))
+    err = max(float((g - w).abs()[msk].max()) for g, w in zip(got, want))
+    tol = max(1e-10, 10 * 2.2e-16 * cond)
+    rows = np.asarray(pk.q_idx)[np.asarray(pk.q_mask)]
+    h_msk = msk.cpu().numpy()
+    same = all(np.array_equal(served[rows], g.cpu().numpy()[h_msk])
+               for served, g in zip((mean, var), got))
+    log(f"serving {label}: chunk of {len(rows)} points (bc={pk.n_blocks}, bs={pk.bs_pred}, "
+        f"m={pk.m_pred}): predict kernel vs plain max abs err {err:.3e} (|out| max {scale:.3g}, "
+        f"max cond(K_NN) {cond:.3e}, limit {tol:.1e} x {scale:.3g}); served rows bitwise the "
+        f"kernel's: {same}")
+    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+          f"serving {label}: non-finite kernel output")
+    check(err <= tol * scale, f"serving {label}: kernel vs plain {err:.3e} > {tol:.1e} x {scale:.3g}")
+    check(same, f"serving {label}: served rows differ from the kernel's output on the chunk")
+    return dict(max_abs_err=err, cond=cond, scale=scale)
+
+
+def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, index,
+                  work: str) -> dict:
+    """Checkpoints, the autotuner and GP serving (ROADMAP items 11 and 12) on
+    the single-output path's data, fitted params and 50,000 held-out points:
+
+    a. ``save_checkpoint`` of the fitted params and one bf16 tensor, then
+       ``restore_train_state(..., device=cuda)``: bitwise;
+    b. ``autotune_loglik`` on the 200,000-point training set (a 20,000-row
+       sample, bucket levels (0, 2, 4, 8) x tiers (bf16, f32, f64), best of
+       3), its record reloaded to an equal dict, then ``fit_sbv(tuning=)`` on
+       the sample (1 x 2);
+    c. a drain-mode ``GPServer`` (f64, ``backend="auto"``, chunks of 4,096,
+       the main path's index, whose structure is the generator's beta) on the
+       50,000 points as 32 requests in one micro-batch, each request against
+       its slice of ``predict_synchronous`` over the concatenation; the
+       pipelined and synchronous loops timed per chunk;
+    d. continuous mode: 48 requests of log-uniform sizes, alternately
+       interactive and bulk, 2 cancelled mid-stream; each finished request
+       against ``predict_synchronous`` of it alone, 4 against a lone
+       ``predict_sbv``; latency per SLO class;
+    e. the same stream through 2 replicas (a CUDA stream each) behind the
+       affinity router;
+    f. ``python -m repro_torch.launch.serve gp --tuning-record`` (b's
+       record) alone and with ``--distributed-hosts 2``.
+
+    The kernels are held against their plain versions at the phase's own
+    shapes: in b, every bucket of every layout the autotuner timed, at each
+    tier it probed; in c and d, served chunks (``hold_served_chunk``).
+
+    Returns the phase's launches of the likelihood and predict kernels,
+    its own and those counted in the CLI's processes."""
+    import torch
+
+    from repro_torch.ckpt import CheckpointManager, restore_train_state, save_checkpoint
+    from repro_torch.ckpt.checkpoint import _flatten
+    from repro_torch.core import SBVConfig, vecchia
+    from repro_torch.core import predict as tpredict
+    from repro_torch.core.buckets import bucket_blocks, cast_packed
+    from repro_torch.core.fit import fit_sbv
+    from repro_torch.core.kernels_math import KernelParams
+    from repro_torch.core.pipeline import preprocess
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sbv_loglik import sbv_loglik_cuda, sbv_loglik_plain
+    from repro_torch.serving import (BatchingPolicy, ChunkTimer, GPServer, GPServerConfig,
+                                     PipelineConfig, ReplicaRouter, SchedulerPolicy,
+                                     predict_pipelined, predict_synchronous)
+    from repro_torch.tuning import TuningRecord, autotune_loglik, settled_tier
+
+    total = {"sbv_loglik": 0, "sbv_predict": 0, "sbv_loglik_bf16": 0, "sbv_predict_bf16": 0}
+    out = {}
+
+    def count(step):
+        c = _launch_line(step, ops.launch_counts())
+        for k in total:
+            total[k] += c.get(k, 0)
+        return c
+
+    # a. Checkpoints.
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    state = {"params": fit_params,
+             "bf16": torch.randn(64, 96, generator=g, device=dev).to(torch.bfloat16)}
+    path = save_checkpoint(os.path.join(work, "ckpt"), OUTER * INNER, state,
+                           extras={"phase": "serving"})
+    restored, manifest = restore_train_state(path, state, device=dev)
+    flat_a, flat_b = _flatten(state), _flatten(restored)
+    bits = lambda v: v.view(torch.int16) if v.dtype == torch.bfloat16 else v
+    same = all(flat_b[k].is_cuda and flat_b[k].dtype == v.dtype
+               and torch.equal(bits(flat_b[k]), bits(v)) for k, v in flat_a.items())
+    mgr = CheckpointManager(os.path.join(work, "ckpt_async"), keep=1)
+    mgr.save(1, state)
+    mgr.save(2, state)
+    mgr.close()
+    kept = sorted(os.listdir(os.path.join(work, "ckpt_async")))
+    log(f"serving step a (checkpoint): {len(flat_a)} leaves (bf16 {tuple(state['bf16'].shape)}) "
+        f"saved and restored onto {dev} bitwise={same}; manifest step {manifest['step']}; "
+        f"async keep-1 left {kept}; {time.perf_counter() - t:.2f} s")
+    check(same, "checkpoint: a restored leaf differs from the saved one")
+    check(kept == ["step_00000002"], f"checkpoint manager kept {kept}")
+    count("a")
+
+    # b. The autotuner on the training set, then a fit from its record.
+    ops.reset_launch_counts()
+    tdir = os.path.join(work, "tuning")
+    cfg_t = SBVConfig(n_blocks=TUNE_SAMPLE // 100, m=M_FIT, seed=SEED)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rec = autotune_loglik(x_tr, y_tr, cfg_t, sample_rows=TUNE_SAMPLE, bucket_grid=(0, 2, 4, 8),
+                          tiers=("bf16", "f32", "f64"), repeats=TUNE_REPEATS, save_dir=tdir,
+                          device=dev)
+    t_tune = time.perf_counter() - t
+    for c in rec.candidates:
+        log(f"autotune candidate K={c['n_buckets'] or '-'} tier={c['precision']}: "
+            f"{1e3 * c['time_s']:.3f} ms, occupancy {c['occupancy']:.4f}, tiers {c['tiers']}")
+    log(f"autotune: {t_tune:.2f} s for {len(rec.candidates)} candidates on {TUNE_SAMPLE} of "
+        f"{len(x_tr)} rows (bs_max {rec.meta['bs_max']}, m {rec.meta['m']}); winner "
+        f"K={rec.n_buckets} precision={rec.precision} tiers={rec.bucket_tiers} occupancy "
+        f"{rec.occupancy:.4f}, stream_chunk={rec.stream_chunk}, device cache budget "
+        f"{rec.device_cache_budget / 2**30:.2f} GiB")
+    c = count("b (autotune)")
+    check(c["sbv_loglik"] + c["sbv_loglik_bf16"] > 0, "autotune: no likelihood kernel launch")
+    check(len(rec.candidates) == 12 and all(math.isfinite(c_["time_s"]) and c_["time_s"] > 0
+                                            for c_ in rec.candidates),
+          "autotune: missing or bad candidate times")
+    check(TuningRecord.load(tdir).to_dict() == rec.to_dict(), "autotune: record reload differs")
+    # The likelihood kernel at the autotuner's shapes: its sample, params
+    # and structure rebuilt as autotune_loglik builds them; every bucket of
+    # the uniform layout and of K = 2, 4, 8, cast to each tier (what the
+    # probes launch; a timed candidate runs each bucket at one of these),
+    # against the plain version per block: f64 1e-9, f32 and bf16 at the
+    # ladder's limits (the same nugget of 1e-3 as the fit's initial params).
+    idx = np.linspace(0, len(x_tr) - 1, TUNE_SAMPLE).astype(np.int64)
+    t = time.perf_counter()
+    p_t = KernelParams.create(sigma2=float(np.var(y_tr[idx])), beta=0.5, nugget=1e-3,
+                              d=x_tr.shape[1], device=dev)
+    packed_t, _ = preprocess(x_tr[idx], y_tr[idx], p_t.beta.cpu().numpy(), cfg_t)
+    check((packed_t.bs_max, packed_t.m) == (rec.meta["bs_max"], rec.meta["m"]),
+          "autotune: the rebuilt sample's shapes differ from the record's")
+    lim = {"f64": 1e-9, "f32": LADDER_TOL_F32, "bf16": LADDER_TOL_BF16}
+    tune_err, n_held = dict.fromkeys(lim, 0.0), 0
+    for k in (0, 2, 4, 8):
+        for pk in (bucket_blocks(packed_t, n_buckets=k).buckets if k else [packed_t]):
+            for tier in lim:
+                dt = torch.float64 if tier == "f64" else torch.float32
+                a = vecchia.packed_arrays(cast_packed(pk, tier), dev)
+                pr = (p_t.beta.to(dt), p_t.sigma2.to(dt), p_t.nugget.to(dt))
+                with torch.no_grad():
+                    got, want = sbv_loglik_cuda(*pr, *a), sbv_loglik_plain(*pr, *a)
+                check(bool(torch.isfinite(got).all()), f"autotune K={k} {tier}: non-finite")
+                tune_err[tier] = max(tune_err[tier], block_rel(got, want))
+                n_held += 1
+    log(f"autotune shapes: {n_held} (bucket, tier) launches vs plain "
+        f"({time.perf_counter() - t:.2f} s): per-block max rel "
+        + ", ".join(f"{k_} {v:.3e} (limit {lim[k_]:g})" for k_, v in tune_err.items()))
+    check(all(tune_err[k_] <= lim[k_] for k_ in lim),
+          f"autotune shapes: kernel vs plain {tune_err} beyond {lim}")
+    out["autotune_plain_rel"] = tune_err
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    fit_t = fit_sbv(x_tr[idx], y_tr[idx], cfg_t, inner_steps=2, outer_rounds=1, tuning=tdir,
+                    device=dev)
+    losses = [h[2] for h in fit_t.history]
+    log(f"fit_sbv(tuning=record) on the sample, 1 x 2: {time.perf_counter() - t:.2f} s, "
+        f"losses {losses}, tiers {fit_t.precision_tiers}")
+    count("b (fit from the record)")
+    check(len(losses) == 2 and all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
+          "fit_sbv(tuning=): losses missing, non-finite or not decreasing")
+    out["autotune"] = dict(seconds=t_tune, winner=[rec.n_buckets, rec.precision],
+                           candidates=rec.candidates)
+
+    # c. Drain mode: the 50,000 points as 32 requests in one micro-batch.
+    pipe = PipelineConfig(bs_pred=BS_PRED, m_pred=M_PRED, chunk_size=SERVE_CHUNK,
+                          backend="auto")
+    bounds = np.linspace(0, len(x_te), N_DRAIN_REQ + 1).astype(int)
+    reqs = [x_te[a:b] for a, b in zip(bounds[:-1], bounds[1:])]
+    conf = GPServerConfig(pipeline=pipe, policy=BatchingPolicy(max_points=10 * len(x_te),
+                                                               max_wait_s=30.0), seed=SEED)
+    ops.reset_launch_counts()
+    server = GPServer(fit_params, x_tr, y_tr, conf, index=index, device=dev)
+    t = time.perf_counter()
+    with server:
+        futs = [server.submit(r) for r in reqs]
+        server.flush()
+        served = [f.result(timeout=600) for f in futs]
+    wall_srv = time.perf_counter() - t
+    c = count("c (drain server)")
+    n_chunks = math.ceil(len(x_te) / SERVE_CHUNK)
+    st_ = server.stats.summary()
+    log(f"serving drain: {len(reqs)} requests in {st_['n_batches']} batch(es), {wall_srv:.3f} s "
+        f"({len(x_te) / wall_srv:.0f} points/s, latency p50 {st_['latency_p50_s']:.3f} s)")
+    check(st_["n_batches"] == 1, f"drain: {st_['n_batches']} batches, expected 1")
+    check(c["sbv_predict"] == n_chunks, f"drain: {c['sbv_predict']} predict launches, "
+          f"expected {n_chunks}")
+    # The batch's chunk 0 (4,096 points, the batch's seed, SEED), as the
+    # server packed it.
+    _, chunk0 = next(tpredict.iter_query_chunks(index, x_te, BS_PRED, M_PRED, seed=SEED,
+                                                chunk_size=SERVE_CHUNK))
+    out["drain_plain"] = hold_served_chunk(
+        "drain chunk 0", dev, fit_params, chunk0, np.concatenate([r.mean for r in served]),
+        np.concatenate([r.var for r in served]))
+    timers = {}
+    ops.reset_launch_counts()
+    for label, runner in (("synchronous", predict_synchronous), ("pipelined", predict_pipelined),
+                          ("pipelined again", predict_pipelined),
+                          ("synchronous again", predict_synchronous)):
+        timers[label] = ChunkTimer()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = runner(fit_params, index, x_te, pipe, seed=SEED, device=dev, timer=timers[label])
+        torch.cuda.synchronize()
+        out[label] = _chunk_line(label, len(x_te), time.perf_counter() - t, timers[label])
+        if label == "synchronous":
+            want = got
+        else:
+            check(all(np.array_equal(a_, b_) for a_, b_ in zip(got, want)),
+                  f"serving: the {label} loop is not bitwise the synchronous one")
+    err = max(max(float(np.abs(r.mean - want[0][a:b]).max()),
+                  float(np.abs(r.var - want[1][a:b]).max()))
+              for r, a, b in zip(served, bounds[:-1], bounds[1:]))
+    log(f"serving drain: each request vs its slice of predict_synchronous over the "
+        f"concatenation: max |delta| {err:.3e} (limit 1e-12)")
+    check(err <= 1e-12, f"drain serving parity {err:.3e} > 1e-12")
+    check(bool(np.isfinite(want[0]).all()) and bool((want[1] > 0).all()), "serving: bad output")
+    c = count("c (pipelined and synchronous loops)")
+    check(c["sbv_predict"] == 4 * n_chunks, "serving loops: predict launches")
+
+    # d. Continuous mode: 48 requests, 2 cancelled mid-stream.
+    rng = np.random.default_rng(SEED + 20)
+    sizes = np.minimum(MAX_REQ, np.exp(rng.uniform(0, math.log(MAX_REQ), N_CONT_REQ))
+                       .astype(int) + 1)
+    starts = rng.integers(0, len(x_te) - sizes)
+    stream = [(x_te[s0:s0 + n], "interactive" if i % 2 == 0 else "bulk")
+              for i, (s0, n) in enumerate(zip(starts, sizes))]
+    bulk = [i for i, (_, slo) in enumerate(stream) if slo == "bulk"]
+    # The largest bulk requests, in submission order (FIFO within a class),
+    # so each is still running when its cancel comes.
+    victims = sorted(sorted(bulk, key=lambda i: -len(stream[i][0]))[:N_CANCEL])
+    sconf = GPServerConfig(pipeline=pipe, policy=BatchingPolicy(max_wait_s=0.002),
+                           scheduler=SchedulerPolicy(), seed=SEED)
+    refs = []
+    for xq, _ in stream:
+        refs.append(predict_synchronous(fit_params, index, xq, pipe, seed=SEED, device=dev))
+    ops.reset_launch_counts()
+    server = GPServer(fit_params, x_tr, y_tr, sconf, index=index, device=dev)
+    t = time.perf_counter()
+    with server:
+        futs = [server.submit(xq, slo=slo) for xq, slo in stream]
+        for v in victims:
+            # Mid-stream: cancel once the victim's first chunk is dispatched.
+            deadline = time.monotonic() + 120
+            while getattr(server._sched._by_future.get(futs[v]), "next_ci", 0) < 1:
+                check(time.monotonic() < deadline and not futs[v].done(),
+                      f"request {v} never started or finished before its cancel")
+                time.sleep(0.0005)
+            check(server.cancel(futs[v]), f"cancel of request {v} refused")
+        server.flush()
+        done = {i: f.result(timeout=600) for i, f in enumerate(futs) if i not in victims}
+    wall_c = time.perf_counter() - t
+    c = count("d (continuous)")
+    check(c["sbv_predict"] > 0, "continuous: no predict launch")
+    check(all(futs[v].cancelled() for v in victims), "continuous: a victim was not cancelled")
+    err = max(max(float(np.abs(r.mean - refs[i][0]).max()),
+                  float(np.abs(r.var - refs[i][1]).max())) for i, r in done.items())
+    st_ = server.stats.summary()
+    n_pts = int(sum(len(stream[i][0]) for i in done))
+    log(f"serving continuous: {len(done)} requests ({n_pts} points, sizes {int(sizes.min())}-"
+        f"{int(sizes.max())}) in {wall_c:.3f} s; cancelled {st_['n_cancelled']} "
+        f"(requests {victims}, {[len(stream[v][0]) for v in victims]} points); preempted "
+        f"{st_['n_preempted']}; each vs predict_synchronous alone: max |delta| {err:.3e}")
+    for name, cls in st_["by_class"].items():
+        log(f"serving continuous {name}: n={cls['n']} latency p50 {cls['latency_p50_s']:.4f} s "
+            f"p99 {cls['latency_p99_s']:.4f} s")
+    check(err <= 1e-12, f"continuous serving parity {err:.3e} > 1e-12")
+    check(st_["n_cancelled"] == N_CANCEL, f"continuous: {st_['n_cancelled']} cancelled")
+    # Chunk 0 of the smallest and of the largest finished request, packed as
+    # the scheduler packs a (request, chunk) unit (pipeline.pack_scheduled).
+    for i in (min(done, key=lambda i: len(stream[i][0])),
+              max(done, key=lambda i: len(stream[i][0]))):
+        xq = stream[i][0]
+        unit = tpredict.pack_queries(index, xq[:min(len(xq), SERVE_CHUNK)], BS_PRED, M_PRED,
+                                     seed=SEED, pad_shapes=True)
+        out[f"continuous_plain_{len(xq)}"] = hold_served_chunk(
+            f"continuous request {i} chunk 0", dev, fit_params, unit, done[i].mean, done[i].var)
+    out["continuous"] = dict(wall_s=wall_c, points=n_pts, by_class=st_["by_class"],
+                             n_preempted=st_["n_preempted"])
+    lone = sorted(done, key=lambda i: len(stream[i][0]))[::max(1, len(done) // 4)][:4]
+    lone_err = 0.0
+    for i in lone:
+        p_ = tpredict.predict_sbv(fit_params, x_tr, y_tr, stream[i][0], bs_pred=BS_PRED,
+                                  m_pred=M_PRED, seed=SEED, chunk_size=SERVE_CHUNK, n_sims=2,
+                                  beta_struct=beta_true, device=dev)
+        lone_err = max(lone_err, float(np.abs(done[i].mean - p_.mean).max()),
+                       float(np.abs(done[i].var - p_.var).max()))
+    log(f"serving continuous vs lone predict_sbv on requests {lone} "
+        f"({[len(stream[i][0]) for i in lone]} points): max |delta| {lone_err:.3e}")
+    check(lone_err <= 1e-12, f"served vs lone predict_sbv {lone_err:.3e} > 1e-12")
+
+    # e. The same stream through 2 replicas behind the affinity router.
+    ops.reset_launch_counts()
+    reps = [GPServer(fit_params, x_tr, y_tr, sconf, index=index, device=dev) for _ in range(2)]
+    t = time.perf_counter()
+    with ReplicaRouter(reps, routing="affinity", seed=SEED) as router:
+        futs = [router.submit(xq, slo=slo) for xq, slo in stream]
+        router.flush()
+        routed = [f.result(timeout=600) for f in futs]
+    wall_r = time.perf_counter() - t
+    c = count("e (2 replicas)")
+    rs = router.summary()
+    err = max(max(float(np.abs(r.mean - refs[i][0]).max()),
+                  float(np.abs(r.var - refs[i][1]).max())) for i, r in enumerate(routed))
+    log(f"serving router: {len(stream)} requests over 2 replicas in {wall_r:.3f} s; affinity "
+        f"hit rate {rs['affinity_hit_rate']:.3f}, requests per replica "
+        f"{rs['replica_requests']}, shapes {[r_['n_compiled_shapes'] for r_ in rs['replicas']]};"
+        f" each vs predict_synchronous alone: max |delta| {err:.3e}")
+    check(c["sbv_predict"] > 0, "router: no predict launch")
+    check(err <= 1e-12, f"routed serving parity {err:.3e} > 1e-12")
+    out["router"] = dict(wall_s=wall_r, affinity_hit_rate=rs["affinity_hit_rate"],
+                         replica_requests=rs["replica_requests"])
+
+    # f. The serve CLI from b's record, alone and on 2 ranks. The record
+    # fills the buckets, the backend and the tier: the widest its winner's
+    # buckets settled at, since serving probes nothing (a narrow label the
+    # probe demoted everywhere would be ROADMAP fault 4).
+    env = dict(os.environ, PYTHONPATH=os.path.join(str(ROOT), "src"))
+    cli = [sys.executable, "-m", "repro_torch.launch.serve", "gp", "--n-train",
+           str(SERVE_CLI_TRAIN), "--n-test", str(SERVE_CLI_TEST), "--requests",
+           str(N_DRAIN_REQ), "--scheduler", "continuous", "--chunk", str(SERVE_CHUNK),
+           "--bs-pred", str(BS_PRED), "--m-pred", str(M_PRED), "--tuning-record", tdir,
+           "--seed", str(SEED)]
+    cli_launches = {}
+    for label, extra in (("alone", []), ("2 ranks", ["--distributed-hosts", str(N_RANKS),
+                                                     "--timeout", str(RANK_TIMEOUT)])):
+        res_json = os.path.join(work, f"serve_{len(extra)}.json")
+        t = time.perf_counter()
+        proc = subprocess.run(cli + extra + ["--result-json", res_json], env=env,
+                              capture_output=True, text=True, timeout=2 * RANK_TIMEOUT)
+        secs = time.perf_counter() - t
+        for line in proc.stdout.splitlines():
+            if "[serve-gp]" in line and "hostname" not in line:
+                log(f"  {line}")
+        check(proc.returncode == 0, f"serve gp ({label}) exited {proc.returncode}: "
+              f"{proc.stderr[-2000:]}")
+        with open(res_json) as f:
+            res = json.load(f)
+        if extra:
+            lc = {k: sum(rk["launches"].get(k, 0) for rk in res["ranks"]) for k in total}
+            log(f"serve gp --distributed-hosts {N_RANKS}: {secs:.1f} s; served parity "
+                f"{res['served_parity_max']:.3e}, multi-host mean/var "
+                f"{res['multihost_mean_var_max']:.3e}, simulations "
+                f"{res['multihost_sim_max']:.3e}; requests per rank "
+                f"{[rk['n_requests'] for rk in res['ranks']]}")
+            check(all(rk["served_parity_max"] <= 1e-12 for rk in res["ranks"]),
+                  "serve gp ranks: served parity > 1e-12")
+            check(res["multihost_mean_var_max"] == 0.0, "serve gp ranks: mean/var not bitwise")
+            check(res["multihost_sim_max"] <= 1e-8, "serve gp ranks: simulations > 1e-8")
+            check(all(rk["launches"]["sbv_predict"] > 0 for rk in res["ranks"]),
+                  "serve gp ranks: a rank launched no predict kernel")
+        else:
+            lc = {k: res["launches"].get(k, 0) for k in total}
+            tier = settled_tier(rec) or "f64"
+            log(f"serve gp: {secs:.1f} s with the process start; {res['points_per_s']:.0f} "
+                f"points/s served at {res['precision']} (the record: label {rec.precision}, "
+                f"buckets settled at {rec.bucket_tiers}); by class {res['by_class']}")
+            check(res["precision"] == tier, f"serve gp served {res['precision']}, the record "
+                  f"settled at {tier}")
+            check(lc["sbv_predict"] + lc["sbv_predict_bf16"] > 0, "serve gp: no predict launch")
+        _launch_line(f"f ({label})", lc)
+        for k in total:
+            total[k] += lc[k]
+            cli_launches[k] = cli_launches.get(k, 0) + lc[k]
+    out["cli_launches"] = cli_launches
+    results["serving"] = out
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2374,7 +2805,29 @@ def main() -> int:
                                     device=dev)
     log(f"MSPE at the fitted params {float(np.mean((pred_fit.mean - y_te) ** 2)):.5f} "
         "(not checked: six Adam steps)")
-    del pred, pred_fit, fit
+    del pred, pred_fit
+    torch.cuda.empty_cache()
+
+    # 43.-48. Checkpoints, tuning and serving on this path's data and fit.
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="smoke-serve-")
+    try:
+        t = time.perf_counter()
+        serve_launches = serving_phase(dev, results, x_tr, y_tr, x_te, fit.params, beta_true,
+                                       index, work)
+        log(f"phase checkpoints, tuning and serving: {time.perf_counter() - t:.1f} s; "
+            f"launches {serve_launches}")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    # The phase's bf16 launches (autotune probes and timings, the fit from
+    # the record, a narrow served tier) join the bf16 entries, which the
+    # ladder phase's counts carry.
+    for kname in ("sbv_loglik", "sbv_predict"):
+        launches[kname] += serve_launches[kname]
+    del fit
     torch.cuda.empty_cache()
 
     # 8. The multi-output (VPPE) path: MetaRVM trajectories at 32 outputs.
@@ -2580,8 +3033,6 @@ def main() -> int:
 
     # 29.-35. The streaming (out-of-core) fit and prediction, then 36.-42.
     # the distributed (Alg. 1) and multi-host (Alg. 2) paths on its store.
-    import tempfile
-
     work = tempfile.mkdtemp(prefix="smoke-dist-")
     try:
         t = time.perf_counter()
@@ -2710,6 +3161,8 @@ def main() -> int:
     ladder_launches = buckets_ladder_phase(dev, peaks, results, packed0, packed_m, x_tr, y_tr,
                                            x_te, y_te, cfg, init, init_m)
     log(f"phase buckets and ladder: {time.perf_counter() - t:.1f} s")
+    for kname in ("sbv_loglik_bf16", "sbv_predict_bf16"):
+        ladder_launches[kname] += serve_launches[kname]
 
     # 13.-17. LM serving.
     lm_launches = lm_serving_phase(dev, peaks, results)

@@ -72,10 +72,6 @@ from .packing import round_up
 from .pipeline import SBVConfig, preprocess
 from .vecchia import MAP_BATCH, batched_block_loglik_joint_remat, packed_arrays, packed_loglik
 
-# Where each unported option lands (ROADMAP queue 1).
-_UNPORTED = {"tuning": 11}
-
-
 @dataclass
 class FitResult:
     params: KernelParams  # or MultiOutputParams (multi-output fits)
@@ -169,13 +165,21 @@ def fit_sbv(
     bitwise the single-process streaming fit. Multi-output fits take
     neither, as in the reference.
 
-    ``tuning`` is not ported yet and raises ``NotImplementedError``
-    (ROADMAP queue 1 item 11)."""
+    ``tuning`` starts pre-tuned from an autotuner record (a
+    ``repro_torch.tuning.TuningRecord``, its dict, or the checkpoint
+    directory or json path holding one, from either package): it fills
+    ``n_buckets``, ``stream_chunk`` and ``precision`` where the caller left
+    them unset, and ``backend`` when it is ``'auto'`` (a reference record's
+    ``'pallas'`` / ``'pallas_tiled'`` read as ``'auto'``). Explicit
+    arguments win over the record."""
     if cfg is None:
         raise TypeError("fit_sbv requires an SBVConfig")
     if tuning is not None:
-        raise NotImplementedError("fit_sbv(tuning=) is not ported yet "
-                                  f"(ROADMAP queue 1 item {_UNPORTED['tuning']})")
+        from repro_torch.tuning import apply_record
+
+        n_buckets, stream_chunk, precision, backend = apply_record(
+            tuning, n_buckets=n_buckets, stream_chunk=stream_chunk, precision=precision,
+            backend=backend, probe=True)
     if multihost is not None and not (is_store(x) or stream_chunk is not None):
         raise ValueError("multihost= requires the streaming path: pass a "
                          "row store and/or set stream_chunk")

@@ -123,6 +123,45 @@ def scatter_packed(packed: PackedPrediction, *pairs) -> None:
         out[idx] = np.asarray(values)[msk]
 
 
+def upload(a, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or a CPU tensor) as a tensor on ``device``.
+
+    To a CUDA device the copy goes through pinned memory and does not block
+    (it is ordered on the current stream), so the host never waits for the
+    card's queued work; a plain ``.to(device)`` from pageable memory
+    synchronises the stream."""
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda" or t.is_cuda:
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def place_params(params, device: torch.device):
+    """A parameter NamedTuple with every leaf a tensor on ``device``."""
+    return type(params)(*(upload(torch.as_tensor(a), device) for a in params))
+
+
+def upload_packed(packed: PackedPrediction, device: torch.device) -> tuple:
+    """The five kernel operands of a packed chunk (or piece) on ``device``,
+    each through ``upload``."""
+    return tuple(upload(a, device) for a in packed.arrays())
+
+
+def packed_predict(params, packed: PackedPrediction, nu: float = 3.5, backend: str = "auto",
+                   device=None):
+    """Mean and variance of a ``PackedPrediction`` (padded (bc, bs_pred)
+    arrays, or (bc, bs_pred, p) for multi-output params) as tensors on
+    ``device`` (default: the current CUDA device).
+
+    Nothing here waits for the card: the operands go up through pinned
+    memory (``upload``) and the conditional is queued on the current
+    stream, so a caller overlaps the next chunk's host work with this one's
+    compute and lands the result later."""
+    dev = resolve_device(device)
+    return batched_block_predict(place_params(params, dev), *upload_packed(packed, dev), nu=nu,
+                                 backend=backend)
+
+
 def pack_queries(index: TrainIndex, x_test, bs_pred: int, m_pred: int, alpha: float = 100.0,
                  seed: int = 0, n_workers: int = 1, offset: int = 0, pad_shapes: bool = False,
                  dtype=np.float64) -> PackedPrediction:
@@ -155,14 +194,12 @@ def pack_queries(index: TrainIndex, x_test, bs_pred: int, m_pred: int, alpha: fl
     return packed
 
 
-def iter_query_chunks(index: TrainIndex, x_test, bs_pred: int, m_pred: int,
-                      alpha: float = 100.0, seed: int = 0, n_workers: int = 1,
-                      chunk_size: int | None = None, dtype=np.float64):
-    """Yield ``(chunk_id, PackedPrediction)`` over the test set, with the
-    reference's chunking protocol: step clamped to >= bs_pred, per-chunk
-    seed, scatter offsets, padded shapes in chunked mode. ``x_test`` may be
-    a row store, read one window at a time (``chunk_size`` is then
-    required)."""
+def query_chunk_jobs(index: TrainIndex, x_test, bs_pred: int, m_pred: int,
+                     alpha: float = 100.0, seed: int = 0, n_workers: int = 1,
+                     chunk_size: int | None = None, dtype=np.float64):
+    """Yield ``(chunk_id, pack)`` over the test set, where ``pack()`` reads
+    the chunk's window and packs it (``iter_query_chunks``'s protocol), so
+    a caller can run the packing on another thread."""
     if is_store(x_test):
         if chunk_size is None:
             raise ValueError("x_test is a store: pass chunk_size to bound the per-window read")
@@ -175,9 +212,22 @@ def iter_query_chunks(index: TrainIndex, x_test, bs_pred: int, m_pred: int,
     step = n_test if chunk_size is None else max(int(chunk_size), bs_pred)
     for ci, start in enumerate(range(0, n_test, step)):
         stop = min(n_test, start + step)
-        yield ci, pack_queries(index, window(start, stop), bs_pred, m_pred, alpha=alpha,
-                               seed=seed + ci, n_workers=n_workers, offset=start,
-                               pad_shapes=chunk_size is not None, dtype=dtype)
+        yield ci, (lambda ci=ci, start=start, stop=stop: pack_queries(
+            index, window(start, stop), bs_pred, m_pred, alpha=alpha, seed=seed + ci,
+            n_workers=n_workers, offset=start, pad_shapes=chunk_size is not None, dtype=dtype))
+
+
+def iter_query_chunks(index: TrainIndex, x_test, bs_pred: int, m_pred: int,
+                      alpha: float = 100.0, seed: int = 0, n_workers: int = 1,
+                      chunk_size: int | None = None, dtype=np.float64):
+    """Yield ``(chunk_id, PackedPrediction)`` over the test set, with the
+    reference's chunking protocol: step clamped to >= bs_pred, per-chunk
+    seed, scatter offsets, padded shapes in chunked mode. ``x_test`` may be
+    a row store, read one window at a time (``chunk_size`` is then
+    required)."""
+    for ci, pack in query_chunk_jobs(index, x_test, bs_pred, m_pred, alpha=alpha, seed=seed,
+                                     n_workers=n_workers, chunk_size=chunk_size, dtype=dtype):
+        yield ci, pack()
 
 
 def block_predict(beta, sigma2, nugget, q_x, q_mask, nn_x, nn_y, nn_mask, nu: float = 3.5):
@@ -402,11 +452,18 @@ def predict_sbv(
     serial call's, the simulation columns equal up to the reductions'
     order. A ``LoopbackComm`` reproduces the serial call bitwise.
 
-    Tuning records are not ported yet and raise ``NotImplementedError``
-    (ROADMAP queue 1 item 11)."""
+    ``tuning`` (a ``TuningRecord``, its dict, or a checkpoint directory or
+    json path, from either package) fills ``n_buckets``, ``stream_chunk``
+    and ``precision`` where unset, and ``backend`` when it is ``'auto'``
+    (``tuning.apply_record``: the precision is the tier the record's
+    buckets settled at, since nothing probes here); explicit arguments win
+    over the record."""
     if tuning is not None:
-        raise NotImplementedError("predict_sbv(tuning=) is not ported yet "
-                                  "(ROADMAP queue 1 item 11)")
+        from repro_torch.tuning import apply_record
+
+        n_buckets, stream_chunk, precision, backend = apply_record(
+            tuning, n_buckets=n_buckets, stream_chunk=stream_chunk, precision=precision,
+            backend=backend)
     tier = None
     if precision is not None:
         from .buckets import acc_dtype, as_policy

@@ -85,7 +85,10 @@ def sbv_predict_cuda_many(beta, sigma2, nugget, pieces, nu: float = 3.5):
         grid = _grid(lib, "sbv_predict", total, device, *big, d, VARIANT_CODES[variant])
         per_cta = max(lib.sbv_predict_scratch_per_cta(w[8], w[9]) for w in words)
         scratch = torch.empty(grid * per_cta, dtype=dtype, device=device)
-        tasks = torch.tensor(words, dtype=torch.int64, device=device)
+        # Pinned and non-blocking: the host does not wait for the stream's
+        # earlier work (a chunk pipeline launches chunk k while k-1 runs).
+        tasks = torch.tensor(words, dtype=torch.int64).pin_memory().to(device,
+                                                                      non_blocking=True)
         err = getattr(lib, f"sbv_predict_{variant}")(
             beta.data_ptr(), scal.data_ptr(), tasks.data_ptr(), len(words), total, *big, d,
             NU_CODES[nu], scratch.data_ptr(), per_cta, grid,

@@ -28,8 +28,11 @@ parent merges the per-rank ``--result-json`` files; each rank's file
 carries its kernel launch counts, which only the rank can count.
 ``--timeout`` bounds each rank and each rendezvous or collective.
 
-``--autotune`` and ``--tuning-record`` are not ported yet (ROADMAP queue 1
-item 11).
+``--autotune`` measures the (bucket levels x precision tier) candidates on
+a sample of the training set first (``repro_torch.tuning.autotune_loglik``)
+and fits with the winner; with ``--tuning-record PATH`` the record is
+saved there. ``--tuning-record PATH`` alone starts the fit from a saved
+record (either package's). Explicit flags win over the record.
 """
 from __future__ import annotations
 
@@ -101,9 +104,12 @@ def build_parser():
                     help="covariance-assembly ladder tier; in-core fits probe per bucket "
                          "and demote rungs that exceed the tier's error budget")
     ap.add_argument("--autotune", action="store_true",
-                    help="not ported yet (ROADMAP queue 1 item 11)")
+                    help="measure candidate (buckets x precision) shapes on a dataset "
+                         "sample first and fit with the winner; with --tuning-record "
+                         "PATH the measured record is saved there")
     ap.add_argument("--tuning-record", default=None, metavar="PATH",
-                    help="not ported yet (ROADMAP queue 1 item 11)")
+                    help="persisted autotuner record: with --autotune the save "
+                         "destination, otherwise loaded to start the fit pre-tuned")
     ap.add_argument("--distributed-hosts", type=int, default=0, metavar="K",
                     help="spawn K rank processes in a gloo process group and run the "
                          "multi-host streaming fit (requires --store/--write-store)")
@@ -300,9 +306,6 @@ def main(argv=None):
     from repro_torch.multihost import MultihostContext
 
     args = build_parser().parse_args(argv)
-    if args.autotune or args.tuning_record:
-        raise NotImplementedError("--autotune / --tuning-record: autotuning is not ported "
-                                  "yet (ROADMAP queue 1 item 11)")
     if args.outputs > 1 and (args.store or args.write_store or args.distributed_hosts):
         raise SystemExit("--outputs > 1 runs the in-core multi-output fit; combine it with "
                          "--stream-chunk for the streaming path, not "
@@ -334,6 +337,20 @@ def main(argv=None):
     elif args.write_store:
         store = write_store(args)
 
+    def _tune(x_t, y_t):
+        """The tuning input: measured (--autotune) or a saved record
+        (--tuning-record without --autotune); None without either."""
+        if args.autotune:
+            from repro_torch.tuning import autotune_loglik
+
+            t_a = time.time()
+            rec = autotune_loglik(x_t, y_t, cfg, backend=args.backend,
+                                  save_dir=args.tuning_record, verbose=True, device=dev)
+            print(f"[fit_gp] autotune {time.time() - t_a:.1f}s -> buckets={rec.n_buckets} "
+                  f"precision={rec.precision} stream-chunk={rec.stream_chunk}")
+            return rec
+        return args.tuning_record
+
     if store is not None:
         rng = np.random.default_rng(args.seed + 999)
         # Probe set: a bounded random row sample. The streaming fit trains
@@ -344,12 +361,16 @@ def main(argv=None):
         mu_y = 0.0
         device_cache = (None if args.device_cache_mb is None
                         else int(args.device_cache_mb * 2**20))
+        # Autotune on a bounded head sample of the store; the record's
+        # stream_chunk still follows the sample's row count.
+        tuning = _tune(*store.read_slice(0, min(store.n_rows, 20_000))) \
+            if args.autotune else _tune(None, None)
         t0 = time.time()
         res = fit_sbv(store, None, cfg, inner_steps=args.inner_steps,
                       outer_rounds=args.outer_rounds, backend=args.backend,
                       stream_chunk=args.stream_chunk, verbose=True, device=dev,
                       distributed=distributed, device_cache=device_cache,
-                      prefetch=args.prefetch, precision=args.precision)
+                      prefetch=args.prefetch, precision=args.precision, tuning=tuning)
         t_fit = time.time() - t0
         beta = res.params.beta.detach().cpu().numpy()
         st = res.stream_stats
@@ -372,11 +393,13 @@ def main(argv=None):
         mu_y = y_tr.mean(axis=0)  # per-output centering (scalar when 1-D)
         y_tr_c, y_te_c = y_tr - mu_y, y_te - mu_y
 
+        tuning = _tune(x_tr, y_tr_c)
         t0 = time.time()
         res = fit_sbv(x_tr, y_tr_c, cfg, inner_steps=args.inner_steps,
                       outer_rounds=args.outer_rounds, backend=args.backend,
                       distributed=distributed, verbose=True, device=dev,
-                      stream_chunk=args.stream_chunk, precision=args.precision)
+                      stream_chunk=args.stream_chunk, precision=args.precision,
+                      tuning=tuning)
         t_fit = time.time() - t0
         beta = res.params.beta.detach().cpu().numpy()
         sigma2 = res.params.sigma2.detach().cpu().numpy()

@@ -1300,3 +1300,127 @@ def test_two_rank_gloo_fit_on_card(dev, tmp_path):
     assert merged["max_nll_spread"] == 0.0
     assert abs(merged["nll"] - serial.history[-1][2]) <= 1e-8
     assert all(rk["launches"]["sbv_loglik"] > 0 for rk in merged["ranks"])
+
+
+# -- serving and tuning (ROADMAP items 11 and 12) ----------------------------
+
+
+def _serving_problem(dev, n=1500, d=4):
+    from repro_torch.serving import PipelineConfig
+
+    x, y, beta = _data(n=n, d=d)
+    p = _params(beta, dev)
+    cfg = PipelineConfig(bs_pred=8, m_pred=40, chunk_size=256, n_buckets=None)
+    index = tpredict.build_train_index(x, y, beta, cfg.m_pred, seed=0)
+    return x, y, p, cfg, index
+
+
+def test_pipelined_stream_is_bitwise_synchronous_on_card(dev):
+    """The double-buffered engine (pinned uploads on a side stream, events,
+    one predict launch per chunk) gives the synchronous loop's bits, uniform
+    and bucketed, and launches once per chunk."""
+    from repro_torch.serving import ChunkTimer, PipelineConfig, predict_pipelined, \
+        predict_synchronous
+
+    x, y, p, cfg, index = _serving_problem(dev)
+    xq = np.random.default_rng(4).uniform(size=(1100, 4))
+    for c in (cfg, PipelineConfig(bs_pred=8, m_pred=40, chunk_size=256, n_buckets=3)):
+        before = _build.LAUNCHES["sbv_predict"]
+        ms, vs = predict_synchronous(p, index, xq, c, seed=2, device=dev)
+        assert _build.LAUNCHES["sbv_predict"] - before == 5
+        timer = ChunkTimer()
+        mp, vp = predict_pipelined(p, index, xq, c, seed=2, device=dev, timer=timer)
+        np.testing.assert_array_equal(mp, ms)
+        np.testing.assert_array_equal(vp, vs)
+        s = timer.summary()
+        assert s["n_chunks"] == 5 and s["compute_s"] > 0
+
+
+def test_served_request_equals_predict_sbv_on_card(dev):
+    """A request served by a continuous-mode ``GPServer`` on the card (its
+    own stream) equals the lone ``predict_sbv`` on the card at 1e-12, and
+    so does one routed through two replicas."""
+    from repro_torch.serving import (BatchingPolicy, GPServer, GPServerConfig,
+                                     ReplicaRouter, SchedulerPolicy)
+
+    x, y, p, cfg, _ = _serving_problem(dev)
+    conf = GPServerConfig(pipeline=cfg, policy=BatchingPolicy(max_wait_s=0.002),
+                          scheduler=SchedulerPolicy(), seed=3)
+    reps = [GPServer(p, x, y, conf, device=dev)]
+    reps.append(GPServer(p, x, y, conf, index=reps[0].index, device=dev))
+    assert reps[0]._stream is not None and reps[0]._stream != reps[1]._stream
+    rng = np.random.default_rng(8)
+    xs = [rng.uniform(size=(n, 4)) for n in (700, 33, 1, 300)]
+    with ReplicaRouter(reps, routing="round_robin") as router:
+        futs = [router.submit(xq) for xq in xs]
+        router.flush()
+        results = [f.result(timeout=300) for f in futs]
+    for xq, res in zip(xs, results):
+        want = tpredict.predict_sbv(p, x, y, xq, bs_pred=8, m_pred=40, seed=3, chunk_size=256,
+                                    n_sims=2, device=dev)
+        np.testing.assert_allclose(res.mean, want.mean, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(res.var, want.var, rtol=0, atol=1e-12)
+
+
+def test_staged_upload_is_pinned_and_leaves_the_default_stream_free(dev, monkeypatch):
+    """``upload`` copies through pinned memory without waiting for the
+    stream: with the default stream held by a spinning kernel, the upload
+    call and the predict launch (its descriptor list included) return at
+    once; a staging on a side stream completes while the default stream
+    is still busy."""
+    import time
+
+    from repro_torch.serving.pipeline import PipelineConfig, _stage, make_chunk_split
+
+    pinned = []
+    real_pin = torch.Tensor.pin_memory
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a, **k: pinned.append(self.shape) or real_pin(self))
+    x, y, p, cfg, index = _serving_problem(dev)
+    packed = tpredict.pack_queries(index, np.random.default_rng(1).uniform(size=(256, 4)), 8,
+                                   40, pad_shapes=True)
+    warm = [torch.as_tensor(a).to(dev) for a in packed.arrays()]
+    ops.sbv_predict_many(p, [tuple(warm)])  # loads the library
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))          # ~1 s of spinning on the default stream
+    t0 = time.perf_counter()
+    arrs = [tpredict.upload(a, dev) for a in packed.arrays()]
+    params = tpredict.place_params(p, dev)
+    (mu, var), = ops.sbv_predict_many(params, [tuple(arrs)])
+    host_s = time.perf_counter() - t0
+    assert not torch.cuda.current_stream(dev).query()  # still spinning
+    assert host_s < 0.3, host_s
+    assert len(pinned) >= len(arrs)
+    side = torch.cuda.Stream(dev)
+    torch.cuda._sleep(int(2e9))
+    _, _, staged, event, _ = _stage(make_chunk_split(PipelineConfig(bs_pred=8, m_pred=40)),
+                                    dev, side)((0, lambda: packed))
+    event.synchronize()                  # the side stream finished its copies ...
+    assert not torch.cuda.current_stream(dev).query()  # ... the default one has not
+    torch.cuda.synchronize()
+    for got, want in zip(staged[0], packed.arrays()):
+        np.testing.assert_array_equal(got.cpu().numpy(), np.asarray(want))
+    want = tpredict.block_predict(p.beta, p.sigma2, p.nugget, *(torch.as_tensor(a).to(dev)
+                                                                for a in packed.arrays()))
+    msk = torch.as_tensor(packed.q_mask).to(dev)
+    assert float((mu - want[0]).abs()[msk].max()) <= 1e-10
+
+
+def test_autotune_on_card_launches_the_likelihood_kernel(dev, tmp_path):
+    """``autotune_loglik`` times every candidate through ``sbv_loglik`` on
+    the card (f64 and bf16 variants) and saves a record that drives
+    ``fit_sbv(tuning=)``."""
+    from repro_torch.core.fit import fit_sbv
+    from repro_torch.tuning import TuningRecord, autotune_loglik
+
+    x, y, _ = _data(n=3000)
+    cfg = SBVConfig(n_blocks=40, m=20)
+    before = dict(_build.LAUNCHES)
+    rec = autotune_loglik(x, y, cfg, bucket_grid=(0, 2), tiers=("bf16", "f64"), repeats=2,
+                          save_dir=str(tmp_path), device=dev)
+    assert _build.LAUNCHES["sbv_loglik"] > before["sbv_loglik"]
+    assert rec.meta["device"] == "cuda" and len(rec.candidates) == 4
+    assert all(c["time_s"] > 0 for c in rec.candidates)
+    assert TuningRecord.load(str(tmp_path)).to_dict() == rec.to_dict()
+    res = fit_sbv(x, y, cfg, inner_steps=2, outer_rounds=1, tuning=str(tmp_path), device=dev)
+    assert np.isfinite(res.history[-1][2])

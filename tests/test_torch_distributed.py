@@ -261,7 +261,8 @@ def test_refusals_match_the_reference(data):
 
 def test_fit_gp_cli_in_core_with_workers(capsys, tmp_path):
     """``fit_gp --workers 3 --device cpu`` fits in core over a 3-worker mesh
-    and prints the reference CLI's lines; ``--autotune`` names item 11."""
+    and prints the reference CLI's lines; ``--tuning-record`` on a directory
+    that holds no record refuses to start."""
     from repro_torch.launch import fit_gp
 
     out = str(tmp_path / "r.json")
@@ -274,7 +275,6 @@ def test_fit_gp_cli_in_core_with_workers(capsys, tmp_path):
 
     with open(out) as f:
         assert np.isfinite(json.load(f)["nll"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit_gp.main(["--autotune", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 11"):
-        fit_gp.main(["--tuning-record", str(tmp_path), "--device", "cpu"])
+    with pytest.raises(FileNotFoundError, match="no tuning record"):
+        fit_gp.main(["--n", "600", "--blocks", "12", "--m", "10", "--tuning-record",
+                     str(tmp_path), "--device", "cpu"])

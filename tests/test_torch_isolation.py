@@ -91,11 +91,15 @@ def test_entry_points_refuse_without_device_when_no_cuda(monkeypatch):
                                 {"tuning": object()},
                                 {"stream_chunk": 10, "multihost": object(), "tuning": object()}])
 def test_unported_options_raise(kw):
+    """Options the port does not take raise ``NotImplementedError``; tuning
+    records are ported, and a ``tuning`` that is no record raises
+    ``TypeError`` before any work starts."""
     from repro_torch.core import SBVConfig
     from repro_torch.core.fit import fit_sbv
 
     x, y = _tiny()
-    with pytest.raises(NotImplementedError):
+    exc = TypeError if "tuning" in kw else NotImplementedError
+    with pytest.raises(exc):
         fit_sbv(x, y, SBVConfig(n_blocks=4, m=4), device="cpu", **kw)
 
 

@@ -450,10 +450,13 @@ def test_streaming_entry_points_need_a_device_without_cuda(small, monkeypatch):
 
 @pytest.mark.parametrize("kw,item", [({"tuning": object()}, 11)])
 def test_unported_streaming_options_name_their_roadmap_item(small, kw, item):
+    """ROADMAP item 11 (tuning records) is ported: the streaming fit and
+    prediction take a record, and a ``tuning`` that is no record is a
+    ``TypeError`` naming what it expected."""
     x, y, ref_p = small
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(TypeError, match="TuningRecord"):
         fit_sbv(x, y, SBVConfig(**CFG), stream_chunk=300, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(TypeError, match="TuningRecord"):
         tpredict.predict_sbv(params_from_reference(*_leaves(ref_p)), x, y, x[:20],
                              device="cpu", **kw)
 
