@@ -53,7 +53,16 @@ path once through the user entry points:
   seeded generator), a 4 x 4096-token prompt prefilled through
   ``training.serve.make_prefill_step`` and 32 greedy tokens through
   ``make_decode_step``, with the flash-attention kernel held against its
-  plain version (bf16 and f32) at the path's shape and at its variants.
+  plain version (bf16 and f32) at the path's shape and at its variants;
+* LM training: the flash-attention backward kernel against autograd through
+  the plain version at the training shape (4 x 2048 tokens) and variants,
+  timed beside the library's backward, then ``python -m
+  repro_torch.launch.train`` (``main``) on internlm2-1.8b at full width and
+  depth in bf16 for 6 steps, 2 at grad_accum 2 and 2 with int8
+  compression, and a checkpoint resume on the reduced config;
+* serving's leftovers (ROADMAP item 12a): a bucketed continuous stream and
+  a p = 32 drain batch on the multi-output index, each bitwise its
+  synchronous loop, their chunk 0 held against the plain conditional.
 
 Launch counts are set to 0 just before each path and read just after it.
 It checks that every kernel of each path launched, that the outputs are
@@ -131,6 +140,14 @@ N_WORKERS, DIST_INNER, N_RANKS, N_MH_TEST, RANK_TIMEOUT = 4, 3, 2, 20_000, 400
 TUNE_SAMPLE, TUNE_REPEATS, SERVE_CHUNK = 20_000, 3, 4096
 N_DRAIN_REQ, N_CONT_REQ, N_CANCEL, MAX_REQ = 32, 48, 2, 8192
 SERVE_CLI_TRAIN, SERVE_CLI_TEST = 20_000, 50_000
+# The p = 32 drain batch on the multi-output path's index: 8 requests over
+# the first 8,192 held-out MetaRVM points (two 4,096-point chunks).
+N_MULTI_SERVE, N_MULTI_REQ = 8192, 8
+# The LM training path: internlm2-1.8b at full width and depth, bf16, the
+# batch of 4 x 2048 tokens (the repo's train shapes at batch 4), 6 steps at
+# grad_accum 1, 2 at grad_accum 2, 2 with int8 compression; the resume check
+# on the reduced config (a full-width checkpoint is ~23 GB of npz).
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 6, 3e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -290,6 +307,13 @@ def flash_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int) -> tupl
     return 2.0 * b * h * s * s * hd, float(itemsize * (2 * b * h + 2 * b * hkv) * s * hd)
 
 
+def flash_bwd_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int) -> tuple[float, float]:
+    """(flops, bytes) of causal attention's backward at S = T: five causal
+    half-products of S x S x hd per head (recompute S, dP, dV, dK, dQ: 5 B H
+    S^2 hd); q, k, v, do read once, dq, dk, dv written once."""
+    return 5.0 * b * h * s * s * hd, float(itemsize * (3 * b * h + 4 * b * hkv) * s * hd)
+
+
 def flash_edge_queries(k, n_heads: int, s: int, window: int, beta: float = 2.0):
     """Queries whose softmax peaks on the keys at the mask's edges: q_i =
     beta * (k_i + k_{i+1} [+ k_{i-window}]), KV head h // n_rep. Causal
@@ -313,6 +337,35 @@ def row_rel_err(got, want) -> float:
     head): ||got - want|| / ||want|| along head_dim."""
     d = (got.float() - want.float()).norm(dim=-1)
     return float((d / want.float().norm(dim=-1)).max())
+
+
+# The backward kernel against autograd through the plain version: f32 per
+# element within 1e-4 of the gradient's largest entry (the same f32 sums in
+# other orders); bf16 per output row (one query or key of one head) in
+# relative L2 within 1e-2, beside 3e-2 of the largest entry per element, as
+# the bf16 forward is held (both sides compute in f32 and round once to
+# bf16; the kernel's D uses the bf16 output o).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+BWD_ROW_TOL = 1e-2
+
+
+def grad_check(got, want) -> dict:
+    """One gradient (dq, dk or dv) against the plain version's: the largest
+    error over the largest |entry|, the largest relative L2 error over rows
+    (rows whose norm is under 1e-3 of the largest row's are measured against
+    that floor: fully masked rows carry dq = 0), and whether both are within
+    ``BWD_TOL`` / ``BWD_ROW_TOL`` for the dtype."""
+    import torch
+
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max()) or 1.0
+    rel = float((g - w).abs().max()) / scale
+    rn = w.norm(dim=-1)
+    row = float(((g - w).norm(dim=-1) / rn.clamp_min(1e-3 * float(rn.max()) or 1.0)).max())
+    dt = str(want.dtype).split(".")[-1]
+    ok = (bool(torch.isfinite(g).all()) and rel <= BWD_TOL[dt]
+          and (dt == "float32" or row <= BWD_ROW_TOL))
+    return dict(max_abs_err=float((g - w).abs().max()), scaled_err=rel, row_rel=row, ok=ok)
 
 
 def bound_ms(flops: float, nbytes: float, peaks, kind: str = "f64") -> tuple[float, str]:
@@ -580,6 +633,216 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     del q, k, v, kx, vx, q32, k32, v32, model
     torch.cuda.empty_cache()
     return {name: pre_launches[name] + dec_launches[name] for name in pre_launches}
+
+
+def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
+    """LM training (ROADMAP item 13.1) on internlm2-1.8b at full width and
+    depth: the flash-attention backward kernel against autograd through the
+    plain version at the path's shape and its variants, and timed beside the
+    library's backward; ``launch.train.main`` for 6 steps, then 2 at
+    grad_accum 2, then 2 with int8 compression (``make_train_step(compress=
+    True)``); a checkpoint resume on the reduced config. Returns the launch
+    counts of the path's runs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import TransformerLM, init_params, lm_loss
+    from repro_torch.optim import adam_update
+    from repro_torch.training.train_step import _bind, make_train_step, train_state_init
+
+    cfg = get_config(LM_ARCH)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    mk = lambda *sh, dtype: torch.randn(*sh, generator=gen, device=dev).to(dtype)
+
+    # 49. The backward kernel against autograd through the plain version, at
+    # the path's shape (B = 4, H = 16, Hkv = 8, S = T = 2048, hd = 128,
+    # causal) and at small variants (window, softcap, hd 64 and 80).
+    path = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim,
+            True, 0, 0.0)
+    cases = [("path", path), ("window", (1, 4, 2, 600, 600, 128, True, 100, 0.0)),
+             ("softcap", (1, 4, 2, 300, 300, 128, True, 0, 30.0)),
+             ("hd64", (1, 4, 2, 300, 300, 64, True, 0, 0.0)),
+             ("hd80", (1, 4, 2, 300, 300, 80, True, 0, 0.0))]
+    bwd_err = None
+    for label, (b, h, hkv, s_, t_, hd, causal, window, cap) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = mk(b, h, s_, hd, dtype=dtype), mk(b, hkv, t_, hd, dtype=dtype), \
+                mk(b, hkv, t_, hd, dtype=dtype)
+            do = mk(b, h, s_, hd, dtype=dtype)
+            got = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window, softcap=cap)
+            want = flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window,
+                                             softcap=cap)
+            torch.cuda.synchronize()
+            res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            log(f"flash_bwd {label} {str(dtype)[6:]}: B={b} H={h} Hkv={hkv} S={s_} T={t_} hd={hd} "
+                f"window={window} softcap={cap}: " + "; ".join(
+                    f"{n} max_abs_err {r['max_abs_err']:.3e} ({r['scaled_err']:.2e} of the "
+                    f"largest, row rel L2 {r['row_rel']:.2e})" for n, r in res.items())
+                + f" (limits {BWD_TOL[str(dtype)[6:]]:g} of the largest"
+                + (f", rows {BWD_ROW_TOL:g})" if dtype == torch.bfloat16 else ")"))
+            check(all(r["ok"] for r in res.values()),
+                  f"flash_bwd {label} {dtype}: kernel vs plain autograd {res}")
+            if label == "path" and dtype == torch.bfloat16:
+                bwd_err = max(r["max_abs_err"] for r in res.values())
+            del q, k, v, do, got, want
+    torch.cuda.empty_cache()
+
+    # 50. Times at the path's shape: the kernel (bf16 and f32), the plain
+    # version, and the library's backward (scaled_dot_product_attention on
+    # the repeated KV; timed here only, the port never calls it).
+    b, h, hkv, s_, _, hd = path[:6]
+    q, k, v, do = (mk(b, h, s_, hd, dtype=torch.bfloat16), mk(b, hkv, s_, hd, dtype=torch.bfloat16),
+                   mk(b, hkv, s_, hd, dtype=torch.bfloat16), mk(b, h, s_, hd, dtype=torch.bfloat16))
+    kern = lambda: flash_attention_bwd_cuda(q, k, v, do)
+    k_ms = cuda_ms(kern)
+    p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do), reps=3)
+    qx = q.detach().requires_grad_(True)
+    kx = k.repeat_interleave(n_rep, dim=1).requires_grad_(True)
+    vx = v.repeat_interleave(n_rep, dim=1).requires_grad_(True)
+    ox = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
+    l_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True))
+    k2_ms = cuda_ms(kern)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    k32_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q32, k32, v32, do32), reps=3)
+    flops, nbytes = flash_bwd_work(b, h, hkv, s_, hd, 2)
+    b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
+    b32_ms, _ = bound_ms(flops, nbytes, peaks, "f32")
+    log(f"flash_bwd time at B={b} H={h} Hkv={hkv} S=T={s_} hd={hd} causal: kernel bf16 "
+        f"{k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s of the function's work, "
+        f"{100 * b_ms / k_ms:.2f} % of the bf16 bound, {100 * b32_ms / k_ms:.1f} % of the "
+        f"f32 rate its scalar FMAs run at), f32 {k32_ms:.3f} ms; plain (autograd through "
+        f"flash_attention_plain) bf16 {p_ms:.3f} ms; scaled_dot_product_attention backward "
+        f"bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
+    results["flash_attention_bwd"] = dict(max_abs_err=bwd_err, ms=k_ms, plain_ms=p_ms,
+                                          bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                                          f32_ms=k32_ms)
+    del q, k, v, do, qx, kx, vx, ox, q32, k32, v32, do32
+    torch.cuda.empty_cache()
+
+    # 51. The path: launch.train.main at full width and depth, 6 steps.
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+    n_par = sum(p.numel() for p in TransformerLM(cfg, device="meta").parameters())
+    log(f"phase lm training: {LM_ARCH} (L={cfg.n_layers}, d={cfg.d_model}, V={cfg.vocab}): "
+        f"{n_par / 1e9:.3f} B parameters; bf16 params and grads {4 * n_par / 1e9:.2f} GB, f32 "
+        f"moments {8 * n_par / 1e9:.2f} GB (reckoned)")
+    argv = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--lr", str(TRAIN_LR), "--device", str(dev)]
+    counts = {"flash_attention": 0, "flash_attention_bwd": 0}
+    out = {}
+
+    def run(label, fn, steps, micro):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        state, log_ = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        c = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = [r["loss"] for r in log_]
+        norms = [r["grad_norm"] for r in log_]
+        step_s = statistics.median(r["seconds"] for r in log_[1:]) if len(log_) > 1 else wall
+        log(f"lm training {label}: {steps} steps in {wall:.2f} s; per step {step_s:.3f} s "
+            f"(median after the first, which took {log_[0]['seconds']:.3f} s), "
+            f"{n_tok / step_s:.0f} tokens/s; peak device memory {peak / 1e9:.2f} GB; losses "
+            f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}; "
+            f"launches flash_attention {c['flash_attention']} "
+            f"({c['flash_attention'] / steps:g} per step), flash_attention_bwd "
+            f"{c['flash_attention_bwd']} ({c['flash_attention_bwd'] / steps:g} per step)")
+        check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms),
+              f"lm training {label}: missing or non-finite loss or grad norm")
+        check(c["flash_attention"] == steps * micro * 2 * cfg.n_layers,
+              f"lm training {label}: {c['flash_attention']} forward launches, expected "
+              f"{steps * micro * 2 * cfg.n_layers} (layers x (forward + remat recompute))")
+        check(c["flash_attention_bwd"] == steps * micro * cfg.n_layers,
+              f"lm training {label}: {c['flash_attention_bwd']} backward launches, expected "
+              f"{steps * micro * cfg.n_layers}")
+        for k_ in counts:
+            counts[k_] += c[k_]
+        out[label] = dict(seconds=wall, step_s=step_s, tokens_per_s=n_tok / step_s,
+                          peak_bytes=peak, losses=losses, grad_norms=norms)
+        return state, losses
+
+    def main_run(extra):
+        log_ = []
+        return ttrain.main(argv + extra, log=log_), log_
+
+    state, losses = run("grad_accum 1", lambda: main_run(["--steps", str(TRAIN_STEPS)]),
+                        TRAIN_STEPS, 1)
+    lo, hi = 0.5 * math.log(cfg.vocab), 2.5 * math.log(cfg.vocab)
+    check(lo < losses[0] < hi, f"lm training: first loss {losses[0]:.4f} outside "
+                               f"[{lo:.3f}, {hi:.3f}] = [0.5, 2.5] log(vocab)")
+    check(losses[-1] < losses[0], f"lm training: loss did not fall over {TRAIN_STEPS} steps "
+                                  f"({losses})")
+    # Where a step's time goes: the value and gradient, and the Adam update,
+    # each timed apart (CUDA events, median of 3) on the trained state and
+    # the stream's next batch.
+    tok, lab = (torch.as_tensor(a, device=dev) for a in
+                TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17,
+                            start_batch=TRAIN_STEPS).next())
+    model = _bind(cfg, state.params)
+    leaves = tuple(model.parameters())
+    value_and_grad = lambda: torch.autograd.grad(lm_loss(model, tok, lab), leaves)
+    grads = value_and_grad()
+    vg_ms = cuda_ms(value_and_grad, reps=3, warm=0)
+    adam_ms = cuda_ms(lambda: adam_update(grads, state.opt, state.params, TRAIN_LR), reps=3,
+                      warm=0)
+    log(f"lm training step split: value and gradient {vg_ms:.1f} ms (of which the attention "
+        f"backward {cfg.n_layers} x {k_ms:.2f} = {cfg.n_layers * k_ms:.1f} ms), Adam update "
+        f"{adam_ms:.1f} ms; the step {1e3 * out['grad_accum 1']['step_s']:.1f} ms on the host "
+        f"clock")
+    out["split_ms"] = dict(value_and_grad=vg_ms, adam=adam_ms,
+                           attention_backward=cfg.n_layers * k_ms)
+    del state, model, leaves, grads
+    torch.cuda.empty_cache()
+    run("grad_accum 2", lambda: main_run(["--steps", "2", "--grad-accum", "2"]), 2, 2)
+    torch.cuda.empty_cache()
+
+    def compressed():
+        st = train_state_init(init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                                          device=dev))
+        step = make_train_step(cfg, lr=TRAIN_LR, compress=True)
+        stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17)
+        err, log_ = None, []
+        for i in range(2):
+            t0 = time.perf_counter()
+            st, m, err = step(st, *stream.next(), err)
+            torch.cuda.synchronize()
+            log_.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                         "seconds": time.perf_counter() - t0})
+        check(all(bool(torch.isfinite(e).all()) for e in err), "int8 compression: bad error")
+        return st, log_
+
+    state, _ = run("int8 compression", compressed, 2, 1)
+    del state
+    torch.cuda.empty_cache()
+
+    # 52. Resume on the reduced config: 4 steps straight, then 2 + resume 2.
+    red = ["--reduced", "--batch", str(TRAIN_BATCH), "--seq", "256", "--device", str(dev),
+           "--ckpt-every", "2"]
+    straight = ttrain.main(red + ["--steps", "4", "--ckpt-dir", os.path.join(work, "a")])
+    ttrain.main(red + ["--steps", "2", "--ckpt-dir", os.path.join(work, "b")])
+    resumed = ttrain.main(red + ["--steps", "2", "--ckpt-dir", os.path.join(work, "b"),
+                                 "--resume"])
+    flat = lambda st: torch.cat([p.float().ravel() for p in st.params])
+    a_, b_ = flat(straight), flat(resumed)
+    rel = float(torch.linalg.norm(a_ - b_) / torch.linalg.norm(a_))
+    log(f"lm training resume (reduced, 4 steps straight vs 2 + resume 2): steps "
+        f"{straight.step} / {resumed.step}, params relative L2 difference {rel:.3e} (limit "
+        f"1e-6), bitwise {bool(torch.equal(a_, b_))}")
+    check(straight.step == resumed.step == 4, "lm training resume: step counts differ")
+    check(rel <= 1e-6, f"lm training resume: params {rel:.3e} from the straight run")
+    out["resume_rel"] = rel
+    results["lm_training"] = out
+    return counts
 
 
 # Per-block limits (relative to max(1, |value|); for predictions, to the
@@ -2090,48 +2353,111 @@ def _chunk_line(label: str, n_points: int, wall: float, timer) -> dict:
 
 
 def hold_served_chunk(label: str, dev, params, pk, mean, var) -> dict:
-    """One served chunk's kernel launch held against its plain version.
+    """One served chunk (or bucket piece) held against the plain version.
 
     ``pk`` is the chunk packed as the server packed it (the same index,
-    seed, offset and padding), ``mean`` / ``var`` the served results its
-    query indices point into. The predict wrapper runs on the chunk's
-    operands and is held against ``sbv_predict_plain`` within 10 eps
-    cond(K_NN) of the output scale (the main path's limit), and the served
-    rows must be bitwise the wrapper's output: the server launched the same
-    kernel on the same operands. The launch is a comparison one: the caller
-    has read the step's counts already."""
+    seed, offset, padding and bucket split), ``mean`` / ``var`` the served
+    results its query indices point into. Single output: the predict
+    wrapper runs on the chunk's operands and is held against
+    ``sbv_predict_plain`` within 10 eps cond(K_NN) of the output scale (the
+    main path's limit), and the served rows must be bitwise the wrapper's
+    output (the server launched the same kernel on the same operands; the
+    launch is a comparison one, after the caller read the step's counts).
+    Multi-output (``MultiOutputParams``, no kernel: the conditional is
+    ``torch.linalg``, as in the reference): the served rows are held against
+    ``block_predict_multi`` on the chunk's operands at the same limit."""
     import torch
 
     from repro_torch.core import predict as tpredict
     from repro_torch.core import vecchia
+    from repro_torch.core.multioutput import MultiOutputParams
     from repro_torch.kernels.sbv_predict import sbv_predict_cuda, sbv_predict_plain
 
     a = tpredict.upload_packed(pk, dev)
+    multi = isinstance(params, MultiOutputParams)
+    nn_m = a[4].bool()
     with torch.no_grad():
-        pr = (params.beta.double(), params.sigma2.double(), params.nugget.double())
-        got = sbv_predict_cuda(*pr, *a)
-        want = sbv_predict_plain(*pr, *a)
-        nn_m = a[4].bool()
+        if multi:
+            p = MultiOutputParams(*(t.double().to(dev) for t in params))
+            want = tpredict.block_predict_multi(p.beta, p.tau2, p.sigma2, *a, nu=3.5)
+            one = torch.ones((), dtype=torch.float64, device=dev)
+            pr = (p.beta, one, p.tau2)
+            got = None
+        else:
+            pr = (params.beta.double(), params.sigma2.double(), params.nugget.double())
+            got = sbv_predict_cuda(*pr, *a)
+            want = sbv_predict_plain(*pr, *a)
         ev = torch.linalg.eigvalsh(vecchia._masked_cov(a[2], a[2], nn_m, nn_m, *pr, 3.5,
                                                        identity=True))
     msk = a[1].bool()
+    h_msk = msk.cpu().numpy()
+    rows = np.asarray(pk.q_idx)[np.asarray(pk.q_mask)]
     cond = float((ev[:, -1] / ev[:, 0]).max())
     scale = max(1.0, max(float(w.abs()[msk].max()) for w in want))
-    err = max(float((g - w).abs()[msk].max()) for g, w in zip(got, want))
     tol = max(1e-10, 10 * 2.2e-16 * cond)
-    rows = np.asarray(pk.q_idx)[np.asarray(pk.q_mask)]
-    h_msk = msk.cpu().numpy()
-    same = all(np.array_equal(served[rows], g.cpu().numpy()[h_msk])
-               for served, g in zip((mean, var), got))
+    if multi:
+        err = max(float(np.abs(served[rows] - w.cpu().numpy()[h_msk]).max())
+                  for served, w in zip((mean, var), want))
+        same = True
+    else:
+        err = max(float((g - w).abs()[msk].max()) for g, w in zip(got, want))
+        same = all(np.array_equal(served[rows], g.cpu().numpy()[h_msk])
+                   for served, g in zip((mean, var), got))
+        check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
+              f"serving {label}: non-finite kernel output")
+    what = "served rows vs the torch.linalg conditional" if multi else "predict kernel vs plain"
     log(f"serving {label}: chunk of {len(rows)} points (bc={pk.n_blocks}, bs={pk.bs_pred}, "
-        f"m={pk.m_pred}): predict kernel vs plain max abs err {err:.3e} (|out| max {scale:.3g}, "
-        f"max cond(K_NN) {cond:.3e}, limit {tol:.1e} x {scale:.3g}); served rows bitwise the "
-        f"kernel's: {same}")
-    check(bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all()),
-          f"serving {label}: non-finite kernel output")
-    check(err <= tol * scale, f"serving {label}: kernel vs plain {err:.3e} > {tol:.1e} x {scale:.3g}")
+        f"m={pk.m_pred}{', p=' + str(want[0].shape[-1]) if multi else ''}): {what} max abs err "
+        f"{err:.3e} (|out| max {scale:.3g}, max cond(K_NN) {cond:.3e}, limit {tol:.1e} x "
+        f"{scale:.3g})" + ("" if multi else f"; served rows bitwise the kernel's: {same}"))
+    check(err <= tol * scale, f"serving {label}: {what} {err:.3e} > {tol:.1e} x {scale:.3g}")
     check(same, f"serving {label}: served rows differ from the kernel's output on the chunk")
     return dict(max_abs_err=err, cond=cond, scale=scale)
+
+
+def multi_serving_step(dev, params_m, xm_tr, ym_tr, xm_te, index_m) -> dict:
+    """The p = 32 drain batch on the multi-output path's MetaRVM index (item
+    12a): N_MULTI_REQ requests over N_MULTI_SERVE held-out points in one
+    micro-batch through ``GPServer``, bitwise against ``predict_synchronous``
+    over their concatenation, and chunk 0 held by ``hold_served_chunk``.
+    The multi-output conditional runs no kernel (``torch.linalg``, as in the
+    reference), so its ``sbv_predict`` count is printed as 0."""
+    from repro_torch.core import predict as tpredict
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (BatchingPolicy, GPServer, GPServerConfig, PipelineConfig,
+                                     predict_synchronous)
+
+    xq = xm_te[:N_MULTI_SERVE]
+    pipe = PipelineConfig(bs_pred=BS_PRED, m_pred=M_PRED, chunk_size=SERVE_CHUNK, backend="auto")
+    conf = GPServerConfig(pipeline=pipe, policy=BatchingPolicy(max_points=10 * len(xq),
+                                                               max_wait_s=30.0), seed=SEED)
+    bounds = np.linspace(0, len(xq), N_MULTI_REQ + 1).astype(int)
+    ops.reset_launch_counts()
+    server = GPServer(params_m, xm_tr, ym_tr, conf, index=index_m, device=dev)
+    t = time.perf_counter()
+    with server:
+        futs = [server.submit(xq[a:b]) for a, b in zip(bounds[:-1], bounds[1:])]
+        server.flush()
+        served = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t
+    c = ops.launch_counts()
+    mean = np.concatenate([r.mean for r in served])
+    var = np.concatenate([r.var for r in served])
+    want = predict_synchronous(params_m, index_m, xq, pipe, seed=SEED, device=dev)
+    same = np.array_equal(mean, want[0]) and np.array_equal(var, want[1])
+    n_out = params_m.sigma2.shape[0]
+    log(f"serving multi-output drain: {len(served)} requests, {len(xq)} points x {n_out} outputs "
+        f"in {server.stats.summary()['n_batches']} batch, {wall:.3f} s "
+        f"({len(xq) / wall:.0f} points/s); bitwise the synchronous loop: {same}; launches "
+        f"sbv_predict {c['sbv_predict']} (the torch.linalg conditional, no kernel)")
+    check(server.stats.summary()["n_batches"] == 1, "multi drain: more than one batch")
+    check(mean.shape == (len(xq), n_out) and bool(np.isfinite(mean).all())
+          and bool((var > 0).all()), "multi drain: bad output")
+    check(same, "multi drain: served results differ from the synchronous loop")
+    _, chunk0 = next(tpredict.iter_query_chunks(index_m, xq, BS_PRED, M_PRED, seed=SEED,
+                                                chunk_size=SERVE_CHUNK))
+    held = hold_served_chunk("multi drain chunk 0", dev, params_m, chunk0, mean, var)
+    return dict(seconds=wall, bitwise=same, launches=c["sbv_predict"], chunk0=held)
 
 
 def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, index,
@@ -2433,6 +2759,50 @@ def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, i
     check(err <= 1e-12, f"routed serving parity {err:.3e} > 1e-12")
     out["router"] = dict(wall_s=wall_r, affinity_hit_rate=rs["affinity_hit_rate"],
                          replica_requests=rs["replica_requests"])
+
+    # g. Bucketed continuous serving (ROADMAP fault 7's path): the same
+    # stream at 4 bucket levels, each request bitwise its bucketed
+    # synchronous loop; one sbv_predict launch per (request, chunk) unit over
+    # the unit's bucket pieces; chunk 0 of the largest request held piece by
+    # piece against the plain version.
+    from repro_torch.serving.pipeline import make_chunk_split
+
+    pipe_b = PipelineConfig(bs_pred=BS_PRED, m_pred=M_PRED, chunk_size=SERVE_CHUNK,
+                            backend="auto", n_buckets=N_BUCKETS)
+    bconf = GPServerConfig(pipeline=pipe_b, policy=BatchingPolicy(max_wait_s=0.002),
+                           scheduler=SchedulerPolicy(), seed=SEED)
+    brefs = [predict_synchronous(fit_params, index, xq, pipe_b, seed=SEED, device=dev)
+             for xq, _ in stream]
+    ops.reset_launch_counts()
+    server = GPServer(fit_params, x_tr, y_tr, bconf, index=index, device=dev)
+    t = time.perf_counter()
+    with server:
+        futs = [server.submit(xq, slo=slo) for xq, slo in stream]
+        server.flush()
+        bdone = [f.result(timeout=600) for f in futs]
+    wall_b = time.perf_counter() - t
+    c = count("g (bucketed continuous)")
+    n_units = sum(math.ceil(len(xq) / SERVE_CHUNK) for xq, _ in stream)
+    same = all(np.array_equal(r.mean, brefs[i][0]) and np.array_equal(r.var, brefs[i][1])
+               for i, r in enumerate(bdone))
+    log(f"serving bucketed continuous ({N_BUCKETS} levels): {len(bdone)} requests "
+        f"({sum(len(xq) for xq, _ in stream)} points, {n_units} units) in {wall_b:.3f} s; "
+        f"bitwise the bucketed synchronous loop: {same}; sbv_predict launches "
+        f"{c['sbv_predict']} (expected {n_units}: one per unit over its buckets)")
+    check(same, "bucketed continuous serving differs from its synchronous loop")
+    check(c["sbv_predict"] == n_units, f"bucketed continuous: {c['sbv_predict']} predict "
+          f"launches, expected {n_units}")
+    big = max(range(len(stream)), key=lambda i: len(stream[i][0]))
+    xq = stream[big][0]
+    unit = tpredict.pack_queries(index, xq[:min(len(xq), SERVE_CHUNK)], BS_PRED, M_PRED,
+                                 seed=SEED, pad_shapes=True)
+    # (A piece of padding blocks alone holds no query to compare.)
+    pieces = [pc for pc in make_chunk_split(pipe_b)(unit) if np.asarray(pc.q_mask).any()]
+    out["bucketed_plain"] = [hold_served_chunk(
+        f"bucketed request {big} chunk 0 piece {j}", dev, fit_params, pc, bdone[big].mean,
+        bdone[big].var) for j, pc in enumerate(pieces)]
+    out["bucketed"] = dict(wall_s=wall_b, units=n_units, launches=c["sbv_predict"],
+                           pieces=len(pieces))
 
     # f. The serve CLI from b's record, alone and on 2 ranks. The record
     # fills the buckets, the backend and the tier: the widest its winner's
@@ -3028,6 +3398,11 @@ def main() -> int:
     log(f"multi predict split: training index {t_index:.2f} s; one chunk (bc={chunk_m.n_blocks}, "
         f"bs={chunk_m.bs_pred}, m={chunk_m.m_pred}): host packing {t_pack:.2f} s, device "
         f"conditional + {N_SIMS} simulations {dev_ms:.1f} ms")
+    # The p = 32 drain batch on this index (ROADMAP item 12a).
+    t = time.perf_counter()
+    results["serving_multi"] = multi_serving_step(dev, fit_m.params, xm_tr, ym_tr, xm_te,
+                                                  index_m)
+    log(f"phase multi-output serving: {time.perf_counter() - t:.1f} s")
     del pred_m, fit_m, arrs_p
     torch.cuda.empty_cache()
 
@@ -3167,6 +3542,21 @@ def main() -> int:
     # 13.-17. LM serving.
     lm_launches = lm_serving_phase(dev, peaks, results)
 
+    # 49.-52. LM training, after the serving model is freed.
+    work = tempfile.mkdtemp(prefix="smoke-train-")
+    try:
+        t = time.perf_counter()
+        train_launches = lm_training_phase(dev, peaks, results, work)
+        log(f"phase lm training: {time.perf_counter() - t:.1f} s; launches {train_launches} "
+            f"(flash_attention: prefill {lm_launches['flash_attention']} + training "
+            f"{train_launches['flash_attention']})")
+    finally:
+        import shutil
+
+        shutil.rmtree(work, ignore_errors=True)
+    lm_launches = {**lm_launches, **{k: lm_launches.get(k, 0) + v
+                                      for k, v in train_launches.items()}}
+
     kernels = []
     for kname, src, replaces, count in (
             ("sbv_loglik", "src/repro_torch/csrc/sbv_loglik.cu",
@@ -3179,6 +3569,9 @@ def main() -> int:
              "src/repro/kernels/matern_cov.py:49", kl_launches),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:92", lm_launches),
+            ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
+             "differentiates the XLA route)", lm_launches),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",
              "src/repro/kernels/sbv_loglik.py:289", ladder_launches),
             ("sbv_predict_bf16", "src/repro_torch/csrc/sbv_predict.cu",

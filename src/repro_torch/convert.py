@@ -5,7 +5,15 @@ The JAX package's ``KernelParams`` leaves (``log_sigma2``, ``log_beta``,
 ``log_beta``, ``log_tau2``) travel as numpy arrays, so neither package
 imports the other. Packed structures are numpy on both sides and need no
 conversion. So does the LM's parameter pytree (``lm_params_from_reference``,
-``lm_params_to_reference``).
+``lm_params_to_reference``) and its training state (``train_state_from_reference``,
+``train_state_to_reference``: params, Adam moments and step counts).
+
+The reference stacks each per-layer leaf on a leading L axis under
+``["stack"]["layers"]``; ``reference_tree`` and ``tensors_from_reference_tree``
+map a ``TransformerLM``'s parameter order to that layout and back with
+torch tensors (dtype and device kept), which is also the key layout of the
+training checkpoints (``launch/train.py``), so either package resumes the
+other's.
 """
 from __future__ import annotations
 
@@ -15,6 +23,7 @@ import torch
 from repro_torch.core.kernels_math import KernelParams
 from repro_torch.core.multioutput import MultiOutputParams
 from repro_torch.models.model import TransformerLM
+from repro_torch.optim import AdamState
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -78,41 +87,94 @@ def lm_params_from_reference(tree, cfg, device="cpu", dtype=None) -> Transformer
     (default: the config's), the norms in f32, as in the reference. Every
     leaf of ``tree`` must have a parameter and the same shape."""
     model = TransformerLM(cfg, device=device, dtype=dtype)
-    leaves = _flatten(tree)
-    used = set()
+    names, params = zip(*model.named_parameters())
     with torch.no_grad():
-        for name, param in model.named_parameters():
-            path, layer = _reference_path(name)
-            if path not in leaves:
-                raise KeyError(f"reference tree has no leaf {'/'.join(path)} for {name}")
-            a = np.asarray(leaves[path])
-            if layer is not None:
-                a = a[layer]
+        for name, param, a in zip(names, params, tensors_from_reference_tree(names, tree)):
+            a = np.asarray(a)
             if tuple(a.shape) != tuple(param.shape):
                 raise ValueError(f"{name}: reference shape {a.shape}, port {tuple(param.shape)}")
             param.copy_(torch.tensor(a).to(param.dtype))
-            used.add(path)
+    return model
+
+
+def param_names(cfg) -> list[str]:
+    """A ``TransformerLM``'s parameter names, in its parameter order."""
+    return [name for name, _ in TransformerLM(cfg, device="meta").named_parameters()]
+
+
+def reference_tree(names, tensors) -> dict:
+    """The reference's nested tree of ``tensors`` (one per parameter name of
+    ``names``): per-layer tensors stacked on a leading L axis."""
+    layered: dict = {}
+    tree: dict = {}
+    for name, t in zip(names, tensors):
+        path, layer = _reference_path(name)
+        if layer is None:
+            tree[path[0]] = t
+        else:
+            layered.setdefault(path, []).append(t)
+    for path, per_layer in layered.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = torch.stack(per_layer)
+    return tree
+
+
+def tensors_from_reference_tree(names, tree) -> list:
+    """The inverse of ``reference_tree``: one leaf (or layer slice of a
+    stacked leaf) per name of ``names``. Every leaf of ``tree`` must be used."""
+    leaves = _flatten(tree)
+    out, used = [], set()
+    for name in names:
+        path, layer = _reference_path(name)
+        if path not in leaves:
+            raise KeyError(f"reference tree has no leaf {'/'.join(path)} for {name}")
+        out.append(leaves[path] if layer is None else leaves[path][layer])
+        used.add(path)
     extra = sorted("/".join(p) for p in set(leaves) - used)
     if extra:
         raise ValueError(f"reference leaves without a port parameter: {extra}")
-    return model
+    return out
+
+
+def _numpy32(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy32(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()
 
 
 def lm_params_to_reference(model: TransformerLM) -> dict:
     """The reference's parameter pytree, as float32 numpy leaves (bf16
     values widen exactly), per-layer leaves stacked on a leading L axis."""
-    layered: dict = {}
-    tree: dict = {}
-    for name, param in model.named_parameters():
-        path, layer = _reference_path(name)
-        a = param.detach().float().cpu().numpy()
-        if layer is None:
-            tree[path[0]] = a
-        else:
-            layered.setdefault(path, []).append(a)
-    for path, per_layer in layered.items():
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(per_layer)
-    return tree
+    names, params = zip(*model.named_parameters())
+    return _numpy32(reference_tree(names, params))
+
+
+def train_state_to_reference(state, cfg) -> dict:
+    """A ``training.train_step.TrainState`` as the reference's state in
+    numpy: ``{"params": tree, "opt": {"step", "mu": tree, "nu": tree},
+    "step"}``, trees as ``lm_params_to_reference`` gives them (float32
+    leaves; bf16 params widen exactly), step counts as int32."""
+    names = param_names(cfg)
+    return {"params": _numpy32(reference_tree(names, state.params)),
+            "opt": {"step": np.int32(state.opt.step),
+                    "mu": _numpy32(reference_tree(names, state.opt.mu)),
+                    "nu": _numpy32(reference_tree(names, state.opt.nu))},
+            "step": np.int32(state.step)}
+
+
+def train_state_from_reference(tree, cfg, device="cpu"):
+    """A ``TrainState`` from the reference's state in numpy (the layout of
+    ``train_state_to_reference``): params at the config's dtype (norms f32),
+    Adam moments in float32, through ``lm_params_from_reference``."""
+    from repro_torch.training.train_step import TrainState
+
+    leaves = lambda t, dtype=None: tuple(
+        p.detach() for p in lm_params_from_reference(t, cfg, device=device,
+                                                     dtype=dtype).parameters())
+    return TrainState(params=leaves(tree["params"]),
+                      opt=AdamState(step=int(tree["opt"]["step"]),
+                                    mu=leaves(tree["opt"]["mu"], torch.float32),
+                                    nu=leaves(tree["opt"]["nu"], torch.float32)),
+                      step=int(tree["step"]))

@@ -21,7 +21,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov", "flash_attention")
+KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov", "flash_attention",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -134,6 +135,10 @@ _SIGNATURES = {
         fn: (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
         for fn in ("flash_attention_f32", "flash_attention_wgmma_bf16",
                    "flash_attention_mma_bf16", "flash_attention_scalar_bf16")
+    },
+    "flash_attention_bwd": {
+        fn: (_I, [_VP] * 8 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
+        for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")
     },
 }
 

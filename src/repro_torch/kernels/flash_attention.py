@@ -1,4 +1,5 @@
-"""Flash attention (forward): the CUDA kernel and its plain version.
+"""Flash attention: the forward and backward CUDA kernels, their plain
+versions, and the autograd.Function that joins them.
 
 ``flash_attention`` is the counterpart of ``flash_attention``
 (src/repro/kernels/flash_attention.py): q (B, H, S, hd), k and v
@@ -12,6 +13,14 @@ launches ``csrc/flash_attention.cu``; on CPU tensors it runs
 ``h // (H // Hkv)``, as ``repro.models.attention._expand_kv`` repeats them.
 f32 and bf16; hd in {32, 64, 80, 128, 256}; any S and T. ``flash_route``
 picks the kernel by dtype and head_dim (the table in the CUDA source).
+
+``FlashAttention`` is the differentiable form, for training: its forward is
+``flash_attention``; its backward launches ``csrc/flash_attention_bwd.cu``
+(``flash_attention_bwd_cuda``) on CUDA tensors and runs autograd through
+``flash_attention_plain`` on CPU tensors (``flash_attention_bwd_plain``).
+The reference has no backward kernel (its docstring names a
+``jax.custom_vjp``, but the code has none; ``jax.grad`` differentiates its
+XLA route), so the backward kernel replaces no Pallas kernel.
 """
 from __future__ import annotations
 
@@ -143,3 +152,74 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if q.is_cuda:
         return flash_attention_cuda(q, k, v, causal=causal, window=window, softcap=softcap)
     return flash_attention_plain(q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0,
+                              softcap: float = 0.0):
+    """``(dq, dk, dv)``: autograd through ``flash_attention_plain`` with
+    cotangent ``do``, each in its input's dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, window=window, softcap=softcap)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def flash_attention_bwd_cuda(q, k, v, do, causal: bool = True, window: int = 0,
+                             softcap: float = 0.0):
+    """Launch the backward kernels on CUDA tensors: ``(dq, dk, dv)`` of
+    ``flash_attention(q, k, v)`` under the cotangent ``do``, each in the
+    inputs' dtype (f32 or bf16, every hd in ``HEAD_DIMS``). Any strides with
+    hd contiguous; gradients come back with their input's strides where it
+    is dense. The kernels recompute the softmax statistics themselves, so
+    the forward's output is not an input."""
+    _check_shapes(q, k, v)
+    b, h, s, hd = q.shape
+    hkv, t_len = k.shape[1], k.shape[2]
+    flash_route(q.dtype, hd)  # raises for a dtype or head_dim the kernels do not take
+    if do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)} must be q's shape "
+                         f"{tuple(q.shape)}")
+    for name, x in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if not x.is_cuda or x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} ({x.dtype} on {x.device}) is not a "
+                             f"{q.dtype} tensor on q's CUDA device")
+    if t_len == 0 and q.numel():
+        raise ValueError("flash_attention_bwd: no keys (T = 0)")
+    q, k, v, do = (_kernel_ready(x) for x in (q, k, v, do))
+    dq, dk, dv = (_kernel_ready(torch.empty_like(x)) for x in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    stats = torch.empty(3 * b * h * s, dtype=torch.float32, device=q.device)
+    tensors = (q, k, v, do, dq, dk, dv)
+    strides = (ctypes.c_longlong * 21)(*(st for x in tensors for st in x.stride()[:3]))
+    entry = "flash_attention_bwd_f32" if q.dtype == torch.float32 else "flash_attention_bwd_bf16"
+    fn = getattr(_build.load("flash_attention_bwd"), entry)
+    with torch.cuda.device(q.device):
+        err = fn(*(x.data_ptr() for x in tensors), stats.data_ptr(), b, h, hkv, s, t_len, hd,
+                 strides, int(causal), int(window), float(softcap), float(hd ** -0.5),
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, entry)
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: ``FlashAttention.apply(q, k, v,
+    causal, window, softcap)``. The forward is ``flash_attention`` (the
+    kernel on CUDA, the plain version on CPU); the backward launches the
+    backward kernel on CUDA and differentiates the plain version on CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal=True, window=0, softcap=0.0):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, softcap)
+        return flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if q.is_cuda:
+            grads = flash_attention_bwd_cuda(q, k, v, do, *ctx.mask)
+        else:
+            grads = flash_attention_bwd_plain(q, k, v, do, *ctx.mask)
+        return (*grads, None, None, None)

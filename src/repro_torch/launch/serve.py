@@ -99,6 +99,9 @@ def _gp_parser() -> argparse.ArgumentParser:
     ap.add_argument("--buckets", type=int, default=None,
                     help="bucket each chunk by size with this many geometric ceiling "
                          "levels per dimension; reports padding occupancy")
+    ap.add_argument("--pipeline", default="double", choices=["double", "sync"],
+                    help="drain mode's chunk loop: double = the stream engine (host packing "
+                         "overlapped with device compute); sync = the synchronous loop")
     ap.add_argument("--scheduler", default="drain", choices=["drain", "continuous"],
                     help="continuous = running batch with SLO-aware admission at every "
                          "chunk boundary, cancellation, backpressure; drain = the "
@@ -381,6 +384,7 @@ def serve_gp(argv=None):
         policy=BatchingPolicy(max_points=args.max_points or args.chunk,
                               max_wait_s=args.max_wait_ms / 1e3, adaptive=args.adaptive_wait),
         scheduler=sched_policy,
+        pipelined=args.pipeline == "double",
         seed=args.seed,
     )
     if ctx is not None:
@@ -430,7 +434,7 @@ def serve_gp(argv=None):
     stats = server.stats.summary()
     print(f"[serve-gp] {args.n_test} predictions / {len(futs)} requests in {dt:.2f}s: "
           f"{args.n_test/dt:.0f} pts/s (backend={args.backend}, device={dev}, "
-          f"workers={args.workers}, scheduler={args.scheduler})")
+          f"workers={args.workers}, pipeline={args.pipeline}, scheduler={args.scheduler})")
     print(f"[serve-gp] batches={stats['n_batches']} "
           f"occupancy={stats['mean_batch_points']:.0f} pts/batch "
           f"latency p50={stats['latency_p50_s']*1e3:.1f}ms "

@@ -1,10 +1,10 @@
-"""The LM substrate for serving: dense global-attention decoders."""
+"""The LM substrate: dense global-attention decoders, for training and serving."""
 from .model import (
-    TransformerLM, embed_tokens, init_params, logits_fn, make_empty_cache, model_dtype,
+    TransformerLM, embed_tokens, init_params, lm_loss, logits_fn, make_empty_cache, model_dtype,
     prefill_step, serve_step,
 )
 
 __all__ = [
-    "TransformerLM", "embed_tokens", "init_params", "logits_fn", "make_empty_cache",
+    "TransformerLM", "embed_tokens", "init_params", "lm_loss", "logits_fn", "make_empty_cache",
     "model_dtype", "prefill_step", "serve_step",
 ]

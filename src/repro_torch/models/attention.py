@@ -8,7 +8,9 @@ The full-sequence forward takes one of two routes, as the reference's
   which launches on CUDA tensors and runs its plain version on CPU tensors.
   The (B, S, H, hd) projections go in as strided (B, H, S, hd) views, and
   the kernel reads KV head ``h // n_rep`` itself, so neither K nor V is
-  repeated or transposed;
+  repeated or transposed. Where gradients are needed (training) the call
+  goes through ``FlashAttention``, whose backward is the backward kernel;
+  under ``inference_mode`` (serving) it is the forward alone;
 * ``"never"``: the port of ``_attend_block``: f32 scores and softmax over
   query chunks of 1024, the probabilities cast to the model dtype before
   P . V. This is the reference's second route, not a fallback.
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
 from .layers import apply_rope, dense_init_, linear_weight, softcap
 
@@ -127,7 +129,7 @@ class Attention(nn.Module):
         return q, k, v
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0):
-        """Full-sequence attention (prefill; training later).
+        """Full-sequence attention (prefill and training).
 
         x (B, S, D), positions (B, S) int. Returns ``(out (B, S, D), k, v)``
         with k, v (B, S, Hkv, hd), rotary applied to k: what prefill writes
@@ -136,8 +138,11 @@ class Attention(nn.Module):
         b, s, _ = x.shape
         q, k, v = self._qkv(x, positions)
         if _flash_enabled(cfg):
-            o = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                                causal=True, window=window, softcap=cfg.attn_softcap)
+            qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+            if torch.is_grad_enabled() and any(t.requires_grad for t in qkv):
+                o = FlashAttention.apply(*qkv, True, window, cfg.attn_softcap)
+            else:
+                o = flash_attention(*qkv, causal=True, window=window, softcap=cfg.attn_softcap)
             out = o.transpose(1, 2)
         else:
             n_rep = cfg.n_heads // cfg.n_kv_heads

@@ -87,7 +87,7 @@ class MLP(nn.Module):
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Mean cross-entropy over tokens; f32 logsumexp. Forward only."""
+    """Mean cross-entropy over tokens; f32 logsumexp."""
     logits32 = logits.float()
     lse = torch.logsumexp(logits32, dim=-1)
     gold = torch.gather(logits32, -1, labels[..., None].long())[..., 0]

@@ -1,13 +1,22 @@
-"""LM wrapper: embeddings, the output head, prefill and decode steps. The
-counterpart of ``repro.models.model`` for serving (``lm_loss`` and the
-training forward wait for the training slice)."""
+"""LM wrapper: embeddings, the chunked training loss, the output head,
+prefill and decode steps. The counterpart of ``repro.models.model``.
+
+``lm_loss`` streams the output projection and cross-entropy over sequence
+chunks of ``_LOSS_CHUNK`` tokens, each under ``torch.utils.checkpoint``, so
+the (B, S, V) logits never exist at once (at internlm2's 92,544-token vocab
+and 4 x 2048 tokens they would take 3 GB in f32).
+"""
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from .layers import rms_norm, softcap
-from .transformer import AttnBlock, check_supported, decode_step, init_cache, prefill
+from .layers import cross_entropy, rms_norm, softcap
+from .transformer import (AttnBlock, check_supported, decode_step, forward_train, init_cache,
+                          prefill)
+
+_LOSS_CHUNK = 512
 
 
 def model_dtype(cfg) -> torch.dtype:
@@ -82,6 +91,39 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
 def logits_fn(model: TransformerLM, hidden: torch.Tensor) -> torch.Tensor:
     """``hidden @ head`` in the model dtype, then f32 and the final softcap."""
     return softcap((hidden @ model.head_matrix()).float(), model.cfg.logit_softcap)
+
+
+def _chunk_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
+                cap: float) -> torch.Tensor:
+    return cross_entropy(softcap((h @ head).float(), cap), labels)
+
+
+def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp: int = 1,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    """Mean next-token cross-entropy (f32 scalar) of tokens (B, S) against
+    labels (B, S); the loss head runs chunk by chunk over the sequence and
+    the chunk means are summed in f32 in order and divided by their count,
+    as the reference's scan does. ``aux_weight`` weighs the MoE router's
+    auxiliary loss, which waits for the MoE slice (no dense block has one)."""
+    cfg = model.cfg
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
+    x = embed_tokens(model, tokens)
+    hidden, aux = forward_train(model.layers, x, cfg, positions, tp)
+    hidden = rms_norm(hidden, model.ln_f, cfg.norm_eps)
+    head = model.head_matrix()
+    chunk = min(_LOSS_CHUNK, s)
+    if s % chunk:
+        raise ValueError(f"lm_loss: sequence length {s} is not a multiple of {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for c in range(0, s, chunk):
+        total = total + checkpoint(_chunk_loss, hidden[:, c:c + chunk], head,
+                                   labels[:, c:c + chunk], cfg.logit_softcap,
+                                   use_reentrant=False, preserve_rng_state=False)
+    loss = total / (s // chunk)
+    if cfg.n_experts:
+        loss = loss + aux_weight * aux / cfg.n_layers
+    return loss
 
 
 def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int):

@@ -1,6 +1,6 @@
-"""Decoder blocks and their prefill / decode loops: the ``block_kind ==
-"attn"`` branch of ``repro.models.transformer``, for dense global-attention
-stacks (musicgen, internlm2, minitron, mistral, chameleon).
+"""Decoder blocks and their training forward, prefill and decode loops: the
+``block_kind == "attn"`` branch of ``repro.models.transformer``, for dense
+global-attention stacks (musicgen, internlm2, minitron, mistral, chameleon).
 
 The layers are an ``nn.ModuleList`` walked by a Python loop (the reference
 stacks them for ``lax.scan``). The decode cache stays stacked as in the
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import Attention
 from .layers import MLP, rms_norm
@@ -76,6 +77,33 @@ def layer_windows(cfg) -> list[int]:
     if cfg.sliding_window:
         return [cfg.sliding_window] * cfg.n_layers
     return [0] * cfg.n_layers
+
+
+def _train_layer(layer: AttnBlock, x: torch.Tensor, positions: torch.Tensor,
+                 window: int) -> torch.Tensor:
+    return layer(x, positions, window)[0]
+
+
+def forward_train(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor,
+                  tp: int = 1):
+    """x (B, S, D) embeddings -> ``(hidden (B, S, D), aux_loss)``; aux is
+    0.0 (no MoE block in this slice).
+
+    With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), as the reference wraps its scan body in
+    ``jax.checkpoint``: the backward pass recomputes each layer's
+    activations instead of keeping L layers of them, so the attention
+    forward runs twice per layer and step."""
+    if tp != 1:
+        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported yet "
+                                  "(ROADMAP queue 1 item 13.6)")
+    for layer, w in zip(layers, layer_windows(cfg)):
+        if cfg.remat:
+            x = checkpoint(_train_layer, layer, x, positions, w, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _train_layer(layer, x, positions, w)
+    return x, 0.0
 
 
 def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Adam over a tuple of tensors, as written in ``repro.optim.adam``.
+"""Adam and AdamW over a tuple of tensors, as written in ``repro.optim.adam``.
 
 Moments are kept in float32 regardless of the parameter dtype, and the
 update itself is taken in float32 and cast back to the parameter dtype,
@@ -46,3 +46,9 @@ def adam_update(grads, state: AdamState, params, lr, b1: float = 0.9, b2: float 
             new_v.append(v)
     out = type(params)(*new_p) if hasattr(params, "_fields") else tuple(new_p)
     return out, AdamState(step=step, mu=tuple(new_m), nu=tuple(new_v))
+
+
+def adamw_update(grads, state: AdamState, params, lr, weight_decay: float = 0.1, **kw):
+    """Adam with decoupled weight decay (default 0.1), the reference's
+    ``adamw_update``."""
+    return adam_update(grads, state, params, lr, weight_decay=weight_decay, **kw)

@@ -44,7 +44,7 @@ from .batching import (
 )
 from .pipeline import (
     PipelineConfig, _engine_device, n_outputs_of, pack_scheduled,
-    predict_pipelined, run_chunk_stream,
+    predict_pipelined, predict_synchronous, run_chunk_stream,
 )
 from .scheduler import ContinuousScheduler
 from .telemetry import ServerStats, now
@@ -86,11 +86,16 @@ class GPServerConfig:
     (micro-batches coalesced by concatenation — the benchmark baseline);
     a ``SchedulerPolicy`` switches dispatch to the continuous-batching
     scheduler (``scheduler.py``): per-request chunking, SLO-aware
-    admission at every chunk boundary, cancellation, backpressure."""
+    admission at every chunk boundary, cancellation, backpressure.
+    ``pipelined`` picks the drain loop's chunk loop: ``predict_pipelined``
+    (the stream engine) or, when False, ``predict_synchronous``; both give
+    bitwise the same results. The continuous scheduler always runs the
+    stream engine, as in the reference."""
 
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     policy: BatchingPolicy = field(default_factory=BatchingPolicy)
     scheduler: SchedulerPolicy | None = None
+    pipelined: bool = True    # False = the synchronous chunk loop (drain mode)
     seed: int = 0
 
 
@@ -365,8 +370,9 @@ class GPServer:
         # batch so a fresh server reproduces predict_sbv exactly.
         seed = self.config.seed + 100003 * self._n_batches
         self._n_batches += 1
+        runner = predict_pipelined if self.config.pipelined else predict_synchronous
         try:
-            mean, var = predict_pipelined(
+            mean, var = runner(
                 self.params, self.index, x, self.config.pipeline,
                 seed=seed, mesh=self.mesh, stats=self.stats, device=self.device,
             )

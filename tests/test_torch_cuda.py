@@ -1424,3 +1424,134 @@ def test_autotune_on_card_launches_the_likelihood_kernel(dev, tmp_path):
     assert TuningRecord.load(str(tmp_path)).to_dict() == rec.to_dict()
     res = fit_sbv(x, y, cfg, inner_steps=2, outer_rounds=1, tuning=str(tmp_path), device=dev)
     assert np.isfinite(res.history[-1][2])
+
+
+# -- the flash-attention backward kernel and the training step ---------------
+
+# (B, H, Hkv, S, T, hd, causal, window, softcap): every head_dim, GQA and
+# MHA, S != T both ways, S and T off the 32-row tiles, windows that cross
+# tiles, rows with no allowed key (causal and not), softcaps.
+BWD_CASES = [
+    (2, 4, 2, 256, 256, 128, True, 0, 0.0),     # the path's layout, GQA, causal
+    (1, 2, 1, 300, 300, 128, True, 17, 0.0),    # window 17
+    (1, 2, 2, 200, 200, 128, True, 0, 50.0),    # softcap 50
+    (1, 2, 1, 520, 520, 128, True, 150, 30.0),  # window and softcap
+    (1, 2, 2, 100, 37, 32, True, 0, 0.0),       # S > T, top-left aligned
+    (1, 2, 2, 96, 16, 32, True, 8, 0.0),        # rows with no allowed key
+    (1, 2, 2, 96, 16, 64, False, 8, 0.0),       # the same, not causal
+    (1, 2, 1, 64, 200, 80, False, 0, 0.0),      # S < T, not causal, hd 80
+    (2, 4, 2, 150, 150, 64, True, 0, 0.0),
+    (1, 4, 4, 77, 77, 32, True, 0, 5.0),
+    (1, 4, 2, 130, 130, 256, True, 0, 0.0),
+    (1, 2, 1, 45, 45, 256, True, 20, 10.0),
+    (1, 2, 1, 1, 1, 128, True, 0, 0.0),
+]
+
+
+def _check_bwd(dev, dtype, case):
+    """The backward kernel against autograd through the plain version
+    (``chip_smoke.grad_check``'s limits), one launch counted, and the same
+    bits on a second call."""
+    from chip_smoke import grad_check
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain)
+
+    b, h, hkv, s, t, hd, causal, window, cap = case
+    q, k, v = _flash_inputs(dev, dtype, b, h, hkv, s, t, hd)
+    do = _flash_inputs(dev, dtype, b, h, h, s, 1, hd, seed=12)[0]
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = flash_attention_bwd_plain(q, k, v, do, causal=causal, window=window, softcap=cap)
+    for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        assert g.shape == x.shape and g.dtype == dtype, name
+        res = grad_check(g, w)
+        assert res["ok"], (name, res)
+    again = flash_attention_bwd_cuda(q, k, v, do, causal=causal, window=window, softcap=cap)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))  # no atomics: deterministic
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernel_matches_plain_autograd(dev, dtype, case):
+    _check_bwd(dev, dtype, case)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["causal", "window", "softcap"])
+@pytest.mark.parametrize("hd", [32, 64, 80, 128, 256])
+def test_flash_bwd_every_head_dim_and_mask(dev, dtype, mode, hd):
+    """Every head_dim under each mask (GQA, S = T = 100: off the 32-row tiles)."""
+    _check_bwd(dev, dtype, (1, 4, 2, 100, 100, hd, True, 23 if mode == "window" else 0,
+                            7.0 if mode == "softcap" else 0.0))
+
+
+def test_flash_bwd_takes_model_layout_strides(dev):
+    """(B, S, H, hd) projections seen as (B, H, S, hd): the gradients come
+    back in that layout and equal those of contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(2, 100, 4, 64, generator=g, device=dev)
+    kv = torch.randn(2, 100, 2, 64, generator=g, device=dev)
+    do = torch.randn(2, 100, 4, 64, generator=g, device=dev)
+    q, k, v, dot = x.transpose(1, 2), kv.transpose(1, 2), (2 * kv).transpose(1, 2), do.transpose(1, 2)
+    got = flash_attention_bwd_cuda(q, k, v, dot)
+    want = flash_attention_bwd_cuda(*(t.contiguous() for t in (q, k, v, dot)))
+    assert got[0].stride() == q.stride()
+    for a, b_ in zip(got, want):
+        torch.testing.assert_close(a, b_, rtol=1e-6, atol=1e-6)
+
+
+def test_flash_function_launches_both_kernels(dev):
+    from chip_smoke import grad_check
+    from repro_torch.kernels.flash_attention import FlashAttention, flash_attention_bwd_plain
+
+    q, k, v = (t.requires_grad_(True) for t in _flash_inputs(dev, torch.bfloat16, 1, 4, 2, 200,
+                                                             200, 128))
+    do = torch.randn_like(q)
+    ops.reset_launch_counts()
+    o = FlashAttention.apply(q, k, v, True, 0, 0.0)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    want = flash_attention_bwd_plain(q, k, v, do)
+    for g, w in zip(got, want):
+        assert grad_check(g, w)["ok"]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_reduced_train_step_on_card_matches_cpu(dev, dtype):
+    """One step of the reduced internlm2 (GQA) on the card against the same
+    step on the CPU from the same weights and batch: loss and grad norm at
+    rtol 1e-4 in f32 (the kernels' and cuBLAS's f32 sums in other orders),
+    2e-2 in bf16; the params at 10 lr. The flash forward launches twice per
+    layer (the forward and the remat recompute), the backward once."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.training.train_step import make_train_step, train_state_init
+
+    cfg = get_config("internlm2-1.8b").reduced(n_layers=2, vocab=128, n_kv_heads=2, dtype=dtype)
+    cpu = train_state_init(init_params(cfg, torch.Generator().manual_seed(0)))
+    card = type(cpu)(params=tuple(p.to(dev) for p in cpu.params),
+                     opt=type(cpu.opt)(0, tuple(m.to(dev) for m in cpu.opt.mu),
+                                       tuple(m.to(dev) for m in cpu.opt.nu)), step=0)
+    rng = np.random.default_rng(1)
+    tok, lab = (rng.integers(0, cfg.vocab, (4, 64)).astype(np.int32) for _ in range(2))
+    lr = 1e-3
+    step = make_train_step(cfg, lr=lr)
+    ops.reset_launch_counts()
+    card, mc = step(card, tok, lab)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.n_layers
+    assert counts["flash_attention_bwd"] == cfg.n_layers
+    cpu, mh = step(cpu, tok, lab)
+    rtol = 1e-4 if dtype == "float32" else 2e-2
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(mc[key]), float(mh[key]), rtol=rtol, err_msg=key)
+    for a, b_ in zip(card.params, cpu.params):
+        assert a.is_cuda and a.dtype == b_.dtype
+        torch.testing.assert_close(a.cpu().float(), b_.float(), rtol=0, atol=10 * lr)

@@ -389,3 +389,33 @@ def test_worker_mesh_serving_matches_single_device(problem):
     for runner in (predict_synchronous, predict_pipelined):
         got = runner(params, index, xt, cfg, seed=1, mesh=mesh)
         assert_parity(got[0], got[1], want, PARITY)
+
+
+def test_reference_loop_switches_run_unchanged(problem):
+    """The reference's ``GPServerConfig(pipelined=False)`` and ``serve gp
+    --pipeline sync|double`` name the port's two chunk loops (the
+    synchronous loop and the stream engine): a drain batch gives bitwise
+    the same results under either, and the CLI takes the flag."""
+    from repro_torch.launch import serve as tserve
+
+    params, _, x, y, requests = problem
+    pipe = PipelineConfig(bs_pred=8, m_pred=32, chunk_size=64)
+    out = []
+    for pipelined in (False, True):
+        cfg = GPServerConfig(pipeline=pipe, seed=3, pipelined=pipelined,
+                             policy=BatchingPolicy(max_points=100_000, max_wait_s=30.0))
+        with GPServer(params, x, y, cfg, device="cpu") as server:
+            futs = [server.submit(r) for r in requests]
+            server.flush()
+            out.append([f.result(timeout=WAIT) for f in futs])
+    for a, b in zip(*out):
+        np.testing.assert_array_equal(a.mean, b.mean)
+        np.testing.assert_array_equal(a.var, b.var)
+    assert GPServerConfig().pipelined is True
+    argv = ["gp", "--n-train", "300", "--n-test", "200", "--chunk", "64", "--bs-pred", "8",
+            "--m-pred", "20", "--requests", "4", "--device", "cpu"]
+    res = {mode: tserve.main(argv + ["--pipeline", mode]) for mode in ("sync", "double")}
+    for a, b in zip(res["sync"], res["double"]):
+        assert a.shape == b.shape == (200,) and np.isfinite(a).all() and np.isfinite(b).all()
+    with pytest.raises(SystemExit):
+        tserve.main(argv + ["--pipeline", "triple"])
