@@ -54,9 +54,13 @@ path once through the user entry points:
   ``training.serve.make_prefill_step`` and 32 greedy tokens through
   ``make_decode_step``, with the flash-attention kernel held against its
   plain version (bf16 and f32) at the path's shape and at its variants;
-* LM training: the flash-attention backward kernel against autograd through
-  the plain version at the training shape (4 x 2048 tokens) and variants,
-  timed beside the library's backward, then ``python -m
+* LM training: the flash-attention backward kernels against autograd
+  through the plain version at the training shape (4 x 2048 tokens) and
+  variants, on the route ``flash_bwd_route`` gives ('wgmma' for bf16 at hd
+  64 and 128, fed by the forward's row statistics), timed beside the
+  scalar kernels (the 'scalar' route, its baseline) and the library's
+  backward, the wgmma forward timed
+  with and without the statistics, then ``python -m
   repro_torch.launch.train`` (``main``) on internlm2-1.8b at full width and
   depth in bf16 for 6 steps, 2 at grad_accum 2 and 2 with int8
   compression, and a checkpoint resume on the reduced config;
@@ -344,7 +348,9 @@ def row_rel_err(got, want) -> float:
 # other orders); bf16 per output row (one query or key of one head) in
 # relative L2 within 1e-2, beside 3e-2 of the largest entry per element, as
 # the bf16 forward is held (both sides compute in f32 and round once to
-# bf16; the kernel's D uses the bf16 output o).
+# bf16; the kernel takes D = sum_j P dP in f32, not do . o from the bf16
+# output, and its 'wgmma' route rounds P and dS to bf16 as the operands of
+# its products).
 BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 BWD_ROW_TOL = 1e-2
 
@@ -611,6 +617,12 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v))
     k2_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v))
     m2_ms = cuda_ms(mma)
+    # The same pair with 10 calls back to back per event pair, so that the
+    # host's work before each launch (which the single calls include) runs
+    # under the previous kernel: the kernels' own ratio.
+    mb1_ms, kb1_ms, kb2_ms, mb2_ms = (
+        cuda_ms(fn, inner=10) for fn in (mma, lambda: flash_attention_cuda(q, k, v),
+                                         lambda: flash_attention_cuda(q, k, v), mma))
     with torch.inference_mode():
         p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v), reps=3)
     kx, vx = k.repeat_interleave(n_rep, dim=1), v.repeat_interleave(n_rep, dim=1)
@@ -623,13 +635,18 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
         f"bf16 ({flash_route(q.dtype, path[5])} route) {k_ms:.3f} / {k2_ms:.3f} ms "
         f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.1f} % of the bound), f32 "
         f"{k32_ms:.3f} ms; earlier mma.sync kernel bf16 {m1_ms:.3f} / {m2_ms:.3f} ms (before / "
-        f"after; wgmma vs mma row rel L2 {base_row:.3e}); plain bf16 {p_ms:.3f} ms; "
+        f"after; wgmma / mma.sync {k_ms / m1_ms:.3f} / {k2_ms / m2_ms:.3f}; wgmma vs mma row rel "
+        f"L2 {base_row:.3e}; back to back wgmma {kb1_ms:.4f} / {kb2_ms:.4f} ms, mma.sync "
+        f"{mb1_ms:.4f} / {mb2_ms:.4f} ms, wgmma / mma.sync {kb1_ms / mb1_ms:.3f} / "
+        f"{kb2_ms / mb2_ms:.3f}); plain bf16 {p_ms:.3f} ms; "
         f"scaled_dot_product_attention bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
         f"{flops:.3e} flop, {nbytes:.3e} B); {cfg.n_layers} calls per prefill = "
         f"{cfg.n_layers * k_ms / 1e3:.3f} s of the {t_prefill:.3f} s prefill")
     results["flash_attention"] = dict(max_abs_err=flash_err, ms=k_ms, plain_ms=p_ms,
                                       bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                                      f32_ms=k32_ms, baseline_ms=[m1_ms, m2_ms])
+                                      f32_ms=k32_ms, baseline_ms=[m1_ms, m2_ms],
+                                      back_to_back_ms=[kb1_ms, kb2_ms],
+                                      baseline_back_to_back_ms=[mb1_ms, mb2_ms])
     del q, k, v, kx, vx, q32, k32, v32, model
     torch.cuda.empty_cache()
     return {name: pre_launches[name] + dec_launches[name] for name in pre_launches}
@@ -649,8 +666,9 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
     from repro_torch.kernels import ops
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_plain)
+    from repro_torch.kernels.flash_attention import (_bwd_launch, flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_cuda, flash_bwd_route)
     from repro_torch.launch import train as ttrain
     from repro_torch.models.model import TransformerLM, init_params, lm_loss
     from repro_torch.optim import adam_update
@@ -661,15 +679,23 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 7)
     mk = lambda *sh, dtype: torch.randn(*sh, generator=gen, device=dev).to(dtype)
 
-    # 49. The backward kernel against autograd through the plain version, at
-    # the path's shape (B = 4, H = 16, Hkv = 8, S = T = 2048, hd = 128,
-    # causal) and at small variants (window, softcap, hd 64 and 80).
+    # 49. The backward kernels against autograd through the plain version,
+    # at the path's shape (B = 4, H = 16, Hkv = 8, S = T = 2048, hd = 128,
+    # causal) and at small variants (window, softcap, hd 64 and 80, GQA at
+    # n_rep 4 off the tiles, S < T without causality, rows with no allowed
+    # key, one row), through the route flash_bwd_route gives: bf16 at hd 64
+    # and 128 on 'wgmma' (the forward's statistics computed first), the rest
+    # on 'scalar'.
     path = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim,
             True, 0, 0.0)
     cases = [("path", path), ("window", (1, 4, 2, 600, 600, 128, True, 100, 0.0)),
              ("softcap", (1, 4, 2, 300, 300, 128, True, 0, 30.0)),
              ("hd64", (1, 4, 2, 300, 300, 64, True, 0, 0.0)),
-             ("hd80", (1, 4, 2, 300, 300, 80, True, 0, 0.0))]
+             ("hd80", (1, 4, 2, 300, 300, 80, True, 0, 0.0)),
+             ("gqa4", (1, 8, 2, 333, 333, 128, True, 0, 0.0)),
+             ("noncausal", (1, 4, 2, 200, 600, 128, False, 0, 0.0)),
+             ("empty_rows", (1, 4, 2, 600, 100, 128, True, 50, 0.0)),
+             ("one_row", (1, 4, 2, 1, 1, 64, True, 0, 0.0))]
     bwd_err = None
     for label, (b, h, hkv, s_, t_, hd, causal, window, cap) in cases:
         for dtype in (torch.float32, torch.bfloat16):
@@ -681,8 +707,9 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
                                              softcap=cap)
             torch.cuda.synchronize()
             res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
-            log(f"flash_bwd {label} {str(dtype)[6:]}: B={b} H={h} Hkv={hkv} S={s_} T={t_} hd={hd} "
-                f"window={window} softcap={cap}: " + "; ".join(
+            log(f"flash_bwd {label} {str(dtype)[6:]} ({flash_bwd_route(dtype, hd)} route): B={b} "
+                f"H={h} Hkv={hkv} S={s_} T={t_} hd={hd} causal={causal} window={window} "
+                f"softcap={cap}: " + "; ".join(
                     f"{n} max_abs_err {r['max_abs_err']:.3e} ({r['scaled_err']:.2e} of the "
                     f"largest, row rel L2 {r['row_rel']:.2e})" for n, r in res.items())
                 + f" (limits {BWD_TOL[str(dtype)[6:]]:g} of the largest"
@@ -694,36 +721,62 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
             del q, k, v, do, got, want
     torch.cuda.empty_cache()
 
-    # 50. Times at the path's shape: the kernel (bf16 and f32), the plain
+    # 50. Times at the path's shape: the 'wgmma' route, from the forward's
+    # statistics as training calls it, beside the scalar kernels on the same
+    # bf16 inputs (the 'scalar' route, uncounted: baseline, kernel, kernel,
+    # baseline; first held against each other), the f32 route, the plain
     # version, and the library's backward (scaled_dot_product_attention on
-    # the repeated KV; timed here only, the port never calls it).
+    # the repeated KV; timed here only, the port never calls it); then the
+    # wgmma forward with and without the statistics (10 calls back to back
+    # per event pair: without, with, with, without).
     b, h, hkv, s_, _, hd = path[:6]
     q, k, v, do = (mk(b, h, s_, hd, dtype=torch.bfloat16), mk(b, hkv, s_, hd, dtype=torch.bfloat16),
                    mk(b, hkv, s_, hd, dtype=torch.bfloat16), mk(b, h, s_, hd, dtype=torch.bfloat16))
-    kern = lambda: flash_attention_bwd_cuda(q, k, v, do)
+    _, stats = flash_attention_cuda(q, k, v, return_stats=True)
+    kern = lambda: flash_attention_bwd_cuda(q, k, v, do, stats=stats)
+    base = lambda: _bwd_launch("scalar", q, k, v, do, True, 0, 0.0)
+    res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), kern(), base())}
+    log("flash_bwd wgmma route vs the scalar kernels at the path shape: " + "; ".join(
+        f"{n} {r['scaled_err']:.2e} of the largest, rows {r['row_rel']:.2e}"
+        for n, r in res.items()))
+    check(all(r["ok"] for r in res.values()), f"flash_bwd wgmma vs scalar baseline: {res}")
+    b1_ms = cuda_ms(base)
     k_ms = cuda_ms(kern)
+    k2_ms = cuda_ms(kern)
+    b2_ms = cuda_ms(base)
     p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do), reps=3)
     qx = q.detach().requires_grad_(True)
     kx = k.repeat_interleave(n_rep, dim=1).requires_grad_(True)
     vx = v.repeat_interleave(n_rep, dim=1).requires_grad_(True)
     ox = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
     l_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True))
-    k2_ms = cuda_ms(kern)
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     k32_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q32, k32, v32, do32), reps=3)
+    fwd = lambda: flash_attention_cuda(q, k, v)
+    fwd_st = lambda: flash_attention_cuda(q, k, v, return_stats=True)
+    f1_ms, s1_ms, s2_ms, f2_ms = (cuda_ms(fn, inner=10) for fn in (fwd, fwd_st, fwd_st, fwd))
     flops, nbytes = flash_bwd_work(b, h, hkv, s_, hd, 2)
     b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
-    b32_ms, _ = bound_ms(flops, nbytes, peaks, "f32")
     log(f"flash_bwd time at B={b} H={h} Hkv={hkv} S=T={s_} hd={hd} causal: kernel bf16 "
-        f"{k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s of the function's work, "
-        f"{100 * b_ms / k_ms:.2f} % of the bf16 bound, {100 * b32_ms / k_ms:.1f} % of the "
-        f"f32 rate its scalar FMAs run at), f32 {k32_ms:.3f} ms; plain (autograd through "
-        f"flash_attention_plain) bf16 {p_ms:.3f} ms; scaled_dot_product_attention backward "
-        f"bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
+        f"({flash_bwd_route(q.dtype, hd)} route) {k_ms:.3f} / {k2_ms:.3f} ms "
+        f"({flops / k_ms / 1e9:.2f} TFLOP/s of the function's work, {100 * b_ms / k_ms:.2f} % of "
+        f"the bf16 bound), f32 ({flash_bwd_route(torch.float32, hd)} route) {k32_ms:.3f} ms; the "
+        f"scalar kernels bf16 {b1_ms:.3f} / {b2_ms:.3f} ms (before / after; "
+        f"{min(b1_ms, b2_ms) / max(k_ms, k2_ms):.1f}x the wgmma route's time); plain (autograd "
+        f"through flash_attention_plain) bf16 {p_ms:.3f} ms; scaled_dot_product_attention "
+        f"backward bf16 {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, "
+        f"{nbytes:.3e} B)")
+    log(f"flash forward (wgmma route) at the training shape: {f1_ms:.4f} / {f2_ms:.4f} ms without "
+        f"the statistics, {s1_ms:.4f} / {s2_ms:.4f} ms with them (before / after; "
+        f"{100 * (min(s1_ms, s2_ms) / min(f1_ms, f2_ms) - 1):+.1f} %)")
+    check(max(k_ms, k2_ms) < min(b1_ms, b2_ms),
+          f"flash_bwd: the wgmma route ({k_ms:.3f} ms) is not faster than the scalar kernels "
+          f"({b1_ms:.3f} ms)")
     results["flash_attention_bwd"] = dict(max_abs_err=bwd_err, ms=k_ms, plain_ms=p_ms,
                                           bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
-                                          f32_ms=k32_ms)
-    del q, k, v, do, qx, kx, vx, ox, q32, k32, v32, do32
+                                          f32_ms=k32_ms, baseline_ms=[b1_ms, b2_ms],
+                                          fwd_ms=[f1_ms, f2_ms], fwd_stats_ms=[s1_ms, s2_ms])
+    del q, k, v, do, stats, qx, kx, vx, ox, q32, k32, v32, do32
     torch.cuda.empty_cache()
 
     # 51. The path: launch.train.main at full width and depth, 6 steps.
@@ -732,6 +785,10 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     log(f"phase lm training: {LM_ARCH} (L={cfg.n_layers}, d={cfg.d_model}, V={cfg.vocab}): "
         f"{n_par / 1e9:.3f} B parameters; bf16 params and grads {4 * n_par / 1e9:.2f} GB, f32 "
         f"moments {8 * n_par / 1e9:.2f} GB (reckoned)")
+    route = flash_bwd_route(getattr(torch, cfg.dtype), cfg.head_dim)
+    log(f"lm training: the attention backward's route is {route!r} ({cfg.dtype}, "
+        f"hd {cfg.head_dim})")
+    check(route == "wgmma", f"lm training: the path's attention backward route is {route!r}")
     argv = ["--arch", LM_ARCH, "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
             "--lr", str(TRAIN_LR), "--device", str(dev)]
     counts = {"flash_attention": 0, "flash_attention_bwd": 0}
@@ -3569,7 +3626,7 @@ def main() -> int:
              "src/repro/kernels/matern_cov.py:49", kl_launches),
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:92", lm_launches),
-            ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
              "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
              "differentiates the XLA route)", lm_launches),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",

@@ -42,12 +42,21 @@
 //   ping-pongs the two consumer warpgroups so that one's softmax (its
 //   scale, mask, exponentials and the rescale of O on the CUDA cores) runs
 //   under the other's products.
+//   With a non-null `stats` (its `STATS` instantiation; the prefill runs
+//   the one without) it also writes each query row's statistics for
+//   the backward's wgmma route (csrc/flash_attention_bwd_wgmma.cu): the
+//   row max m in log2 units (the unit its scores are kept in) and 1 / l,
+//   as two f32 planes of B H x stats_rows(S) floats (csrc/flash_hopper.cuh),
+//   one store per row and plane from the first lane of the row's quad,
+//   after O. m and 1 / l are kept apart, not as m + log l, so that a row
+//   with no allowed key keeps m = -1e30 exactly (m + log l rounds to m).
 //   -Xptxas=-v: 168 registers per thread (a 384-thread CTA's allotment),
 //   0 bytes of spills, at hd 128 and 64; dynamic shared memory 230,480 B at
 //   hd 128 (Q 32 KB, three stages of K and V at 32 KB each, the barriers,
 //   1 KB for alignment) and 115,792 B at hd 64: one CTA per SM. Tensor maps are encoded on the host by
 //   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPointByVersion,
-//   so the library links no -lcuda.
+//   so the library links no -lcuda. The building blocks it shares with the
+//   backward (barriers, TMA, descriptors, wgmma) are in csrc/flash_hopper.cuh.
 // * `flash_fwd_mma_kernel` (bf16, hd 32 and 80; also callable at 64 and 128
 //   as the earlier design, for a side-by-side timing): on the tensor cores
 //   through `mma.sync` m16n8k16 (bf16 operands, f32 accumulation). One CTA
@@ -85,11 +94,9 @@
 //
 // Plain C interface for ctypes: every entry point returns the CUDA error code
 // of the launch (0 on success).
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_hopper.cuh"
 
 namespace {
 
@@ -97,7 +104,6 @@ constexpr int kThreads = 128;
 constexpr int kTY = 16;  // thread rows of the CTA
 constexpr int kTX = 8;   // threads sharing one query row (adjacent lanes of a warp)
 constexpr int kPad = 4;  // floats of padding on the transposed tiles' rows
-constexpr float kNeg = -1e30f;
 
 // Query rows (BQ) and keys (BK) per tile, chosen per head_dim so that Q, K,
 // V and the P tile fit in shared memory at hd = 256 (111 KB) and so that
@@ -153,9 +159,6 @@ __device__ __forceinline__ void lds(const float* p, float* out) {
   }
 }
 
-struct Strides {
-  long long b, h, s;
-};
 
 // The KV tiles [kt_begin, kt_end) a CTA of query rows [q0, q0 + BQ) visits
 // (see the header on skipping). Returns whether some row of the CTA has no
@@ -369,10 +372,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // Asynchronous copy of rows [0, n_rows) of a (n_rows x HD) bf16 tile at `src`
 // (row stride `ld` elements) into shared memory with row stride HD + 8, in
@@ -586,7 +585,6 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 constexpr int kWgRows = 128;      // query rows per CTA: 64 per consumer warpgroup
 constexpr int kWgKeys = 128;      // keys per K/V tile
 constexpr int kWgThreads = 384;   // two consumer warpgroups, then the producer warpgroup
-constexpr int kSlab = 64;         // head-dim columns of one 128-byte swizzled box
 constexpr int kSlabBytes = kWgKeys * 128;  // one box of a 128-row tile: 16 KB
 
 constexpr int kWgStages = 3;      // K/V ring depth
@@ -604,159 +602,13 @@ struct WgSmem {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kWgStages) + 1024;  // + 1024: base alignment
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// wait that outlasts ~2^33 cycles (seconds) traps, so a lost arrival ends
-// the launch with an error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  const long long start = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - start > (1ll << 33)) __trap();
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// A wgmma shared-memory descriptor for the 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units), layout 1 (SWIZZLE_128B).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id, int threads) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Keep the compiler from moving reads or writes of wgmma operands across
-// the fence / wait instructions.
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-// d (m64 x n128, f32) (+)= a (64 x 16, K-major in shared memory) . b (16 x n128, K-major).
-__device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d (m64 x n128, f32) += a (64 x 16 bf16, in registers) . b (16 x n128, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d (m64 x n64, f32) += a (64 x 16 bf16, in registers) . b (16 x n64, MN-major in shared memory).
-__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-
-template <int HD>
+template <int HD, bool STATS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                        const __grid_constant__ CUtensorMap tmk,
                        const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
-                       int H, int Hkv, int S, int T_len, Strides os, int causal, int window,
-                       float softcap, float scale) {
+                       float* __restrict__ stats, int H, int Hkv, int S, int T_len, Strides os,
+                       int causal, int window, float softcap, float scale) {
   using L = WgSmem<HD>;
   constexpr int NSLAB = HD / kSlab;
   constexpr int SB = kWgKeys / 8;  // 8-key blocks of a score tile
@@ -974,76 +826,43 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       for (int j = 0; j < OB; ++j)
         *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
             __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+      // The row statistics for the backward (see the header): the 4 lanes
+      // of a row hold the same m and l, the first one writes them.
+      if (STATS && t4 == 0) {
+        const long long at = (long long)bh * stats_rows(S) + row;
+        stats[at] = m[r];
+        stats[(long long)gridDim.y * stats_rows(S) + at] = inv;
+      }
     }
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
-// query, so that this library needs no -lcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
-// A 4-D bf16 map over (hd, rows, heads, batch) with element strides st,
-// read in boxes of 64 head-dim columns x 128 rows, 128-byte swizzled. A
-// dimension of size 1 gets a packed stride (its own is never used).
-bool make_map(EncodeTiledFn enc, CUtensorMap* map, const void* ptr, int hd, int rows, int heads,
-              int batch, Strides st) {
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)rows, (cuuint64_t)heads,
-                              (cuuint64_t)batch};
-  long long s = st.s, hh = st.h, bb = st.b;
-  if (rows == 1) s = hd;
-  if (heads == 1) hh = s * rows;
-  if (batch == 1) bb = hh * heads;
-  const cuuint64_t strides[3] = {(cuuint64_t)(2 * s), (cuuint64_t)(2 * hh), (cuuint64_t)(2 * bb)};
-  const cuuint32_t box[4] = {(cuuint32_t)kSlab, (cuuint32_t)kWgKeys, 1, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-             estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
 
 template <int HD>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                 int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal,
+int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* stats, int B, int H,
+                 int Hkv, int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  int window, float softcap, float scale, void* stream) {
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tmq, tmk, tmv;
-  if (!make_map(enc, &tmq, q, HD, S, H, B, qs) || !make_map(enc, &tmk, k, HD, T_len, Hkv, B, ks) ||
-      !make_map(enc, &tmv, v, HD, T_len, Hkv, B, vs))
+  if (!make_map(enc, &tmq, q, HD, S, H, B, qs, kWgRows) ||
+      !make_map(enc, &tmk, k, HD, T_len, Hkv, B, ks, kWgKeys) ||
+      !make_map(enc, &tmv, v, HD, T_len, Hkv, B, vs, kWgKeys))
     return (int)cudaErrorInvalidValue;
   const size_t smem = WgSmem<HD>::kBytes;
-  auto kernel = flash_fwd_wgmma_kernel<HD>;
+  // The statistics are a template parameter, so that the prefill's kernel
+  // (no statistics) is the same code as before they were added.
+  auto kernel = stats != nullptr ? flash_fwd_wgmma_kernel<HD, true>
+                                 : flash_fwd_wgmma_kernel<HD, false>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int n_q = (S + kWgRows - 1) / kWgRows;
   if (B * H > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(n_q, B * H);
-  kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(tmq, tmk, tmv, (__nv_bfloat16*)o, H,
-                                                           Hkv, S, T_len, os, causal, window,
-                                                           softcap, scale);
+  kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
+      tmq, tmk, tmv, (__nv_bfloat16*)o, (float*)stats, H, Hkv, S, T_len, os, causal, window,
+      softcap, scale);
   return (int)cudaGetLastError();
 }
 
@@ -1103,30 +922,33 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
 
 extern "C" {
 
-// Every entry point takes q, k, v, o; B, H, Hkv, S, T, hd; strides: 12
+// Every entry point takes q, k, v, o; stats (null, or on the wgmma route
+// an f32 buffer of 2 x B H x stats_rows(S) floats that receives each row's
+// max m and 1 / l, see the header); B, H, Hkv, S, T, hd; strides: 12
 // element strides, (b, h, s) of q, k, v and o in that order; causal,
 // window, softcap; scale: hd^-0.5 rounded to f32 by the caller, as the
 // reference rounds it. Which entry point serves which dtype and head_dim
 // is chosen in kernels/flash_attention.py (`flash_route`).
 
 // f32 at every hd: the scalar kernel.
-int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int Hkv, int S, int T_len, int hd, const long long* strides, int causal,
-                        int window, float softcap, float scale, void* stream) {
+int flash_attention_f32(const void* q, const void* k, const void* v, void* o, void* stats, int B,
+                        int H, int Hkv, int S, int T_len, int hd, const long long* strides,
+                        int causal, int window, float softcap, float scale, void* stream) {
+  if (stats != nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<float>(q, k, v, o, B, H, Hkv, S, T_len, hd, strides, causal, window, softcap,
                          scale, stream);
 }
 
 // bf16 at hd in {64, 128}: the warp-specialised wgmma + TMA kernel.
-int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                               int H, int Hkv, int S, int T_len, int hd, const long long* st,
+int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, void* stats,
+                               int B, int H, int Hkv, int S, int T_len, int hd, const long long* st,
                                int causal, int window, float softcap, float scale,
                                void* stream) {
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
   switch (hd) {
-    case 64: return launch_wgmma<64>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 64: return launch_wgmma<64>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 128: return launch_wgmma<128>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1134,9 +956,10 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
 // bf16 at hd in {32, 64, 80, 128}: the mma.sync kernel (the serving route
 // at hd 32 and 80; at 64 and 128 the earlier design, kept callable for a
 // side-by-side timing).
-int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                             int Hkv, int S, int T_len, int hd, const long long* st, int causal,
-                             int window, float softcap, float scale, void* stream) {
+int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* o, void* stats,
+                             int B, int H, int Hkv, int S, int T_len, int hd, const long long* st,
+                             int causal, int window, float softcap, float scale, void* stream) {
+  if (stats != nullptr) return (int)cudaErrorInvalidValue;
   const Strides qs{st[0], st[1], st[2]}, ks{st[3], st[4], st[5]}, vs{st[6], st[7], st[8]},
       os{st[9], st[10], st[11]};
   switch (hd) {
@@ -1150,10 +973,11 @@ int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* 
 
 // bf16 at any hd (the route at hd 256, whose fragments would not fit in
 // registers): the scalar kernel, bf16 widened to f32 when staged.
-int flash_attention_scalar_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                                int H, int Hkv, int S, int T_len, int hd, const long long* st,
-                                int causal, int window, float softcap, float scale,
-                                void* stream) {
+int flash_attention_scalar_bf16(const void* q, const void* k, const void* v, void* o,
+                                void* stats, int B, int H, int Hkv, int S, int T_len, int hd,
+                                const long long* st, int causal, int window, float softcap,
+                                float scale, void* stream) {
+  if (stats != nullptr) return (int)cudaErrorInvalidValue;
   return dispatch<__nv_bfloat16>(q, k, v, o, B, H, Hkv, S, T_len, hd, st, causal, window,
                                  softcap, scale, stream);
 }

@@ -1,4 +1,8 @@
-// Flash attention (backward) for Hopper (sm_90a), f32 and bf16.
+// Flash attention (backward) for Hopper (sm_90a), f32 and bf16: the
+// 'scalar' route of kernels/flash_attention.py: flash_bwd_route (f32 at
+// every head_dim, bf16 at 32, 80 and 256). bf16 at 64 and 128 takes the
+// 'wgmma' route (csrc/flash_attention_bwd_wgmma.cu); these kernels stay
+// callable there (`_bwd_launch("scalar", ...)`) as its timed baseline.
 //
 // Replaces no Pallas kernel: the reference differentiates its XLA attention
 // route with jax.grad (src/repro/kernels/flash_attention.py has no
@@ -32,8 +36,8 @@
 // * `flash_bwd_dq_kernel`: one CTA per (b * h, BQ query rows). It stages Q
 //   and dO once, then walks the KV tiles twice: pass 1 recomputes the row
 //   max m, the normaliser l and D (online, as the forward accumulates O:
-//   sum_j exp(x - m) dP rescaled with m; the forward's wgmma route keeps m
-//   and l in registers and writes only O), pass 2 forms P = exp(x - m) / l,
+//   sum_j exp(x - m) dP rescaled with m; the scalar and mma.sync forwards
+//   write only O), pass 2 forms P = exp(x - m) / l,
 //   dP, dS and accumulates dQ. It writes m, 1 / l and D per row into an f32
 //   scratch for:
 // * `flash_bwd_dkdv_kernel`: one CTA per (b * hkv, BK keys), K and V staged
@@ -61,8 +65,9 @@
 // strided rows fall in distinct banks), each thread holds a score micro-tile
 // and an accumulator micro-tile in registers. Tiles that no (row, key) pair
 // of the CTA may see are skipped (the causal and window bands), except
-// where a row has no allowed key at all. Its redesign (wgmma, the forward
-// emitting m and l) is ROADMAP queue 2 item 6.
+// where a row has no allowed key at all. The redesign for bf16 at hd 64
+// and 128 (wgmma, TMA, the forward emitting m and 1 / l) is
+// csrc/flash_attention_bwd_wgmma.cu.
 //
 // Plain C interface for ctypes: every entry point returns the CUDA error code
 // of the launches (0 on success).

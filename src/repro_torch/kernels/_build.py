@@ -23,6 +23,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("sbv_loglik", "sbv_predict", "sbv_multi_stats", "matern_cov", "flash_attention",
            "flash_attention_bwd")
+# The libraries: one per kernel, and the backward's wgmma route, whose
+# launches count as the backward's (``flash_attention_bwd``).
+LIBRARIES = KERNELS + ("flash_attention_bwd_wgmma",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v")
 
@@ -68,7 +71,7 @@ def build(verbose: bool = False) -> dict:
     (``-Xptxas=-v``: registers, shared memory, spills) is printed."""
     out = build_dir()
     out.mkdir(parents=True, exist_ok=True)
-    paths = {n: _lib_path(n) for n in KERNELS}
+    paths = {n: _lib_path(n) for n in LIBRARIES}
     todo = {n: p for n, p in paths.items() if not p.exists()}
     if not todo:
         return paths
@@ -132,7 +135,7 @@ _SIGNATURES = {
         "matern_cov_ctas_per_sm": (_I, [_I, _I]),
     },
     "flash_attention": {
-        fn: (_I, [_VP] * 4 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
+        fn: (_I, [_VP] * 5 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
         for fn in ("flash_attention_f32", "flash_attention_wgmma_bf16",
                    "flash_attention_mma_bf16", "flash_attention_scalar_bf16")
     },
@@ -140,12 +143,15 @@ _SIGNATURES = {
         fn: (_I, [_VP] * 8 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP])
         for fn in ("flash_attention_bwd_f32", "flash_attention_bwd_bf16")
     },
+    "flash_attention_bwd_wgmma": {
+        "flash_attention_bwd_wgmma_bf16": (_I, [_VP] * 9 + [_I] * 6 + [_PLL, _I, _I, _F, _F, _VP]),
+    },
 }
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built (with its siblings)
-    on first use."""
+    """The loaded library ``name`` (one of ``LIBRARIES``), built (with its
+    siblings) on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is not None:

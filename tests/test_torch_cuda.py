@@ -1449,9 +1449,9 @@ BWD_CASES = [
 
 
 def _check_bwd(dev, dtype, case):
-    """The backward kernel against autograd through the plain version
-    (``chip_smoke.grad_check``'s limits), one launch counted, and the same
-    bits on a second call."""
+    """The backward kernels (the route ``flash_bwd_route`` gives) against
+    autograd through the plain version (``chip_smoke.grad_check``'s
+    limits), one launch counted, and the same bits on a second call."""
     from chip_smoke import grad_check
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
                                                      flash_attention_bwd_plain)
@@ -1520,6 +1520,117 @@ def test_flash_function_launches_both_kernels(dev):
     want = flash_attention_bwd_plain(q, k, v, do)
     for g, w in zip(got, want):
         assert grad_check(g, w)["ok"]
+
+
+# The backward's 'wgmma' route (bf16 at hd 64 and 128): GQA at n_rep 1, 2
+# and 4, S off the 64- and 128-row tiles, S < T and S > T without
+# causality, a window, a softcap, rows with no allowed key (causal and
+# not), a single row. (B, H, Hkv, S, T, causal, window, softcap.)
+WGMMA_BWD_CASES = [
+    (1, 4, 4, 200, 200, True, 0, 0.0),
+    (2, 4, 2, 200, 200, True, 0, 0.0),
+    (1, 8, 2, 333, 333, True, 0, 0.0),
+    (1, 4, 2, 100, 300, False, 0, 0.0),
+    (1, 4, 2, 300, 100, False, 0, 0.0),
+    (1, 4, 2, 300, 300, True, 70, 0.0),
+    (1, 4, 2, 257, 257, True, 0, 20.0),
+    (1, 4, 2, 260, 40, True, 16, 0.0),
+    (1, 4, 2, 260, 40, False, 16, 0.0),
+    (1, 4, 2, 1, 1, True, 0, 0.0),
+    (1, 4, 2, 1, 300, False, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("case", WGMMA_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_wgmma_route_matches_plain_autograd(dev, case, hd):
+    from repro_torch.kernels.flash_attention import flash_bwd_route
+
+    assert flash_bwd_route(torch.bfloat16, hd) == "wgmma"
+    b, h, hkv, s, t, causal, window, cap = case
+    _check_bwd(dev, torch.bfloat16, (b, h, hkv, s, t, hd, causal, window, cap))
+
+
+@pytest.mark.parametrize("case", [(2, 4, 2, 300, 300, 128, True, 0, 0.0),
+                                  (1, 4, 2, 200, 200, 64, True, 33, 0.0),
+                                  (1, 2, 1, 150, 150, 128, True, 0, 10.0),
+                                  (1, 4, 2, 260, 40, 128, True, 16, 0.0),
+                                  (1, 2, 2, 100, 300, 64, False, 0, 0.0)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_stats_from_the_forward_match_plain(dev, case):
+    """The wgmma forward's row statistics against the plain version's: m
+    exactly -1e30 where the row has no allowed key (and 1 / l = 1 / T
+    there), m within 1e-5 and 1 / l within 1e-5 relative elsewhere; the
+    output is the same bits with and without them. The backward gives the
+    same gradients from the plain statistics (copied into the kernel's
+    padded layout) as from the kernel's, within the bf16 limits."""
+    from chip_smoke import grad_check
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    b, h, hkv, s, t, hd, causal, window, cap = case
+    q, k, v = _flash_inputs(dev, torch.bfloat16, b, h, hkv, s, t, hd)
+    kw = dict(causal=causal, window=window, softcap=cap)
+    out, stats = flash_attention_cuda(q, k, v, return_stats=True, **kw)
+    torch.cuda.synchronize()
+    assert stats.shape == (2, b, h, s) and stats.dtype == torch.float32
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+    _, want = flash_attention_plain(q, k, v, return_stats=True, **kw)
+    empty = want[0] == -1e30
+    assert bool((stats[0][empty] == -1e30).all())
+    torch.testing.assert_close(stats[1][empty], torch.full_like(stats[1][empty], 1.0 / t),
+                               rtol=1e-6, atol=0)
+    torch.testing.assert_close(stats[0][~empty], want[0][~empty], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(stats[1], want[1], rtol=1e-5, atol=0)
+    do = _flash_inputs(dev, torch.bfloat16, b, h, h, s, 1, hd, seed=12)[0]
+    from_kernel = flash_attention_bwd_cuda(q, k, v, do, stats=stats, **kw)
+    from_plain = flash_attention_bwd_cuda(q, k, v, do, stats=want, **kw)
+    for a, b_ in zip(from_plain, from_kernel):
+        assert grad_check(a, b_)["ok"]
+
+
+def test_flash_function_runs_the_wgmma_backward_once(dev, monkeypatch):
+    """``FlashAttention`` on bf16 hd 128: one forward launch that keeps the
+    statistics, one backward launch on the 'wgmma' route reading them."""
+    from chip_smoke import grad_check
+    from repro_torch.kernels import flash_attention as fa
+
+    calls = []
+    real = fa._bwd_launch
+
+    def spy(route, *args):
+        calls.append((route, args[-1] is not None))
+        return real(route, *args)
+
+    monkeypatch.setattr(fa, "_bwd_launch", spy)
+    q, k, v = (x.requires_grad_(True) for x in _flash_inputs(dev, torch.bfloat16, 2, 8, 2, 300,
+                                                             300, 128))
+    do = torch.randn_like(q)
+    ops.reset_launch_counts()
+    o = fa.FlashAttention.apply(q, k, v, True, 0, 0.0)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1
+    assert calls == [("wgmma", True)]
+    for g, w in zip(got, fa.flash_attention_bwd_plain(q, k, v, do)):
+        assert grad_check(g, w)["ok"]
+
+
+def test_flash_bwd_scalar_baseline_stays_callable_at_hd128(dev):
+    """The scalar kernels stay callable on bf16 hd 128 (``_bwd_launch
+    ("scalar", ...)``, uncounted) for the smoke's side-by-side timing, and
+    agree with the wgmma route within the bf16 limits."""
+    from chip_smoke import grad_check
+    from repro_torch.kernels.flash_attention import _bwd_launch, flash_attention_bwd_cuda
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 4, 2, 300, 300, 128)
+    do = torch.randn_like(q)
+    before = dict(_build.LAUNCHES)
+    base = _bwd_launch("scalar", q, k, v, do, True, 0, 0.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before
+    for a, b_ in zip(flash_attention_bwd_cuda(q, k, v, do), base):
+        assert grad_check(a, b_)["ok"]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
