@@ -66,7 +66,25 @@ path once through the user entry points:
   compression, and a checkpoint resume on the reduced config;
 * serving's leftovers (ROADMAP item 12a): a bucketed continuous stream and
   a p = 32 drain batch on the multi-output index, each bitwise its
-  synchronous loop, their chunk 0 held against the plain conditional.
+  synchronous loop, their chunk 0 held against the plain conditional;
+* gemma2 serving (ROADMAP item 13.2): the forward kernel at hd 256 (its
+  'scalar_bf16' route) against its plain version at the path's global and
+  local shapes (2 x 8192 tokens, window 4096 and 0, softcap 50), timed
+  beside the library call that computes the same function
+  (``flex_attention`` compiled, with a softcap ``score_mod``), then
+  gemma2-9b at full width and depth in bf16, 2 x 8192-token prompts + 32
+  greedy tokens, against its ``use_flash="never"`` route, its first 4
+  layers against the same weights in f32, decode against a longer prefill;
+* qwen2-moe serving (item 13.3): qwen2-moe-a2.7b at full width and depth
+  (60 experts top-4 and a shared expert), 4 x 4096 + 32, against its never
+  route, one MoE layer on the card against the CPU in f32, the MoE's share
+  of a prefill layer;
+* training both families at full width through ``launch.train.main``:
+  the backward kernels at hd 256 (the 'scalar' route) against autograd
+  through the plain version at the gemma2 shapes first (timed beside
+  autograd through ``flex_attention``), then gemma2 at 8
+  layers on 1 x 8192 tokens and qwen2-moe at 4 layers on 4 x 2048 tokens,
+  3 steps each.
 
 Launch counts are set to 0 just before each path and read just after it.
 It checks that every kernel of each path launched, that the outputs are
@@ -152,6 +170,33 @@ N_MULTI_SERVE, N_MULTI_REQ = 8192, 8
 # grad_accum 1, 2 at grad_accum 2, 2 with int8 compression; the resume check
 # on the reduced config (a full-width checkpoint is ~23 GB of npz).
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 4, 2048, 6, 3e-4
+# The gemma2 serving path: gemma2-9b at full width and depth, bf16, 2 x 8192-
+# token prompts (its published context; at 4096 tokens its 4096-token window
+# would mask nothing) + 32 greedy tokens. The f32 hold runs the same weights'
+# first 4 layers (two local/global pairs; the f32 weights of all 42 take 37
+# GB); the elementwise f32 hold and decode against a longer prefill run its
+# first 2 (one pair) at a 4,500-token prompt, past the window.
+G2_ARCH, G2_BATCH, G2_PROMPT, G2_NEW = "gemma2-9b", 2, 8192, 32
+G2_F32_LAYERS, G2_DECODE_LAYERS, G2_DECODE_PROMPT = 4, 2, 4500
+# The qwen2-moe serving path: qwen2-moe-a2.7b at full width and depth, bf16,
+# at the internlm2 path's LM_BATCH x LM_PROMPT + LM_NEW; one MoE layer held on
+# the card against the same layer on the CPU in f32 at 2 x 1024 tokens (two
+# dispatch groups; the CPU takes ~1 s for it).
+MOE_ARCH, MOE_HOLD_SHAPE = "qwen2-moe-a2.7b", (2, 1024)
+# The qwen2-moe path against its use_flash="never" route, where a token whose
+# router input moves by the routes' bf16 rounding may pick another expert: at
+# most this share of the tokens routed otherwise in any one layer, and the
+# last token's logits after all layers within this relative L2. Readings
+# (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W): 213-1,154 of 16,384
+# tokens a layer (7.0 % at most, in layer 0), logits 7.71e-2 / 7.72e-2 in
+# two runs; the limits are twice those.
+MOE_REROUTED_MAX, MOE_LOGITS_REL = 0.14, 0.15
+# Training the two families at full width through launch.train.main: gemma2
+# at 8 layers (four local/global pairs) on 1 x 8192 tokens, qwen2-moe at 4
+# layers on 4 x 2048 tokens (aux_weight 0.01, the default); 3 steps each.
+G2_TRAIN_LAYERS, G2_TRAIN_BATCH, G2_TRAIN_SEQ = 8, 1, 8192
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 2048
+FAMILY_TRAIN_STEPS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -305,17 +350,32 @@ def cov_bound_f64(b: int, na: int, nb: int, d: int, peaks) -> tuple[float, str, 
     return bnd, by, n * (2 * d + MATERN_F64_OPS), nbytes
 
 
-def flash_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int) -> tuple[float, float]:
-    """(flops, bytes) of causal attention at S = T: 2 B H S^2 hd (the causal
-    half of Q K^T and P V); Q, K, V read once, O written once."""
-    return 2.0 * b * h * s * s * hd, float(itemsize * (2 * b * h + 2 * b * hkv) * s * hd)
+def flash_pairs(s: int, window: int = 0) -> float:
+    """The (query, key) pairs causal attention at S = T computes: S^2 / 2
+    (the causal half) without a window, sum_i min(i + 1, window) with one
+    (gemma2's local layers: 0.75 S^2 / 2 at S = 2 window)."""
+    if window <= 0 or window >= s:
+        return s * s / 2.0
+    return window * (window + 1) / 2.0 + (s - window) * float(window)
 
 
-def flash_bwd_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int) -> tuple[float, float]:
-    """(flops, bytes) of causal attention's backward at S = T: five causal
-    half-products of S x S x hd per head (recompute S, dP, dV, dK, dQ: 5 B H
-    S^2 hd); q, k, v, do read once, dq, dk, dv written once."""
-    return 5.0 * b * h * s * s * hd, float(itemsize * (3 * b * h + 4 * b * hkv) * s * hd)
+def flash_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int,
+               window: int = 0) -> tuple[float, float]:
+    """(flops, bytes) of causal attention at S = T: 4 hd per allowed pair
+    and head (Q K^T and P V; 2 B H S^2 hd without a window); Q, K, V read
+    once, O written once."""
+    return (4.0 * b * h * flash_pairs(s, window) * hd,
+            float(itemsize * (2 * b * h + 2 * b * hkv) * s * hd))
+
+
+def flash_bwd_work(b: int, h: int, hkv: int, s: int, hd: int, itemsize: int,
+                   window: int = 0) -> tuple[float, float]:
+    """(flops, bytes) of causal attention's backward at S = T: five products
+    of 2 hd per allowed pair and head (recompute S, dP, dV, dK, dQ: 5 B H
+    S^2 hd without a window); q, k, v, do read once, dq, dk, dv written
+    once."""
+    return (10.0 * b * h * flash_pairs(s, window) * hd,
+            float(itemsize * (3 * b * h + 4 * b * hkv) * s * hd))
 
 
 def flash_edge_queries(k, n_heads: int, s: int, window: int, beta: float = 2.0):
@@ -402,12 +462,10 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (ROUTES, flash_attention_cuda,
                                                      flash_attention_plain, flash_route)
     from repro_torch.kernels.flash_attention import _launch as flash_launch
-    from repro_torch.models.model import TransformerLM, init_params, prefill_step, serve_step
-    from repro_torch.training.serve import make_decode_step, make_prefill_step
+    from repro_torch.models.model import init_params, prefill_step
 
     cfg = get_config(LM_ARCH)
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -484,121 +542,37 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     # 14. The path through the entry points: prefill, then greedy decode.
     prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)),
                              dtype=torch.int32, device=dev)
-    prefill = make_prefill_step(cfg, cache_len)
-    decode = make_decode_step(cfg)
-    # Warm-up (cuBLAS picks its algorithms at the first call of each shape),
-    # then the counted, timed run.
-    _, warm = prefill(model, prompt)
-    decode(model, prompt[:, :1], warm)
-    del warm
-    torch.cuda.synchronize()
-    ops.reset_launch_counts()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    logits, cache = prefill(model, prompt)
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t
-    pre_launches = ops.launch_counts()
-    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    toks, step_logits = [tok], []
-    ops.reset_launch_counts()
-    t = time.perf_counter()
-    for _ in range(LM_NEW - 1):
-        tok, lg, cache = decode(model, tok, cache)
-        toks.append(tok)
-        step_logits.append(lg)
-    torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t
-    dec_launches = ops.launch_counts()
-    toks = torch.cat(toks, dim=1)
-    tok_s = LM_BATCH * (LM_NEW - 1) / t_decode
-    log(f"phase lm prefill {LM_BATCH}x{LM_PROMPT}: {t_prefill:.3f} s "
-        f"({LM_BATCH * LM_PROMPT / t_prefill:.0f} prompt tokens/s); launches {pre_launches}")
-    log(f"phase lm decode {LM_NEW - 1} steps x {LM_BATCH}: {t_decode:.3f} s ({tok_s:.1f} tokens/s, "
-        f"{1e3 * t_decode / (LM_NEW - 1):.2f} ms per step; the weights and the cache read once "
-        f"per step take {1e3 * (n_bytes + kv_bytes) / peaks['hbm']:.2f} ms at HBM rate); "
-        f"launches {dec_launches}")
-    log(f"lm sample tokens: {toks[0, :16].tolist()}")
-    check(pre_launches["flash_attention"] == cfg.n_layers,
-          f"prefill launched flash_attention {pre_launches['flash_attention']} times, "
-          f"expected {cfg.n_layers}")
-    check(dec_launches["flash_attention"] == 0, "decode launched flash_attention")
-    check(logits.shape == (LM_BATCH, cfg.vocab) and bool(torch.isfinite(logits).all())
-          and all(bool(torch.isfinite(x).all()) for x in step_logits), "lm: non-finite logits")
-    check(toks.shape == (LM_BATCH, LM_NEW) and toks.dtype == torch.int32
-          and int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab, "lm: tokens out of range")
-    check(cache["pos"] == cache_len - 1, "lm: cache position")
-    del cache, step_logits
-    torch.cuda.empty_cache()
+    served = _serve_path("lm", model, prompt, LM_NEW, cache_len,
+                         hbm_ms=1e3 * (n_bytes + kv_bytes) / peaks["hbm"])
+    logits, t_prefill = served.pop("logits"), served["prefill_s"]
 
     # 15. The same weights through the plain attention route
     # (use_flash="never"), and both routes against the same weights in f32
-    # (the kernel's f32 path). The two bf16 routes round different numbers:
-    # the kernel rounds the unnormalised exp(s - m_running) to bf16 before
-    # P . V and divides by the f32 sum at the end; the never route rounds
-    # the normalised P. Through L layers of bf16 activations at d_model 2048
-    # these differences grow, and the two routes lie about equally far from
-    # the f32 model, so an elementwise 3e-2 between them (the reference's
-    # reduced-size flash-vs-XLA prefill tolerance, tests/
+    # (the kernel's f32 path), by _route_holds. The two bf16 routes round
+    # different numbers: the kernel rounds the unnormalised exp(s - m_running)
+    # to bf16 before P . V and divides by the f32 sum at the end; the never
+    # route rounds the normalised P. Through L layers of bf16 activations at
+    # d_model 2048 these differences grow, and the two routes lie about
+    # equally far from the f32 model, so an elementwise 3e-2 between them
+    # (the reference's reduced-size flash-vs-XLA prefill tolerance, tests/
     # test_flash_integration.py) does not hold at full width: it leaves out
-    # ~4e-4 of the logits at L = 2 and ~2e-2 at L = 24. The routes are held
-    # to 3e-2 in relative L2 norm, and elementwise the kernel route may be no
-    # further from the f32 model than 1.25x the never route's largest error.
-    never = TransformerLM(dataclasses.replace(cfg, use_flash="never"), device="meta")
-    never.load_state_dict(model.state_dict(), assign=True)
+    # ~4e-4 of the logits at L = 2 and ~2e-2 at L = 24.
     with torch.inference_mode():
-        logits_never, _ = prefill_step(never, prompt, cache_len)
-    torch.cuda.synchronize()
-    del never
-    m32 = TransformerLM(dataclasses.replace(cfg, dtype="float32"), device="meta")
-    m32.load_state_dict({k: v.float() for k, v in model.state_dict().items()}, assign=True)
-    with torch.inference_mode():
-        logits_32, _ = prefill_step(m32, prompt, cache_len)
-    del m32
-    rel = lambda x, y: float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
-    out = lambda x, y: float(((x - y).abs() > 3e-2 * (1 + y.abs())).float().mean())
-    route_err = float((logits - logits_never).abs().max())
-    err32, err32_never = (float((x - logits_32).abs().max()) for x in (logits, logits_never))
-    log(f"lm prefill logits, kernel route vs use_flash=never (bf16, {cfg.n_layers} layers): "
-        f"rel L2 {rel(logits, logits_never):.3e}, max_abs_err {route_err:.3e}, share outside "
-        f"rtol=atol=3e-2 {out(logits, logits_never):.2e} (|logits| max "
-        f"{float(logits_never.abs().max()):.3g})")
-    log(f"lm prefill logits against the f32 model: kernel route rel L2 "
-        f"{rel(logits, logits_32):.3e}, max_abs_err {err32:.3e}, share outside 3e-2 "
-        f"{out(logits, logits_32):.2e}; use_flash=never route rel L2 "
-        f"{rel(logits_never, logits_32):.3e}, max_abs_err {err32_never:.3e}, share outside 3e-2 "
-        f"{out(logits_never, logits_32):.2e}")
-    check(rel(logits, logits_never) <= 3e-2,
-          f"lm: kernel route vs plain route logits rel L2 {rel(logits, logits_never):.3e} > 3e-2")
-    check(rel(logits, logits_32) <= 3e-2,
-          f"lm: bf16 kernel route vs f32 rel L2 {rel(logits, logits_32):.3e} > 3e-2")
-    check(err32 <= 1.25 * err32_never,
-          f"lm: bf16 kernel route's largest error against f32 {err32:.3e} > 1.25 x the "
-          f"never route's {err32_never:.3e}")
-    del logits_never, logits_32
+        logits_never, _ = prefill_step(_sub_model(model, cfg.n_layers, use_flash="never"),
+                                       prompt, cache_len)
+        torch.cuda.synchronize()
+        logits_32, _ = prefill_step(_sub_model(model, cfg.n_layers, dtype=torch.float32),
+                                    prompt, cache_len)
+    _route_holds(f"lm prefill logits ({cfg.n_layers} layers, bf16)", logits, logits_never,
+                 logits_32)
+    del logits, logits_never, logits_32
     torch.cuda.empty_cache()
-    # A 2-layer full-width f32 model: the two routes elementwise (the same
-    # function in other orders, 1e-4), and decode after a prefill of s
-    # tokens against a prefill of s + 1 (tests/test_models_smoke.py's 2e-3).
+    # A 2-layer full-width f32 model: the two routes elementwise, and decode
+    # after a prefill of s tokens against a prefill of s + 1.
     cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
     m2 = init_params(cfg2, torch.Generator(device=dev).manual_seed(SEED + 1), device=dev)
-    never2 = TransformerLM(dataclasses.replace(cfg2, use_flash="never"), device="meta")
-    never2.load_state_dict(m2.state_dict(), assign=True)
-    s2 = min(1000, LM_PROMPT - 1)
-    with torch.inference_mode():
-        direct, _ = prefill_step(m2, prompt[:, :s2 + 1], s2 + 8)
-        direct_never, _ = prefill_step(never2, prompt[:, :s2 + 1], s2 + 8)
-        _, c2 = prefill_step(m2, prompt[:, :s2], s2 + 8)
-        dec, _ = serve_step(m2, prompt[:, s2:s2 + 1], c2)
-    r32_err = float((direct - direct_never).abs().max())
-    dd_err = float((dec - direct).abs().max())
-    log(f"lm f32 2-layer: kernel route vs use_flash=never max_abs_err {r32_err:.3e}; decode "
-        f"after prefill {s2} vs prefill {s2 + 1}: max_abs_err {dd_err:.3e}")
-    check(bool(torch.allclose(direct, direct_never, rtol=1e-4, atol=1e-4)),
-          f"lm f32: kernel route vs plain route differ by {r32_err:.3e} > 1e-4")
-    check(bool(torch.allclose(dec, direct, rtol=2e-3, atol=2e-3)),
-          f"lm: decode vs longer prefill differ by {dd_err:.3e} > 2e-3")
-    del m2, never2, c2
+    _f32_holds("lm f32 2-layer", m2, prompt, min(1000, LM_PROMPT - 1))
+    del m2
     torch.cuda.empty_cache()
 
     # 16. Times at the path's shape: the kernel, its plain version, and the
@@ -649,7 +623,56 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
                                       baseline_back_to_back_ms=[mb1_ms, mb2_ms])
     del q, k, v, kx, vx, q32, k32, v32, model
     torch.cuda.empty_cache()
-    return {name: pre_launches[name] + dec_launches[name] for name in pre_launches}
+    return served["launches"]
+
+
+def _main_run(ttrain, argv) -> tuple:
+    """``launch.train.main(argv)``: its final state and its per-step log."""
+    log_ = []
+    return ttrain.main(argv, log=log_), log_
+
+
+def _train_run(dev, label: str, fn, steps: int, micro: int, n_layers: int, n_tok: int,
+               note: str = "") -> tuple:
+    """One training run, ``fn() -> (state, per-step log)``, with its
+    launches counted and its peak device memory read: the losses and
+    gradient norms are finite, and each microbatch launched the forward
+    twice per layer (forward and remat recompute) and the backward once.
+    ``note`` is printed after the peak. Returns (state, record, counts)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    state, log_ = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    c = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [r["loss"] for r in log_]
+    norms = [r["grad_norm"] for r in log_]
+    step_s = statistics.median(r["seconds"] for r in log_[1:]) if len(log_) > 1 else wall
+    log(f"lm training {label}: {steps} steps in {wall:.2f} s; per step {step_s:.3f} s "
+        f"(median after the first, which took {log_[0]['seconds']:.3f} s), "
+        f"{n_tok / step_s:.0f} tokens/s; peak device memory {peak / 1e9:.2f} GB{note}; losses "
+        f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}; "
+        f"launches flash_attention {c['flash_attention']} "
+        f"({c['flash_attention'] / steps:g} per step), flash_attention_bwd "
+        f"{c['flash_attention_bwd']} ({c['flash_attention_bwd'] / steps:g} per step)")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms),
+          f"lm training {label}: missing or non-finite loss or grad norm")
+    check(c["flash_attention"] == steps * micro * 2 * n_layers,
+          f"lm training {label}: {c['flash_attention']} forward launches, expected "
+          f"{steps * micro * 2 * n_layers} (layers x (forward + remat recompute))")
+    check(c["flash_attention_bwd"] == steps * micro * n_layers,
+          f"lm training {label}: {c['flash_attention_bwd']} backward launches, expected "
+          f"{steps * micro * n_layers}")
+    rec = dict(seconds=wall, step_s=step_s, tokens_per_s=n_tok / step_s, peak_bytes=peak,
+               losses=losses, grad_norms=norms)
+    return state, rec, c
 
 
 def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
@@ -665,7 +688,6 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import TokenStream
-    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import (_bwd_launch, flash_attention_bwd_cuda,
                                                      flash_attention_bwd_plain,
                                                      flash_attention_cuda, flash_bwd_route)
@@ -795,42 +817,14 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     out = {}
 
     def run(label, fn, steps, micro):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        ops.reset_launch_counts()
-        t = time.perf_counter()
-        state, log_ = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        c = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated(dev)
-        losses = [r["loss"] for r in log_]
-        norms = [r["grad_norm"] for r in log_]
-        step_s = statistics.median(r["seconds"] for r in log_[1:]) if len(log_) > 1 else wall
-        log(f"lm training {label}: {steps} steps in {wall:.2f} s; per step {step_s:.3f} s "
-            f"(median after the first, which took {log_[0]['seconds']:.3f} s), "
-            f"{n_tok / step_s:.0f} tokens/s; peak device memory {peak / 1e9:.2f} GB; losses "
-            f"{[round(x, 4) for x in losses]}; grad norms {[round(x, 4) for x in norms]}; "
-            f"launches flash_attention {c['flash_attention']} "
-            f"({c['flash_attention'] / steps:g} per step), flash_attention_bwd "
-            f"{c['flash_attention_bwd']} ({c['flash_attention_bwd'] / steps:g} per step)")
-        check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms),
-              f"lm training {label}: missing or non-finite loss or grad norm")
-        check(c["flash_attention"] == steps * micro * 2 * cfg.n_layers,
-              f"lm training {label}: {c['flash_attention']} forward launches, expected "
-              f"{steps * micro * 2 * cfg.n_layers} (layers x (forward + remat recompute))")
-        check(c["flash_attention_bwd"] == steps * micro * cfg.n_layers,
-              f"lm training {label}: {c['flash_attention_bwd']} backward launches, expected "
-              f"{steps * micro * cfg.n_layers}")
+        state, rec, c = _train_run(dev, label, fn, steps, micro, cfg.n_layers, n_tok)
         for k_ in counts:
             counts[k_] += c[k_]
-        out[label] = dict(seconds=wall, step_s=step_s, tokens_per_s=n_tok / step_s,
-                          peak_bytes=peak, losses=losses, grad_norms=norms)
-        return state, losses
+        out[label] = rec
+        return state, rec["losses"]
 
     def main_run(extra):
-        log_ = []
-        return ttrain.main(argv + extra, log=log_), log_
+        return _main_run(ttrain, argv + extra)
 
     state, losses = run("grad_accum 1", lambda: main_run(["--steps", str(TRAIN_STEPS)]),
                         TRAIN_STEPS, 1)
@@ -899,6 +893,677 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     check(rel <= 1e-6, f"lm training resume: params {rel:.3e} from the straight run")
     out["resume_rel"] = rel
     results["lm_training"] = out
+    return counts
+
+
+_FLEX = {}
+
+
+def flex_library(s: int, window: int, cap: float, device):
+    """The library call that computes the softcapped causal (sliding-window)
+    GQA attention of the hd-256 routes: ``torch.compile(flex_attention)``
+    with a ``score_mod`` of ``cap * tanh(s / cap)``, the causal (and window)
+    ``block_mask`` and ``enable_gqa=True``. Returns ``fn(q, k, v)``; its
+    backward is autograd through it. Timed here only: the port never
+    calls it."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    if "fn" not in _FLEX:
+        _FLEX["fn"] = torch.compile(flex_attention, dynamic=False)
+    key = ("mods", window, cap)
+    if key not in _FLEX:
+        def mask_mod(b, h, qi, ki):
+            ok = qi >= ki
+            return ok & (qi - ki < window) if window > 0 else ok
+
+        def score_mod(score, b, h, qi, ki):
+            return cap * torch.tanh(score / cap)
+
+        _FLEX[key] = (mask_mod, score_mod)
+    mask_mod, score_mod = _FLEX[key]
+    block_mask = create_block_mask(mask_mod, None, None, s, s, device=device)
+    return lambda q, k, v: _FLEX["fn"](q, k, v, score_mod=score_mod, block_mask=block_mask,
+                                       enable_gqa=True)
+
+
+def _sdpa_yardstick(q, kx, vx, mask):
+    """``scaled_dot_product_attention`` on the repeated KV (kx, vx) at the
+    causal mask, or at ``mask`` (``window_mask``), without the softcap: a
+    yardstick beside the library call (``flex_library``) that computes the
+    softcapped function."""
+    import torch.nn.functional as F
+
+    if mask is None:
+        return F.scaled_dot_product_attention(q, kx, vx, is_causal=True)
+    return F.scaled_dot_product_attention(q, kx, vx, attn_mask=mask)
+
+
+def window_mask(s: int, window: int, device):
+    """The (S, S) boolean causal sliding-window mask (None for window 0)."""
+    import torch
+
+    if window <= 0:
+        return None
+    i = torch.arange(s, device=device)
+    dist = i[:, None] - i[None, :]
+    return (dist >= 0) & (dist < window)
+
+
+def _route_holds(label: str, logits, logits_never, logits_32=None) -> dict:
+    """A bf16 model's prefill logits on the kernel route against its
+    ``use_flash="never"`` route (3e-2 in relative L2, as the internlm2
+    path), and, given the same weights in f32, both against them: the
+    kernel route within 3e-2 (relative L2) and elementwise no further from
+    f32 than 1.25x the never route's largest error."""
+    import torch
+
+    rel = lambda x, y: float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+    out = lambda x, y: float(((x - y).abs() > 3e-2 * (1 + y.abs())).float().mean())
+    res = dict(rel_never=rel(logits, logits_never),
+               max_abs_never=float((logits - logits_never).abs().max()))
+    log(f"{label}: kernel route vs use_flash=never rel L2 {res['rel_never']:.3e}, max_abs_err "
+        f"{res['max_abs_never']:.3e}, share outside rtol=atol=3e-2 "
+        f"{out(logits, logits_never):.2e} (|logits| max {float(logits_never.abs().max()):.3g})")
+    check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(logits_never).all()),
+          f"{label}: non-finite logits")
+    check(res["rel_never"] <= 3e-2, f"{label}: kernel route vs plain route logits rel L2 "
+                                     f"{res['rel_never']:.3e} > 3e-2")
+    if logits_32 is not None:
+        err32, err32_never = (float((x - logits_32).abs().max()) for x in (logits, logits_never))
+        res.update(rel_f32=rel(logits, logits_32), max_abs_f32=err32,
+                   max_abs_f32_never=err32_never)
+        log(f"{label} against the f32 weights: kernel route rel L2 {res['rel_f32']:.3e}, "
+            f"max_abs_err {err32:.3e}; use_flash=never route rel L2 "
+            f"{rel(logits_never, logits_32):.3e}, max_abs_err {err32_never:.3e}")
+        check(res["rel_f32"] <= 3e-2, f"{label}: bf16 kernel route vs f32 rel L2 "
+                                      f"{res['rel_f32']:.3e} > 3e-2")
+        check(err32 <= 1.25 * err32_never,
+              f"{label}: bf16 kernel route's largest error against f32 {err32:.3e} > 1.25 x "
+              f"the never route's {err32_never:.3e}")
+    return res
+
+
+def _sub_model(model, n_layers: int, dtype=None, use_flash: str | None = None):
+    """A ``TransformerLM`` on the first ``n_layers`` layers of ``model``'s
+    weights (shared, or copied at ``dtype``), optionally on another
+    attention route."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.model import TransformerLM
+
+    over = dict(n_layers=n_layers)
+    if dtype is not None:
+        over["dtype"] = "float32" if dtype == torch.float32 else "bfloat16"
+    if use_flash is not None:
+        over["use_flash"] = use_flash
+    sub = TransformerLM(dataclasses.replace(model.cfg, **over), device="meta")
+    keep = lambda key: not key.startswith("layers.") or int(key.split(".")[1]) < n_layers
+    state = {k: (v.to(dtype) if dtype is not None and v.dtype != torch.float32 else v)
+             for k, v in model.state_dict().items() if keep(k)}
+    sub.load_state_dict(state, assign=True)
+    return sub
+
+
+def _serve_path(label: str, model, prompt, n_new: int, cache_len: int, warm_model=None,
+                hbm_ms: float | None = None) -> dict:
+    """The serving path through the entry points (``make_prefill_step``,
+    ``make_decode_step``) after a warm-up at its shapes (cuBLAS picks its
+    algorithms at the first call of each shape; through ``warm_model``, a
+    model of fewer layers of the same shapes, where the full prefill takes
+    seconds): prefill, then ``n_new - 1`` greedy steps, each counted and
+    timed; ``hbm_ms``, the time to read the weights and the cache once at
+    HBM rate, is printed beside a decode step's."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.training.serve import make_decode_step, make_prefill_step
+
+    cfg = model.cfg
+    b, s = prompt.shape
+    prefill = make_prefill_step(cfg, cache_len)
+    decode = make_decode_step(cfg)
+    warm_model = warm_model or model
+    _, warm = prefill(warm_model, prompt)
+    decode(warm_model, prompt[:, :1], warm)
+    del warm
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    logits, cache = prefill(model, prompt)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t
+    pre = ops.launch_counts()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    toks, step_logits = [tok], []
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    for _ in range(n_new - 1):
+        tok, lg, cache = decode(model, tok, cache)
+        toks.append(tok)
+        step_logits.append(lg)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t
+    dec = ops.launch_counts()
+    toks = torch.cat(toks, dim=1)
+    log(f"phase {label} prefill {b}x{s}: {t_prefill:.3f} s ({b * s / t_prefill:.0f} prompt "
+        f"tokens/s); launches {pre}")
+    log(f"phase {label} decode {n_new - 1} steps x {b}: {t_decode:.3f} s "
+        f"({b * (n_new - 1) / t_decode:.1f} tokens/s, {1e3 * t_decode / (n_new - 1):.2f} ms per "
+        f"step" + ("" if hbm_ms is None else f"; the weights and the cache read once per step "
+                                              f"take {hbm_ms:.2f} ms at HBM rate")
+        + f"); launches {dec}")
+    log(f"{label} sample tokens: {toks[0, :16].tolist()}")
+    check(pre["flash_attention"] == cfg.n_layers,
+          f"{label}: prefill launched flash_attention {pre['flash_attention']} times, expected "
+          f"{cfg.n_layers}")
+    check(dec["flash_attention"] == 0, f"{label}: decode launched flash_attention")
+    check(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all())
+          and all(bool(torch.isfinite(x).all()) for x in step_logits),
+          f"{label}: non-finite logits")
+    check(toks.shape == (b, n_new) and toks.dtype == torch.int32 and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"{label}: tokens out of range")
+    check(cache["pos"] == cache_len - 1, f"{label}: cache position")
+    del cache, step_logits
+    torch.cuda.empty_cache()
+    return dict(logits=logits, prefill_s=t_prefill, decode_s=t_decode,
+                decode_ms=1e3 * t_decode / (n_new - 1),
+                launches={k: pre[k] + dec[k] for k in pre})
+
+
+def _f32_holds(label: str, m2, prompt, s2: int, decode: bool = True) -> dict:
+    """A few layers in f32 (``m2``): the kernel route against the
+    ``use_flash="never"`` route on a prefill of ``s2 + 1`` tokens,
+    elementwise at 1e-4 (the same function in other orders), and, with
+    ``decode``, decode after a prefill of ``s2`` tokens against that
+    prefill (tests/test_models_smoke.py's 2e-3)."""
+    import torch
+
+    from repro_torch.models.model import prefill_step, serve_step
+
+    never = _sub_model(m2, m2.cfg.n_layers, use_flash="never")
+    p = prompt[:, :s2 + 1]
+    with torch.inference_mode():
+        direct, _ = prefill_step(m2, p, s2 + 8)
+        direct_never, _ = prefill_step(never, p, s2 + 8)
+        if decode:
+            _, c2 = prefill_step(m2, p[:, :s2], s2 + 8)
+            dec, _ = serve_step(m2, p[:, s2:], c2)
+    res = dict(f32_routes_max_abs=float((direct - direct_never).abs().max()))
+    msg = (f"{label} at {p.shape[0]}x{p.shape[1]}: kernel route vs use_flash=never max_abs_err "
+           f"{res['f32_routes_max_abs']:.3e}")
+    if decode:
+        res["decode_vs_prefill_max_abs"] = float((dec - direct).abs().max())
+        msg += (f"; decode after prefill {s2} vs prefill {s2 + 1}: max_abs_err "
+                f"{res['decode_vs_prefill_max_abs']:.3e}")
+    log(msg)
+    check(bool(torch.allclose(direct, direct_never, rtol=1e-4, atol=1e-4)),
+          f"{label}: kernel route vs plain route differ by {res['f32_routes_max_abs']:.3e} > 1e-4")
+    if decode:
+        check(bool(torch.allclose(dec, direct, rtol=2e-3, atol=2e-3)),
+              f"{label}: decode vs longer prefill differ by "
+              f"{res['decode_vs_prefill_max_abs']:.3e} > 2e-3")
+    return res
+
+
+def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
+    """gemma2-9b serving at full width and depth (ROADMAP item 13.2): the
+    forward kernel at hd 256 (the 'scalar_bf16' route) against its plain
+    version at the path's global and local shapes (window 4096, softcap 50)
+    before the model is loaded, and timed beside its plain version and an
+    SDPA yardstick; the path through the entry points; the model against its
+    ``use_flash="never"`` route, its first layers against the same weights
+    in f32, and decode after a prefill against a longer prefill. Returns the
+    launch counts of the path run (prefill and decode)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     flash_attention_plain, flash_route)
+    from repro_torch.models.model import init_params, prefill_step
+    from repro_torch.models.transformer import layer_windows
+
+    cfg = get_config(G2_ARCH)
+    b, h, hkv, s, hd = G2_BATCH, cfg.n_heads, cfg.n_kv_heads, G2_PROMPT, cfg.head_dim
+    cap, tol, row_tol = cfg.attn_softcap, 3e-2, 1e-2
+    route = flash_route(torch.bfloat16, hd)
+    check(route == "scalar_bf16", f"gemma2: the forward's route at hd {hd} is {route!r}")
+    windows = layer_windows(cfg)
+    kinds = (("global", 0), ("local", cfg.sliding_window))
+
+    # 53. The forward kernel against its plain version at the path's two
+    # shapes (B = 2, H = 16, Hkv = 8, S = T = 8192, hd = 256, causal,
+    # softcap 50; window 0 and 4096), on random and edge queries (the keys
+    # at the causal and the window's edges), and times: the kernel, the
+    # plain version, and SDPA on the same mask without the softcap.
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd)
+    kern_res = {}
+    for kind, window in kinds:
+        errs = {}
+        lib = flex_library(s, window, cap, dev)
+        for inp in ("random", "edge"):
+            qq = q if inp == "random" else flash_edge_queries(k, h, s, window)
+            want = flash_attention_plain(qq, k, v, causal=True, window=window, softcap=cap)
+            if inp == "random":
+                # The library call computes the same function: its output
+                # within the kernel's limits of the plain version's.
+                lib_out = lib(q, k, v)
+                lib_err = float((lib_out.float() - want.float()).abs().max())
+                lib_row = row_rel_err(lib_out, want)
+                log(f"flex_attention gemma2 {kind} bf16 random vs plain: max_abs_err "
+                    f"{lib_err:.3e}, row rel L2 max {lib_row:.3e}")
+                check(lib_row <= row_tol and bool(((lib_out.float() - want.float()).abs()
+                                                   <= tol * (1 + want.float().abs())).all()),
+                      f"flex_attention gemma2 {kind}: not the kernel's function ({lib_err:.3e})")
+                del lib_out
+            got = flash_attention_cuda(qq, k, v, causal=True, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            bad = float(((got.float() - want.float()).abs()
+                         - tol * (1 + want.float().abs())).max())
+            row = row_rel_err(got, want)
+            log(f"flash gemma2 {kind} bf16 {inp}: B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal "
+                f"window={window} softcap={cap}: max_abs_err={err:.3e} (tol {tol:g}), row rel "
+                f"L2 max {row:.3e} (tol {row_tol:g})")
+            check(bool(torch.isfinite(got).all()), f"flash gemma2 {kind}: non-finite output")
+            check(bad <= 0, f"flash gemma2 {kind} {inp}: kernel vs plain max_abs_err {err:.3e} "
+                            f"beyond rtol = atol = {tol:g}")
+            check(row <= row_tol, f"flash gemma2 {kind} {inp}: kernel vs plain row rel L2 "
+                                  f"{row:.3e} > {row_tol:g}")
+            errs[inp] = (err, row)
+            del qq, want, got
+            torch.cuda.empty_cache()
+        k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=window,
+                                                    softcap=cap), reps=3)
+        with torch.inference_mode():
+            p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window,
+                                                         softcap=cap), reps=3)
+        kx, vx = k.repeat_interleave(h // hkv, 1), v.repeat_interleave(h // hkv, 1)
+        mask = window_mask(s, window, dev)
+        l_ms = cuda_ms(lambda: _sdpa_yardstick(q, kx, vx, mask), reps=3)
+        del kx, vx, mask
+        torch.cuda.empty_cache()
+        f_ms = cuda_ms(lambda: lib(q, k, v), reps=3)
+        flops, nbytes = flash_work(b, h, hkv, s, hd, 2, window)
+        b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
+        log(f"flash time gemma2 {kind} (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} window={window} "
+            f"softcap={cap}, {route} route): kernel {k_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound); plain "
+            f"{p_ms:.3f} ms; flex_attention (compiled, softcap score_mod, block mask) "
+            f"{f_ms:.3f} ms; scaled_dot_product_attention on the same mask without the softcap "
+            f"(yardstick, not the same function) {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
+            f"{flops:.3e} flop, {nbytes:.3e} B)")
+        kern_res[kind] = dict(max_abs_err=errs["random"][0], row_rel=errs["random"][1],
+                              edge_max_abs_err=errs["edge"][0], ms=k_ms, plain_ms=p_ms,
+                              library_ms=f_ms, library_max_abs_err=lib_err,
+                              sdpa_no_softcap_ms=l_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # 54. The path: gemma2-9b at full width and depth, 2 x 8192 + 32.
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_len = G2_PROMPT + G2_NEW
+    kv_bytes = 2 * cfg.n_layers * b * cache_len * hkv * hd * 2
+    n_local = sum(1 for w in windows if w)
+    log(f"phase gemma2 init: {time.perf_counter() - t:.2f} s; {G2_ARCH} at full width and depth "
+        f"(L={cfg.n_layers}: {n_local} local at window {cfg.sliding_window}, "
+        f"{cfg.n_layers - n_local} global; d={cfg.d_model}, H/Hkv={h}/{hkv}, hd={hd}, "
+        f"d_ff={cfg.d_ff}, V={cfg.vocab}, tied, softcaps {cap} / {cfg.logit_softcap}): "
+        f"{n_par / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB; KV cache {kv_bytes / 1e9:.2f} GB")
+    check(not hasattr(model, "lm_head"), "gemma2: tied embeddings carry an lm_head")
+    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (b, G2_PROMPT)),
+                             dtype=torch.int32, device=dev)
+    path = _serve_path("gemma2", model, prompt, G2_NEW, cache_len,
+                       warm_model=_sub_model(model, G2_F32_LAYERS))
+    t_attn = (n_local * kern_res["local"]["ms"]
+              + (cfg.n_layers - n_local) * kern_res["global"]["ms"]) / 1e3
+    log(f"gemma2 prefill: flash_attention launches {path['launches']['flash_attention']} on the "
+        f"{route!r} route (hd {hd}), {n_local} x {kern_res['local']['ms']:.2f} ms + "
+        f"{cfg.n_layers - n_local} x {kern_res['global']['ms']:.2f} ms = {t_attn:.3f} s "
+        f"of the {path['prefill_s']:.3f} s prefill; decode {path['decode_ms']:.2f} ms per step "
+        f"(the weights and the cache read once take "
+        f"{1e3 * (n_bytes + kv_bytes) / peaks['hbm']:.2f} ms at HBM rate)")
+
+    # 55. The same weights through the never route at full depth, and their
+    # first G2_F32_LAYERS layers on both routes against the same weights in
+    # f32 (the kernel's f32 route at hd 256: 'scalar_f32').
+    with torch.inference_mode():
+        logits_never, _ = prefill_step(_sub_model(model, cfg.n_layers, use_flash="never"),
+                                       prompt, cache_len)
+    torch.cuda.empty_cache()
+    holds = {"full": _route_holds(f"gemma2 prefill logits ({cfg.n_layers} layers, bf16)",
+                                  path["logits"], logits_never)}
+    del logits_never
+    torch.cuda.empty_cache()
+    n4 = G2_F32_LAYERS
+    with torch.inference_mode():
+        l_k, _ = prefill_step(_sub_model(model, n4), prompt, cache_len)
+        l_n, _ = prefill_step(_sub_model(model, n4, use_flash="never"), prompt, cache_len)
+        torch.cuda.empty_cache()
+        l_32, _ = prefill_step(_sub_model(model, n4, dtype=torch.float32), prompt, cache_len)
+    torch.cuda.empty_cache()
+    holds["f32"] = _route_holds(f"gemma2 prefill logits ({n4} layers, bf16)", l_k, l_n, l_32)
+    del l_k, l_n, l_32
+    torch.cuda.empty_cache()
+
+    # 56. f32, the first G2_DECODE_LAYERS layers (one local, one global):
+    # the two routes elementwise (1e-4), and decode after a prefill of
+    # G2_DECODE_PROMPT tokens (past the window, which then binds in the
+    # decode mask as in the prefill) against a prefill of one more
+    # (tests/test_models_smoke.py's 2e-3).
+    holds.update(_f32_holds(f"gemma2 f32 {G2_DECODE_LAYERS}-layer (window "
+                            f"{cfg.sliding_window} < {G2_DECODE_PROMPT} tokens)",
+                            _sub_model(model, G2_DECODE_LAYERS, dtype=torch.float32), prompt,
+                            G2_DECODE_PROMPT))
+    del model, path["logits"]
+    torch.cuda.empty_cache()
+    results["gemma2"] = dict(kernel=kern_res, holds=holds, prefill_s=path["prefill_s"],
+                             decode_ms=path["decode_ms"], params=n_par)
+    return path["launches"]
+
+
+def moe_serving_phase(dev, peaks, results: dict) -> dict:
+    """qwen2-moe-a2.7b serving at full width and depth (ROADMAP item
+    13.3): the path through the entry points at LM_BATCH x LM_PROMPT +
+    LM_NEW, the model against its ``use_flash="never"`` route, one MoE
+    layer on the card against the same layer on the CPU in f32 (outputs,
+    aux, and the kept (token, expert, slot) assignments), and the MoE's
+    share of one prefill layer. Returns the launch counts of the path run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_route
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.model import embed_tokens, init_params, prefill_step
+    from repro_torch.models.moe import MoE
+
+    cfg = get_config(MOE_ARCH)
+    route = flash_route(torch.bfloat16, cfg.head_dim)
+    check(route == "wgmma", f"qwen2-moe: the forward's route at hd {cfg.head_dim} is {route!r}")
+
+    # 57. The path.
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_len = LM_PROMPT + LM_NEW
+    kv_bytes = 2 * cfg.n_layers * LM_BATCH * cache_len * cfg.n_kv_heads * cfg.head_dim * 2
+    moe0 = model.layers[0].moe
+    log(f"phase qwen2-moe init: {time.perf_counter() - t:.2f} s; {MOE_ARCH} at full width and "
+        f"depth (L={cfg.n_layers}, d={cfg.d_model}, H={cfg.n_heads}, hd={cfg.head_dim}, "
+        f"{moe0.n_experts} experts top-{cfg.n_experts_active}, moe_d_ff={cfg.moe_d_ff}, "
+        f"shared_d_ff={cfg.shared_d_ff}, V={cfg.vocab}): {n_par / 1e9:.3f} B parameters, "
+        f"{n_bytes / 1e9:.2f} GB; KV cache {kv_bytes / 1e9:.2f} GB")
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab,
+                                                               (LM_BATCH, LM_PROMPT)),
+                             dtype=torch.int32, device=dev)
+    path = _serve_path("qwen2-moe", model, prompt, LM_NEW, cache_len)
+
+    # 58. The never route at full depth, layer by layer: each layer of both
+    # routes takes the same input (the kernel route's hidden states). The
+    # attention sublayer's outputs (the part the routes compute apart) are
+    # held at 3e-2 in relative L2, as the dense paths' logits are. A token
+    # whose router input moves by the two routes' bf16 rounding may pick
+    # another expert (routing is discontinuous), so the block's update
+    # (output minus input) is held at 3e-2 on the tokens both routes route
+    # alike (the same experts, kept alike), and the others are counted and
+    # held to MOE_REROUTED_MAX of the tokens per layer. The last token's
+    # logits after all 24 layers, which carry those routing differences, are
+    # held to MOE_LOGITS_REL in relative L2.
+    never = _sub_model(model, cfg.n_layers, use_flash="never")
+    rel = lambda x, y: float(torch.linalg.norm((x - y).float()) / torch.linalg.norm(y.float()))
+    with torch.inference_mode():
+        logits_never, _ = prefill_step(never, prompt, cache_len)
+        e2e = rel(path["logits"], logits_never)
+        del logits_never
+        x = embed_tokens(model, prompt)
+        positions = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev).expand(LM_BATCH,
+                                                                                  LM_PROMPT)
+        per_layer = []
+        for lk, ln_ in zip(model.layers, never.layers):
+            a = rms_norm(x, lk.ln1, cfg.norm_eps)
+            hk, hn = lk.attn(a, positions, 0)[0], ln_.attn(a, positions, 0)[0]
+            rk, rn = (lk.moe.routing(rms_norm(x + h_, lk.ln2, cfg.norm_eps)) for h_ in (hk, hn))
+            alike = ((rk.expert == rn.expert) & (rk.keep == rn.keep)).all(-1).reshape(LM_BATCH,
+                                                                                      LM_PROMPT)
+            yk, yn = lk._ffn_residual(x, hk)[0], ln_._ffn_residual(x, hn)[0]
+            per_layer.append((rel(hk, hn), rel((yk - x)[alike], (yn - x)[alike]),
+                              int((~alike).sum())))
+            x = yk
+        del x, a, hk, hn, rk, rn, yk, yn, alike
+    del never
+    torch.cuda.empty_cache()
+    worst_attn = max(r_[0] for r_ in per_layer)
+    worst_upd = max(r_[1] for r_ in per_layer)
+    rerouted = [r_[2] for r_ in per_layer]
+    log(f"qwen2-moe, kernel route vs use_flash=never, layer by layer on the same inputs "
+        f"({cfg.n_layers} layers, bf16, {LM_BATCH}x{LM_PROMPT}): attention output rel L2 max "
+        f"{worst_attn:.3e} (limit 3e-2); block update rel L2 max {worst_upd:.3e} on the tokens "
+        f"routed alike (limit 3e-2); tokens routed otherwise per layer {rerouted} of "
+        f"{LM_BATCH * LM_PROMPT} (limit {MOE_REROUTED_MAX:g} of them); the last token's logits "
+        f"after all layers rel L2 {e2e:.3e} (limit {MOE_LOGITS_REL:g})")
+    check(worst_attn <= 3e-2, f"qwen2-moe: attention kernel route vs never route rel L2 "
+                              f"{worst_attn:.3e} > 3e-2")
+    check(worst_upd <= 3e-2, f"qwen2-moe: block update kernel route vs never route rel L2 "
+                             f"{worst_upd:.3e} > 3e-2 on tokens routed alike")
+    check(max(rerouted) <= MOE_REROUTED_MAX * LM_BATCH * LM_PROMPT,
+          f"qwen2-moe: {max(rerouted)} of {LM_BATCH * LM_PROMPT} tokens routed otherwise on the "
+          f"never route in one layer, more than {MOE_REROUTED_MAX:g} of them")
+    check(e2e <= MOE_LOGITS_REL, f"qwen2-moe: last-token logits kernel route vs never route "
+                                 f"rel L2 {e2e:.3e} > {MOE_LOGITS_REL:g}")
+    holds = dict(attn_rel_max=worst_attn, update_rel_max=worst_upd, rerouted=rerouted,
+                 logits_rel=e2e)
+
+    # 58b. f32, the first 2 layers at 2 x 1024 tokens (two whole groups of
+    # the MoE; a decode hold would need a prefill of 2 x 1023, which no
+    # group size divides): the two routes elementwise.
+    holds.update(_f32_holds("qwen2-moe f32 2-layer", _sub_model(model, 2, dtype=torch.float32),
+                            prompt[:2], 1023, decode=False))
+    torch.cuda.empty_cache()
+
+    # 59. The MoE's share of one prefill layer at the path's shape (layer 0
+    # on the prompt's embeddings; CUDA events, median of 5).
+    with torch.inference_mode():
+        layer = model.layers[0]
+        x = embed_tokens(model, prompt)
+        positions = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev).expand(LM_BATCH,
+                                                                                  LM_PROMPT)
+        hn = rms_norm(x, layer.ln2, cfg.norm_eps)
+        layer_ms = cuda_ms(lambda: layer(x, positions, 0))
+        moe_ms = cuda_ms(lambda: layer.moe(hn))
+        r = layer.moe.routing(hn)
+        kept, chosen = int(r.keep.sum()), int(r.selected.sum())
+    log(f"qwen2-moe prefill layer at {LM_BATCH}x{LM_PROMPT}: {layer_ms:.3f} ms, of which the MoE "
+        f"{moe_ms:.3f} ms ({100 * moe_ms / layer_ms:.1f} %); {r.expert.shape[0]} groups, "
+        f"capacity {r.capacity}, kept {kept} of {chosen} assignments")
+    del x, hn, r, positions
+    torch.cuda.empty_cache()
+
+    # 60. One MoE layer (layer 0's weights in f32) on the card against the
+    # same layer on the CPU, on the same f32 input (2 x 1024 tokens, two
+    # groups): the output within 1e-4 of its largest entry (cuBLAS's and
+    # the CPU's f32 sums in other orders), the aux at rtol 1e-5, the kept
+    # (token, expert, slot) assignments equal. The smallest gap between a
+    # token's k-th and (k+1)-th router probability says how near a tie
+    # came.
+    state = {k_: v_.float() for k_, v_ in moe0.state_dict().items()}
+    on_card = MoE(cfg, moe0.n_experts, dtype=torch.float32, device=dev)
+    on_cpu = MoE(cfg, moe0.n_experts, dtype=torch.float32)
+    on_card.load_state_dict(state)
+    on_cpu.load_state_dict({k_: v_.cpu() for k_, v_ in state.items()})
+    xb, xs = MOE_HOLD_SHAPE
+    x_cpu = torch.randn(xb, xs, cfg.d_model, generator=torch.Generator().manual_seed(SEED + 29))
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out_c, aux_c = on_card(x_cpu.to(dev))
+        r_c = on_card.routing(x_cpu.to(dev))
+        torch.cuda.synchronize()
+        out_h, aux_h = on_cpu(x_cpu)
+        r_h = on_cpu.routing(x_cpu)
+    t_hold = time.perf_counter() - t
+    top = torch.sort(r_h.probs, dim=-1, descending=True).values
+    k_act = cfg.n_experts_active
+    gap = float((top[..., k_act - 1] - top[..., k_act]).min())
+    err = float((out_c.cpu() - out_h).abs().max()) / float(out_h.abs().max())
+    same = (torch.equal(r_c.keep.cpu(), r_h.keep) and torch.equal(r_c.expert.cpu(), r_h.expert)
+            and torch.equal(r_c.slot.cpu(), r_h.slot))
+    kept_c, kept_h = int(r_c.keep.sum()), int(r_h.keep.sum())
+    log(f"qwen2-moe MoE layer f32, card vs CPU at {xb}x{xs} tokens ({t_hold:.2f} s): output "
+        f"max_abs_err {err:.3e} of the largest (limit 1e-4), aux {float(aux_c):.8f} / "
+        f"{float(aux_h):.8f}, kept assignments {kept_c} / {kept_h} of "
+        f"{xb * xs * k_act} (capacity {r_h.capacity}), the same (token, expert, slot) triples "
+        f"{same}; smallest top-{k_act} router gap {gap:.3e}")
+    check(err <= 1e-4, f"qwen2-moe MoE layer: card vs CPU {err:.3e} of the largest > 1e-4")
+    check(abs(float(aux_c) - float(aux_h)) <= 1e-5 * abs(float(aux_h)),
+          f"qwen2-moe MoE layer: aux {float(aux_c)} vs {float(aux_h)}")
+    check(same and kept_c == kept_h, "qwen2-moe MoE layer: kept assignments differ")
+    holds["moe_layer"] = dict(scaled_err=err, kept=kept_c, assignments=xb * xs * k_act,
+                              min_gap=gap)
+    del on_card, on_cpu, out_c, r_c, model, path["logits"]
+    torch.cuda.empty_cache()
+    results["qwen2_moe"] = dict(holds=holds, prefill_s=path["prefill_s"],
+                                decode_ms=path["decode_ms"], params=n_par, layer_ms=layer_ms,
+                                moe_ms=moe_ms)
+    return path["launches"]
+
+
+def families_training_phase(dev, peaks, results: dict) -> dict:
+    """Training gemma2 and qwen2-moe at full width (ROADMAP items 13.2,
+    13.3): the backward kernels at hd 256 (the 'scalar' route) against
+    autograd through the plain version at the gemma2 path's shapes (1 x
+    8192, window 4096 and 0, softcap 50), timed beside the plain version and
+    an SDPA yardstick, before training allocates its state; then
+    ``launch.train.main`` for FAMILY_TRAIN_STEPS steps on each. Returns the
+    launch counts of the two training runs, by model."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain, flash_bwd_route)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import TransformerLM
+
+    g2 = get_config(G2_ARCH)
+    b, h, hkv, s, hd, cap = (G2_TRAIN_BATCH, g2.n_heads, g2.n_kv_heads, G2_TRAIN_SEQ, g2.head_dim,
+                             g2.attn_softcap)
+    route = flash_bwd_route(torch.bfloat16, hd)
+    check(route == "scalar", f"gemma2 training: the backward's route at hd {hd} is {route!r}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+
+    # 61. The backward kernels at the gemma2 training shapes.
+    q, k, v, do = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd), mk(b, h, s, hd)
+    bwd_res = {}
+    for kind, window in (("global", 0), ("local", g2.sliding_window)):
+        kw = dict(causal=True, window=window, softcap=cap)
+        got = flash_attention_bwd_cuda(q, k, v, do, **kw)
+        want = flash_attention_bwd_plain(q, k, v, do, **kw)
+        torch.cuda.synchronize()
+        res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        log(f"flash_bwd gemma2 {kind} bf16 ({route} route): B={b} H={h} Hkv={hkv} S=T={s} "
+            f"hd={hd} causal window={window} softcap={cap}: " + "; ".join(
+                f"{n} max_abs_err {r['max_abs_err']:.3e} ({r['scaled_err']:.2e} of the largest, "
+                f"row rel L2 {r['row_rel']:.2e})" for n, r in res.items())
+            + f" (limits {BWD_TOL['bfloat16']:g} of the largest, rows {BWD_ROW_TOL:g})")
+        check(all(r["ok"] for r in res.values()),
+              f"flash_bwd gemma2 {kind}: kernel vs plain autograd {res}")
+        del got, want
+        torch.cuda.empty_cache()
+        k_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, **kw), reps=3)
+        p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do, **kw), reps=3)
+        torch.cuda.empty_cache()
+        # The library's backward: autograd through flex_attention (the
+        # same function: each gradient within the kernel's elementwise limit
+        # of the plain version's; its dq rows can miss the kernel's row
+        # limit, by up to 4.8e-2 relative L2 at this shape on an NVIDIA H100
+        # 80GB HBM3 at 700 W, so rows are printed, not held), and SDPA's
+        # without the softcap.
+        qx, kl, vl = (x.detach().requires_grad_(True) for x in (q, k, v))
+        ox = flex_library(s, window, cap, dev)(qx, kl, vl)
+        lib_g = torch.autograd.grad(ox, (qx, kl, vl), do, retain_graph=True)
+        want = flash_attention_bwd_plain(q, k, v, do, **kw)
+        lib_res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), lib_g, want)}
+        log(f"flex_attention backward gemma2 {kind} vs plain: " + "; ".join(
+            f"{n} {r['scaled_err']:.2e} of the largest, rows {r['row_rel']:.2e}"
+            for n, r in lib_res.items()))
+        check(all(r["scaled_err"] <= BWD_TOL["bfloat16"] for r in lib_res.values()),
+              f"flex_attention backward gemma2 {kind}: not the kernel's function {lib_res}")
+        del lib_g, want
+        torch.cuda.empty_cache()
+        f_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kl, vl), do, retain_graph=True),
+                       reps=3)
+        del ox
+        kx = k.repeat_interleave(h // hkv, 1).requires_grad_(True)
+        vx = v.repeat_interleave(h // hkv, 1).requires_grad_(True)
+        mask = window_mask(s, window, dev)
+        ox = _sdpa_yardstick(qx, kx, vx, mask)
+        l_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True),
+                       reps=3)
+        del qx, kl, vl, kx, vx, ox, mask
+        torch.cuda.empty_cache()
+        flops, nbytes = flash_bwd_work(b, h, hkv, s, hd, 2, window)
+        b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
+        log(f"flash_bwd time gemma2 {kind} (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} "
+            f"window={window} softcap={cap}, {route} route): kernel {k_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound); plain "
+            f"(autograd through flash_attention_plain) {p_ms:.3f} ms; the backward of "
+            f"flex_attention (compiled, softcap score_mod, block mask) {f_ms:.3f} ms; the "
+            f"backward of scaled_dot_product_attention on the same mask without the softcap "
+            f"(yardstick, not the same function) {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
+            f"{flops:.3e} flop, {nbytes:.3e} B)")
+        bwd_res[kind] = dict(max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                             scaled_err=max(r["scaled_err"] for r in res.values()),
+                             row_rel=max(r["row_rel"] for r in res.values()), ms=k_ms,
+                             plain_ms=p_ms, library_ms=f_ms, sdpa_no_softcap_ms=l_ms,
+                             bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, do
+    torch.cuda.empty_cache()
+
+    # 62. The two training paths through launch.train.main.
+    out = {"kernel_bwd": bwd_res}
+    counts = {}
+    for arch, n_layers, bt, st in ((G2_ARCH, G2_TRAIN_LAYERS, G2_TRAIN_BATCH, G2_TRAIN_SEQ),
+                                   (MOE_ARCH, MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        n_par = sum(p.numel() for p in TransformerLM(cfg, device="meta").parameters())
+        # The state is bf16 params and f32 Adam moments (10 B a parameter)
+        # and the step's bf16 grads (2 B); the functional Adam update holds
+        # the old and the new params and moments at once (22 B).
+        reckoned, at_update = 12 * n_par, 22 * n_par
+        bwd_route = flash_bwd_route(torch.bfloat16, cfg.head_dim)
+        argv = ["--arch", arch, "--override", f"n_layers={n_layers}", "--batch", str(bt),
+                "--seq", str(st), "--lr", str(TRAIN_LR), "--device", str(dev), "--steps",
+                str(FAMILY_TRAIN_STEPS)]
+        note = (f" against {reckoned / 1e9:.2f} GB reckoned for bf16 params and grads and f32 "
+                f"moments, {at_update / 1e9:.2f} GB with the old and new params and moments of "
+                f"the Adam update")
+        state, rec, c = _train_run(
+            dev, f"{arch} ({n_layers} layers at full width, {bt}x{st} tokens, "
+            f"{n_par / 1e9:.3f} B parameters; backward route {bwd_route!r})",
+            lambda: _main_run(ttrain, argv), FAMILY_TRAIN_STEPS, 1, n_layers, bt * st, note)
+        check(rec["losses"][-1] < rec["losses"][0],
+              f"lm training {arch}: loss did not fall ({rec['losses']})")
+        counts[arch] = c
+        out[arch] = dict(rec, reckoned_bytes=[reckoned, at_update], params=n_par)
+        del state
+        torch.cuda.empty_cache()
+    g = bwd_res
+    log(f"gemma2 training: the attention backward {G2_TRAIN_LAYERS // 2} x "
+        f"{g['local']['ms']:.2f} ms (local) + {G2_TRAIN_LAYERS // 2} x {g['global']['ms']:.2f} ms "
+        f"(global) = {G2_TRAIN_LAYERS / 2 * (g['local']['ms'] + g['global']['ms']) / 1e3:.3f} s "
+        f"of the {out[G2_ARCH]['step_s']:.3f} s step")
+    results["families_training"] = out
     return counts
 
 
@@ -2917,6 +3582,62 @@ def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, i
     return total
 
 
+FLASH_ROUTE_OF = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
+                  "flash_attention_hd256": "scalar_bf16", "flash_attention_bwd_hd256": "scalar"}
+
+
+def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launches: dict,
+                 fam_launches: dict) -> tuple[dict, dict]:
+    """The flash entries' launches, each of its own route: the hd-128
+    entries ('wgmma' forward and backward) count the internlm2 and
+    qwen2-moe paths' (``lm_launches`` plus the qwen2-moe serving and
+    training runs'), the hd-256 entries ('scalar_bf16' forward, 'scalar'
+    backward) the gemma2 paths' (each phase holds its path's route, and
+    every flash launch of a path is at its model's head_dim; the same
+    wrappers count both, as LAUNCHES["flash_attention"] and
+    ["flash_attention_bwd"]). Also fills ``results`` for the hd-256
+    entries: times at the gemma2 path's global shapes, the local window's
+    beside them, the library call (``flex_library``) and SDPA without the
+    softcap as a yardstick. Returns (hd-128 counts, hd-256 counts)."""
+    lm_launches = dict(lm_launches)
+    for counts in (moe_launches, fam_launches[MOE_ARCH]):
+        for k, v in counts.items():
+            lm_launches[k] = lm_launches.get(k, 0) + v
+    g2k, g2b = results["gemma2"]["kernel"], results["families_training"]["kernel_bwd"]
+    hd256 = {"flash_attention_hd256": g2_launches["flash_attention"]
+             + fam_launches[G2_ARCH]["flash_attention"],
+             "flash_attention_bwd_hd256": fam_launches[G2_ARCH]["flash_attention_bwd"]}
+    log(f"flash launches by route: 'wgmma' forward {lm_launches['flash_attention']}, backward "
+        f"{lm_launches['flash_attention_bwd']} (internlm2 and qwen2-moe); 'scalar_bf16' forward "
+        f"{hd256['flash_attention_hd256']}, 'scalar' backward "
+        f"{hd256['flash_attention_bwd_hd256']} (gemma2)")
+    check(hd256["flash_attention_hd256"] > 0 and hd256["flash_attention_bwd_hd256"] > 0,
+          "the hd-256 routes were not launched on the gemma2 paths")
+    for kname, kr in (("flash_attention_hd256", g2k), ("flash_attention_bwd_hd256", g2b)):
+        results[kname] = dict(max_abs_err=max(kr[w]["max_abs_err"] for w in kr),
+                              ms=kr["global"]["ms"], plain_ms=kr["global"]["plain_ms"],
+                              bound_ms=kr["global"]["bound_ms"],
+                              bound_by=kr["global"]["bound_by"],
+                              library_ms=kr["global"]["library_ms"],
+                              local_ms=kr["local"]["ms"], local_plain_ms=kr["local"]["plain_ms"],
+                              local_bound_ms=kr["local"]["bound_ms"],
+                              local_library_ms=kr["local"]["library_ms"],
+                              sdpa_no_softcap_ms=[kr[w]["sdpa_no_softcap_ms"] for w in kr])
+    return lm_launches, hd256
+
+
+def kernel_entry(kname: str, src: str, replaces: str, launches: int, r: dict) -> dict:
+    """One kernel's entry of the kernels line, from its ``results`` record."""
+    return {"name": kname, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r.get("library_ms"), "baseline_ms": r.get("baseline_ms"),
+            "fill_ms": r.get("fill_ms"), "rank_launches": r.get("rank_launches"),
+            **({"flash_route": FLASH_ROUTE_OF[kname]} if kname in FLASH_ROUTE_OF else {}),
+            **{key: r[key] for key in ("local_ms", "local_plain_ms", "local_bound_ms",
+                                       "local_library_ms", "sdpa_no_softcap_ms") if key in r}}
+
+
 def main() -> int:
     import torch
 
@@ -3614,6 +4335,21 @@ def main() -> int:
     lm_launches = {**lm_launches, **{k: lm_launches.get(k, 0) + v
                                       for k, v in train_launches.items()}}
 
+    # 53.-56. gemma2 serving, 57.-60. qwen2-moe serving, 61.-62. their
+    # training (ROADMAP items 13.2, 13.3), each path's launches counted.
+    t = time.perf_counter()
+    g2_launches = gemma2_serving_phase(dev, peaks, results)
+    log(f"phase gemma2 serving: {time.perf_counter() - t:.1f} s; launches {g2_launches}")
+    t = time.perf_counter()
+    moe_launches = moe_serving_phase(dev, peaks, results)
+    log(f"phase qwen2-moe serving: {time.perf_counter() - t:.1f} s; launches {moe_launches}")
+    t = time.perf_counter()
+    fam_launches = families_training_phase(dev, peaks, results)
+    log(f"phase gemma2 and qwen2-moe training: {time.perf_counter() - t:.1f} s; launches "
+        f"{fam_launches}")
+    lm_launches, hd256 = flash_counts(results, lm_launches, g2_launches, moe_launches,
+                                      fam_launches)
+
     kernels = []
     for kname, src, replaces, count in (
             ("sbv_loglik", "src/repro_torch/csrc/sbv_loglik.cu",
@@ -3629,6 +4365,11 @@ def main() -> int:
             ("flash_attention_bwd", "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
              "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
              "differentiates the XLA route)", lm_launches),
+            ("flash_attention_hd256", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:92", hd256),
+            ("flash_attention_bwd_hd256", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
+             "differentiates the XLA route)", hd256),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",
              "src/repro/kernels/sbv_loglik.py:289", ladder_launches),
             ("sbv_predict_bf16", "src/repro_torch/csrc/sbv_predict.cu",
@@ -3637,13 +4378,7 @@ def main() -> int:
              "src/repro/kernels/sbv_loglik.py:247", ladder_launches),
             ("matern_cov_bf16", "src/repro_torch/csrc/matern_cov.cu",
              "src/repro/kernels/matern_cov.py:49", ladder_launches)):
-        r = results[kname]
-        kernels.append({"name": kname, "route": "cuda", "source": src, "replaces": replaces,
-                        "launches": count[kname], "max_abs_err": r["max_abs_err"],
-                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-                        "baseline_ms": r.get("baseline_ms"), "fill_ms": r.get("fill_ms"),
-                        "rank_launches": r.get("rank_launches")})
+        kernels.append(kernel_entry(kname, src, replaces, count[kname], results[kname]))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(card)
     print(json.dumps({"kernels": kernels}))

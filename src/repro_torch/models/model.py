@@ -57,8 +57,8 @@ class TransformerLM(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's distributions: ``normal * 0.02`` for the embedding
         and the head, ``d_in ** -0.5`` for the dense layers (``d_ff ** -0.5``
-        and ``(H hd) ** -0.5`` for the down and output projections), zero
-        norms."""
+        and ``(H hd) ** -0.5`` for the down and output projections), the
+        MoE's as ``models.moe.MoE`` draws them, zero norms."""
         with torch.no_grad():
             draw = lambda w: torch.randn(w.shape, generator=generator, dtype=torch.float32,
                                          device=w.device)
@@ -103,8 +103,9 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     """Mean next-token cross-entropy (f32 scalar) of tokens (B, S) against
     labels (B, S); the loss head runs chunk by chunk over the sequence and
     the chunk means are summed in f32 in order and divided by their count,
-    as the reference's scan does. ``aux_weight`` weighs the MoE router's
-    auxiliary loss, which waits for the MoE slice (no dense block has one)."""
+    as the reference's scan does. MoE stacks add ``aux_weight`` times the
+    router's load-balancing loss summed over layers, divided by the layer
+    count."""
     cfg = model.cfg
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)

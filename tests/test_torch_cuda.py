@@ -1666,3 +1666,61 @@ def test_reduced_train_step_on_card_matches_cpu(dev, dtype):
     for a, b_ in zip(card.params, cpu.params):
         assert a.is_cuda and a.dtype == b_.dtype
         torch.testing.assert_close(a.cpu().float(), b_.float(), rtol=0, atol=10 * lr)
+
+
+# -- gemma2 and the MoE stacks -------------------------------------------------
+#
+# gemma2's head_dim 256 reaches the forward's 'scalar_bf16' route (f32:
+# 'scalar_f32') and the backward's 'scalar' route, with its softcap of 50 and
+# a window that binds (100 at S = 600; gemma2's own is 4096).
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_hd256_window_softcap_matches_plain(dev, dtype):
+    case = (1, 4, 2, 600, 600, 256, True, 100, 50.0)
+    b, h, hkv, s, t, hd, causal, window, cap = case
+    assert flash_route(torch.bfloat16, hd) == "scalar_bf16"
+    q, k, v = _flash_inputs(dev, dtype, b, h, hkv, s, t, hd)
+    queries = [q] if dtype == torch.float32 else [q, _edge_queries(k, h, s, window)]
+    for qq in queries:
+        want = flash_attention_plain(qq, k, v, causal=causal, window=window, softcap=cap)
+        got = flash_attention_cuda(qq, k, v, causal=causal, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+        if dtype == torch.bfloat16:
+            assert _row_rel_err(got, want) <= FLASH_ROW_TOL
+    from repro_torch.kernels.flash_attention import flash_bwd_route
+    assert flash_bwd_route(torch.bfloat16, hd) == "scalar"
+    _check_bwd(dev, dtype, case)
+
+
+@pytest.mark.parametrize("arch,dtype", [("gemma2-9b", "float32"), ("gemma2-9b", "bfloat16"),
+                                        ("qwen2-moe-a2.7b", "float32")])
+def test_reduced_family_prefill_on_card_matches_cpu(dev, arch, dtype):
+    """A reduced gemma2 (hd 256, window 100 in a 300-token prompt) and a
+    reduced qwen2-moe (hd 128, the MoE's grouped dispatch) prefill on the
+    card, through the kernel once per layer, against the same weights on the
+    CPU: f32 at 1e-4 (cuBLAS's and the kernels' f32 sums in other orders),
+    bf16 at 3e-2 in relative L2 (the two routes round different numbers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import TransformerLM, init_params, prefill_step
+
+    over = (dict(head_dim=256, sliding_window=100, n_kv_heads=2) if arch == "gemma2-9b"
+            else dict(head_dim=128))
+    cfg = get_config(arch).reduced(n_layers=2, dtype=dtype, **over)
+    cpu = init_params(cfg, torch.Generator().manual_seed(0))
+    card = TransformerLM(cfg, device=dev)
+    card.load_state_dict(cpu.state_dict())
+    s = 300 if arch == "gemma2-9b" else 256
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab, (2, s)).astype(np.int32)
+    ops.reset_launch_counts()
+    with torch.inference_mode():
+        a, ca = prefill_step(card, torch.as_tensor(prompt, device=dev), s + 4)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention"] == cfg.n_layers
+        b, cb = prefill_step(cpu, torch.as_tensor(prompt), s + 4)
+    assert a.is_cuda and bool(torch.isfinite(a).all())
+    if dtype == "float32":
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(ca["k"].cpu(), cb["k"], rtol=1e-4, atol=1e-4)
+    else:
+        assert float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) <= 3e-2

@@ -333,6 +333,107 @@ def test_train_loss_finite_and_grad_flows(arch):
     assert sum(float(torch.sum(g.float() ** 2)) for g in grads) > 0.0
 
 
+# -- gemma2 and the MoE stacks ----------------------------------------------
+
+# Reduced f32 configurations of the new families: gemma2's window cut to 16
+# so that it binds in the 64-token batches; the MoE stacks at reduced()'s
+# 4 experts top-2 (their loss carries the router's aux term).
+FAMILIES = {"gemma2-9b": dict(sliding_window=16, n_kv_heads=2),
+            "qwen2-moe-a2.7b": dict(),
+            "dbrx-132b": dict(n_kv_heads=2)}
+
+
+def _family_cfgs(arch, **kw):
+    kw = dict(n_layers=2, vocab=128, dtype="float32", **FAMILIES[arch], **kw)
+    return jconfigs.get_config(arch).reduced(**kw), tconfigs.get_config(arch).reduced(**kw)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_families_lm_loss_and_gradients_match_reference(arch):
+    """The loss (with the MoE's aux term) at rtol 1e-5 and every gradient
+    leaf within 1e-5 of its largest entry, gemma2's tied embedding included
+    (its gradient sums the lookup's and the head's)."""
+    jcfg, tcfg = _family_cfgs(arch)
+    params = jinit_params(jax.random.key(0), jcfg)
+    tok, lab = _batch(jcfg.vocab, b=4)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(
+        lambda p: jlm_loss(p, jnp.asarray(tok), jnp.asarray(lab), jcfg)))(params)
+    model = convert.lm_params_from_reference(_np32(params), tcfg)
+    loss_t = lm_loss(model, torch.from_numpy(tok), torch.from_numpy(lab))
+    grads_t = torch.autograd.grad(loss_t, list(model.parameters()))
+    np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-5)
+    for (name, _), g, w in zip(model.named_parameters(), grads_t, _ref_grads(tcfg, grads_j)):
+        _close_scaled(g, w, 1e-5)
+    if tcfg.tie_embeddings:
+        assert "lm_head" not in dict(model.named_parameters())
+    if tcfg.n_experts:
+        # The aux term: the same difference between aux_weight 0.01 and 0.
+        with torch.no_grad():
+            d_t = float(loss_t) - float(lm_loss(model, torch.from_numpy(tok),
+                                                torch.from_numpy(lab), aux_weight=0.0))
+        d_j = float(loss_j) - float(jlm_loss(params, jnp.asarray(tok), jnp.asarray(lab), jcfg,
+                                             aux_weight=0.0))
+        assert d_t > 0
+        np.testing.assert_allclose(d_t, d_j, rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", sorted(FAMILIES))
+def test_families_train_step_matches_reference_over_three_steps(arch):
+    jcfg, tcfg = _family_cfgs(arch)
+    lr = 3e-3
+    jstate = jtrain_state_init(jinit_params(jax.random.key(1), jcfg))
+    tstate = convert.train_state_from_reference(_ref_state_numpy(jstate), tcfg)
+    jstep = jax.jit(jmake_train_step(jcfg, lr=lr))
+    tstep = make_train_step(tcfg, lr=lr)
+    for i in range(3):
+        tok, lab = _batch(jcfg.vocab, seed=10 + i)
+        jstate, jm = jstep(jstate, jnp.asarray(tok), jnp.asarray(lab))
+        tstate, tm = tstep(tstate, tok, lab)
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5, err_msg=key)
+    got = convert.train_state_to_reference(tstate, tcfg)
+    for a, b in zip(jax.tree.leaves(got["params"]), jax.tree.leaves(_np32(jstate.params))):
+        np.testing.assert_allclose(a, b, rtol=0, atol=10 * lr)
+
+
+def test_reference_moe_checkpoint_resumes_in_the_port(tmp_path, capsys):
+    """A reference train state of the reduced qwen2-moe (bf16), saved by
+    ``repro.ckpt.save_checkpoint``, resumes in ``launch.train.main`` bitwise and
+    takes its next step at the reference's loss (2e-2, bf16)."""
+    arch = "qwen2-moe-a2.7b"
+    jcfg = jconfigs.get_config(arch).reduced()
+    jstate = jtrain_state_init(jinit_params(jax.random.key(0), jcfg))
+    stream = RefTokenStream(jcfg.vocab, 2, 32, seed=17)
+    jstep = jax.jit(jmake_train_step(jcfg, lr=3e-4))
+    jstate, _ = jstep(jstate, *map(jnp.asarray, stream.next()))
+    path = jckpt.save_checkpoint(str(tmp_path), 1, jstate, {"stream": stream.state_dict()})
+
+    tcfg = tconfigs.get_config(arch).reduced()
+    names = convert.param_names(tcfg)
+    template = train_state_init(init_params(tcfg, torch.Generator().manual_seed(5)))
+    restored, _ = ttrain.restore_state(path, template, names, "cpu")
+    got = convert.train_state_to_reference(restored, tcfg)
+    for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(_ref_state_numpy(jstate))):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+    log = []
+    state = ttrain.main(["--arch", arch] + _cli(tmp_path, "--steps", "1", "--resume"), log=log)
+    assert f"resumed from {path} at step 1" in capsys.readouterr().out
+    assert state.step == 2
+    _, jm = jstep(jstate, *map(jnp.asarray, stream.next()))
+    np.testing.assert_allclose(log[0]["loss"], float(jm["loss"]), rtol=2e-2)
+
+
+def test_cli_trains_gemma2_with_a_layer_override_on_cpu():
+    log = []
+    state = ttrain.main(["--arch", "gemma2-9b", "--reduced", "--override", "n_layers=2",
+                         "--device", "cpu", "--steps", "2", "--batch", "1", "--seq", "64"],
+                        log=log)
+    assert state.step == 2 and len(state.params) == len(convert.param_names(
+        tconfigs.get_config("gemma2-9b").reduced(n_layers=2)))
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in log)
+
+
 # -- flash attention's gradient on the CPU --------------------------------
 
 FLASH_GRAD_CASES = {
