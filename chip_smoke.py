@@ -68,10 +68,11 @@ path once through the user entry points:
   a p = 32 drain batch on the multi-output index, each bitwise its
   synchronous loop, their chunk 0 held against the plain conditional;
 * gemma2 serving (ROADMAP item 13.2): the forward kernel at hd 256 (its
-  'scalar_bf16' route) against its plain version at the path's global and
-  local shapes (2 x 8192 tokens, window 4096 and 0, softcap 50), timed
-  beside the library call that computes the same function
-  (``flex_attention`` compiled, with a softcap ``score_mod``), then
+  'wgmma' route) against its plain version at the path's global and local
+  shapes (2 x 8192 tokens, window 4096 and 0, softcap 50), timed beside the
+  scalar kernel it replaced (the 'scalar_bf16' route, uncounted) and the
+  library call that computes the same function (``flex_attention``
+  compiled, with a softcap ``score_mod``), then
   gemma2-9b at full width and depth in bf16, 2 x 8192-token prompts + 32
   greedy tokens, against its ``use_flash="never"`` route, its first 4
   layers against the same weights in f32, decode against a longer prefill;
@@ -80,9 +81,10 @@ path once through the user entry points:
   route, one MoE layer on the card against the CPU in f32, the MoE's share
   of a prefill layer;
 * training both families at full width through ``launch.train.main``:
-  the backward kernels at hd 256 (the 'scalar' route) against autograd
-  through the plain version at the gemma2 shapes first (timed beside
-  autograd through ``flex_attention``), then gemma2 at 8
+  the backward kernels at hd 256 (the 'wgmma' route) against autograd
+  through the plain version at the gemma2 shapes first (timed beside the
+  scalar kernels they replaced and autograd through ``flex_attention``),
+  then gemma2 at 8
   layers on 1 x 8192 tokens and qwen2-moe at 4 layers on 4 x 2048 tokens,
   3 steps each.
 
@@ -899,6 +901,16 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
 _FLEX = {}
 
 
+def timed_against_baseline(label: str, kern, base) -> tuple[float, float, float, float]:
+    """Milliseconds of the earlier design ``base`` and the kernel ``kern``
+    in turns (baseline, kernel, kernel, baseline; median of 3 each), and a
+    check that the kernel is the faster in both pairs."""
+    b1, k1, k2, b2 = (cuda_ms(fn, reps=3) for fn in (base, kern, kern, base))
+    check(max(k1, k2) < min(b1, b2), f"{label}: the kernel ({k1:.3f} / {k2:.3f} ms) is not faster "
+                                     f"than the baseline ({b1:.3f} / {b2:.3f} ms)")
+    return b1, k1, k2, b2
+
+
 def flex_library(s: int, window: int, cap: float, device):
     """The library call that computes the softcapped causal (sliding-window)
     GQA attention of the hd-256 routes: ``torch.compile(flex_attention)``
@@ -1110,18 +1122,20 @@ def _f32_holds(label: str, m2, prompt, s2: int, decode: bool = True) -> dict:
 
 def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
     """gemma2-9b serving at full width and depth (ROADMAP item 13.2): the
-    forward kernel at hd 256 (the 'scalar_bf16' route) against its plain
-    version at the path's global and local shapes (window 4096, softcap 50)
-    before the model is loaded, and timed beside its plain version and an
-    SDPA yardstick; the path through the entry points; the model against its
+    forward kernel at hd 256 (the 'wgmma' route) against its plain version
+    at the path's global and local shapes (window 4096, softcap 50) before
+    the model is loaded, and timed beside the scalar kernel it replaced, its
+    plain version, flex_attention and an SDPA yardstick; the path through
+    the entry points; the model against its
     ``use_flash="never"`` route, its first layers against the same weights
     in f32, and decode after a prefill against a longer prefill. Returns the
     launch counts of the path run (prefill and decode)."""
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+    from repro_torch.kernels.flash_attention import (ROUTES, flash_attention_cuda,
                                                      flash_attention_plain, flash_route)
+    from repro_torch.kernels.flash_attention import _launch as flash_launch
     from repro_torch.models.model import init_params, prefill_step
     from repro_torch.models.transformer import layer_windows
 
@@ -1129,15 +1143,18 @@ def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
     b, h, hkv, s, hd = G2_BATCH, cfg.n_heads, cfg.n_kv_heads, G2_PROMPT, cfg.head_dim
     cap, tol, row_tol = cfg.attn_softcap, 3e-2, 1e-2
     route = flash_route(torch.bfloat16, hd)
-    check(route == "scalar_bf16", f"gemma2: the forward's route at hd {hd} is {route!r}")
+    check(route == "wgmma", f"gemma2: the forward's route at hd {hd} is {route!r}")
     windows = layer_windows(cfg)
     kinds = (("global", 0), ("local", cfg.sliding_window))
 
     # 53. The forward kernel against its plain version at the path's two
     # shapes (B = 2, H = 16, Hkv = 8, S = T = 8192, hd = 256, causal,
     # softcap 50; window 0 and 4096), on random and edge queries (the keys
-    # at the causal and the window's edges), and times: the kernel, the
-    # plain version, and SDPA on the same mask without the softcap.
+    # at the causal and the window's edges), and times: the kernel beside
+    # the scalar kernel it replaced (the 'scalar_bf16' route, uncounted,
+    # first held against it: baseline, kernel, kernel, baseline), the plain
+    # version, flex_attention, and SDPA on the same mask without the
+    # softcap.
     gen = torch.Generator(device=dev).manual_seed(SEED + 23)
     mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
     q, k, v = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd)
@@ -1177,8 +1194,17 @@ def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
             errs[inp] = (err, row)
             del qq, want, got
             torch.cuda.empty_cache()
-        k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=window,
-                                                    softcap=cap), reps=3)
+        kern = lambda: flash_attention_cuda(q, k, v, causal=True, window=window, softcap=cap)
+        base = lambda: flash_launch(ROUTES["scalar_bf16"], q, k, v, True, window, cap)
+        got, want = kern(), base()
+        base_row = row_rel_err(got, want)
+        check(base_row <= row_tol, f"flash gemma2 {kind}: wgmma vs the scalar baseline row rel "
+                                   f"L2 {base_row:.3e}")
+        del got, want
+        b1_ms, k_ms, k2_ms, b2_ms = timed_against_baseline(f"flash gemma2 {kind}", kern, base)
+        # The kernel without the softcap (not the path's function): what the
+        # accurate tanhf on every score costs.
+        nc_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True, window=window), reps=3)
         with torch.inference_mode():
             p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True, window=window,
                                                          softcap=cap), reps=3)
@@ -1191,14 +1217,20 @@ def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
         flops, nbytes = flash_work(b, h, hkv, s, hd, 2, window)
         b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
         log(f"flash time gemma2 {kind} (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} window={window} "
-            f"softcap={cap}, {route} route): kernel {k_ms:.3f} ms "
-            f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound); plain "
+            f"softcap={cap}, {route} route): kernel {k_ms:.3f} / {k2_ms:.3f} ms "
+            f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound, "
+            f"{100 * b_ms / f_ms:.2f} % for flex_attention); the scalar kernel it replaced "
+            f"{b1_ms:.3f} / {b2_ms:.3f} ms (before / after; "
+            f"{min(b1_ms, b2_ms) / max(k_ms, k2_ms):.1f}x the wgmma route's time; row rel L2 "
+            f"between them {base_row:.3e}); the kernel without the softcap {nc_ms:.3f} ms; plain "
             f"{p_ms:.3f} ms; flex_attention (compiled, softcap score_mod, block mask) "
-            f"{f_ms:.3f} ms; scaled_dot_product_attention on the same mask without the softcap "
-            f"(yardstick, not the same function) {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
-            f"{flops:.3e} flop, {nbytes:.3e} B)")
+            f"{f_ms:.3f} ms ({f_ms / k_ms:.2f}x the kernel's time); scaled_dot_product_attention "
+            f"on the same mask without the softcap (yardstick, not the same function) "
+            f"{l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
         kern_res[kind] = dict(max_abs_err=errs["random"][0], row_rel=errs["random"][1],
-                              edge_max_abs_err=errs["edge"][0], ms=k_ms, plain_ms=p_ms,
+                              edge_max_abs_err=errs["edge"][0], ms=k_ms, ms2=k2_ms,
+                              baseline_ms=[b1_ms, b2_ms], baseline_row_rel=base_row,
+                              no_softcap_ms=nc_ms, plain_ms=p_ms,
                               library_ms=f_ms, library_max_abs_err=lib_err,
                               sdpa_no_softcap_ms=l_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
     del q, k, v
@@ -1438,10 +1470,11 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
 
 def families_training_phase(dev, peaks, results: dict) -> dict:
     """Training gemma2 and qwen2-moe at full width (ROADMAP items 13.2,
-    13.3): the backward kernels at hd 256 (the 'scalar' route) against
+    13.3): the backward kernels at hd 256 (the 'wgmma' route) against
     autograd through the plain version at the gemma2 path's shapes (1 x
-    8192, window 4096 and 0, softcap 50), timed beside the plain version and
-    an SDPA yardstick, before training allocates its state; then
+    8192, window 4096 and 0, softcap 50), timed beside the scalar kernels
+    they replaced, the plain version, autograd through flex_attention and an
+    SDPA yardstick, before training allocates its state; then
     ``launch.train.main`` for FAMILY_TRAIN_STEPS steps on each. Returns the
     launch counts of the two training runs, by model."""
     import dataclasses
@@ -1449,8 +1482,9 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_plain, flash_bwd_route)
+    from repro_torch.kernels.flash_attention import (_bwd_launch, flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_cuda, flash_bwd_route)
     from repro_torch.launch import train as ttrain
     from repro_torch.models.model import TransformerLM
 
@@ -1458,11 +1492,16 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
     b, h, hkv, s, hd, cap = (G2_TRAIN_BATCH, g2.n_heads, g2.n_kv_heads, G2_TRAIN_SEQ, g2.head_dim,
                              g2.attn_softcap)
     route = flash_bwd_route(torch.bfloat16, hd)
-    check(route == "scalar", f"gemma2 training: the backward's route at hd {hd} is {route!r}")
+    check(route == "wgmma", f"gemma2 training: the backward's route at hd {hd} is {route!r}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 31)
     mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
 
-    # 61. The backward kernels at the gemma2 training shapes.
+    # 61. The backward kernels at the gemma2 training shapes: held against
+    # autograd through the plain version, then timed from the forward's
+    # statistics (as training calls them) beside the scalar kernels they
+    # replaced (the 'scalar' route, uncounted, first held against them:
+    # baseline, kernel, kernel, baseline), the plain version, the library's
+    # backward and the SDPA yardstick.
     q, k, v, do = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd), mk(b, h, s, hd)
     bwd_res = {}
     for kind, window in (("global", 0), ("local", g2.sliding_window)):
@@ -1480,7 +1519,24 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
               f"flash_bwd gemma2 {kind}: kernel vs plain autograd {res}")
         del got, want
         torch.cuda.empty_cache()
-        k_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, **kw), reps=3)
+        _, stats = flash_attention_cuda(q, k, v, return_stats=True, **kw)
+        kern = lambda: flash_attention_bwd_cuda(q, k, v, do, stats=stats, **kw)
+        base = lambda: _bwd_launch("scalar", q, k, v, do, True, window, cap)
+        base_res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), kern(), base())}
+        log(f"flash_bwd gemma2 {kind}: wgmma route vs the scalar kernels: " + "; ".join(
+            f"{n} {r['scaled_err']:.2e} of the largest, rows {r['row_rel']:.2e}"
+            for n, r in base_res.items()))
+        check(all(r["ok"] for r in base_res.values()),
+              f"flash_bwd gemma2 {kind}: wgmma vs the scalar baseline {base_res}")
+        torch.cuda.empty_cache()
+        b1_ms, k_ms, k2_ms, b2_ms = timed_against_baseline(f"flash_bwd gemma2 {kind}", kern,
+                                                            base)
+        # The kernels without the softcap (not the path's function), from
+        # their own forward's statistics: what the accurate tanhf costs.
+        _, stats = flash_attention_cuda(q, k, v, return_stats=True, causal=True, window=window)
+        nc_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, stats=stats, causal=True,
+                                                         window=window), reps=3)
+        del stats
         p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do, **kw), reps=3)
         torch.cuda.empty_cache()
         # The library's backward: autograd through flex_attention (the
@@ -1515,16 +1571,22 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
         flops, nbytes = flash_bwd_work(b, h, hkv, s, hd, 2, window)
         b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
         log(f"flash_bwd time gemma2 {kind} (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} "
-            f"window={window} softcap={cap}, {route} route): kernel {k_ms:.3f} ms "
-            f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound); plain "
-            f"(autograd through flash_attention_plain) {p_ms:.3f} ms; the backward of "
-            f"flex_attention (compiled, softcap score_mod, block mask) {f_ms:.3f} ms; the "
-            f"backward of scaled_dot_product_attention on the same mask without the softcap "
-            f"(yardstick, not the same function) {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; "
-            f"{flops:.3e} flop, {nbytes:.3e} B)")
+            f"window={window} softcap={cap}, {route} route, from the forward's statistics): "
+            f"kernel {k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, "
+            f"{100 * b_ms / k_ms:.2f} % of the bound, {100 * b_ms / f_ms:.2f} % for "
+            f"flex_attention); the scalar kernels they replaced {b1_ms:.3f} / {b2_ms:.3f} ms "
+            f"(before / after; {min(b1_ms, b2_ms) / max(k_ms, k2_ms):.1f}x the wgmma route's "
+            f"time); the kernels without the softcap {nc_ms:.3f} ms; plain (autograd through "
+            f"flash_attention_plain) {p_ms:.3f} ms; the backward "
+            f"of flex_attention (compiled, softcap score_mod, block mask) {f_ms:.3f} ms "
+            f"({f_ms / k_ms:.2f}x the kernel's time); the backward of "
+            f"scaled_dot_product_attention on the same mask without the softcap (yardstick, not "
+            f"the same function) {l_ms:.3f} ms; bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, "
+            f"{nbytes:.3e} B)")
         bwd_res[kind] = dict(max_abs_err=max(r["max_abs_err"] for r in res.values()),
                              scaled_err=max(r["scaled_err"] for r in res.values()),
-                             row_rel=max(r["row_rel"] for r in res.values()), ms=k_ms,
+                             row_rel=max(r["row_rel"] for r in res.values()), ms=k_ms, ms2=k2_ms,
+                             baseline_ms=[b1_ms, b2_ms], no_softcap_ms=nc_ms,
                              plain_ms=p_ms, library_ms=f_ms, sdpa_no_softcap_ms=l_ms,
                              bound_ms=b_ms, bound_by=b_by)
     del q, k, v, do
@@ -3583,7 +3645,7 @@ def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, i
 
 
 FLASH_ROUTE_OF = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
-                  "flash_attention_hd256": "scalar_bf16", "flash_attention_bwd_hd256": "scalar"}
+                  "flash_attention_hd256": "wgmma", "flash_attention_bwd_hd256": "wgmma"}
 
 
 def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launches: dict,
@@ -3591,14 +3653,15 @@ def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launch
     """The flash entries' launches, each of its own route: the hd-128
     entries ('wgmma' forward and backward) count the internlm2 and
     qwen2-moe paths' (``lm_launches`` plus the qwen2-moe serving and
-    training runs'), the hd-256 entries ('scalar_bf16' forward, 'scalar'
-    backward) the gemma2 paths' (each phase holds its path's route, and
+    training runs'), the hd-256 entries ('wgmma' forward and backward, the
+    256-thread kernels) the gemma2 paths' (each phase holds its path's route, and
     every flash launch of a path is at its model's head_dim; the same
     wrappers count both, as LAUNCHES["flash_attention"] and
     ["flash_attention_bwd"]). Also fills ``results`` for the hd-256
     entries: times at the gemma2 path's global shapes, the local window's
-    beside them, the library call (``flex_library``) and SDPA without the
-    softcap as a yardstick. Returns (hd-128 counts, hd-256 counts)."""
+    beside them, the scalar kernels they replaced (``baseline_ms``), the
+    library call (``flex_library``) and SDPA without the softcap as a
+    yardstick. Returns (hd-128 counts, hd-256 counts)."""
     lm_launches = dict(lm_launches)
     for counts in (moe_launches, fam_launches[MOE_ARCH]):
         for k, v in counts.items():
@@ -3608,9 +3671,9 @@ def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launch
              + fam_launches[G2_ARCH]["flash_attention"],
              "flash_attention_bwd_hd256": fam_launches[G2_ARCH]["flash_attention_bwd"]}
     log(f"flash launches by route: 'wgmma' forward {lm_launches['flash_attention']}, backward "
-        f"{lm_launches['flash_attention_bwd']} (internlm2 and qwen2-moe); 'scalar_bf16' forward "
-        f"{hd256['flash_attention_hd256']}, 'scalar' backward "
-        f"{hd256['flash_attention_bwd_hd256']} (gemma2)")
+        f"{lm_launches['flash_attention_bwd']} (internlm2 and qwen2-moe, hd 128); 'wgmma' "
+        f"forward {hd256['flash_attention_hd256']}, backward "
+        f"{hd256['flash_attention_bwd_hd256']} (gemma2, hd 256)")
     check(hd256["flash_attention_hd256"] > 0 and hd256["flash_attention_bwd_hd256"] > 0,
           "the hd-256 routes were not launched on the gemma2 paths")
     for kname, kr in (("flash_attention_hd256", g2k), ("flash_attention_bwd_hd256", g2b)):
@@ -3619,6 +3682,8 @@ def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launch
                               bound_ms=kr["global"]["bound_ms"],
                               bound_by=kr["global"]["bound_by"],
                               library_ms=kr["global"]["library_ms"],
+                              baseline_ms=kr["global"]["baseline_ms"],
+                              local_baseline_ms=kr["local"]["baseline_ms"],
                               local_ms=kr["local"]["ms"], local_plain_ms=kr["local"]["plain_ms"],
                               local_bound_ms=kr["local"]["bound_ms"],
                               local_library_ms=kr["local"]["library_ms"],
@@ -3635,7 +3700,8 @@ def kernel_entry(kname: str, src: str, replaces: str, launches: int, r: dict) ->
             "fill_ms": r.get("fill_ms"), "rank_launches": r.get("rank_launches"),
             **({"flash_route": FLASH_ROUTE_OF[kname]} if kname in FLASH_ROUTE_OF else {}),
             **{key: r[key] for key in ("local_ms", "local_plain_ms", "local_bound_ms",
-                                       "local_library_ms", "sdpa_no_softcap_ms") if key in r}}
+                                       "local_library_ms", "local_baseline_ms",
+                                       "sdpa_no_softcap_ms") if key in r}}
 
 
 def main() -> int:
@@ -4367,7 +4433,7 @@ def main() -> int:
              "differentiates the XLA route)", lm_launches),
             ("flash_attention_hd256", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:92", hd256),
-            ("flash_attention_bwd_hd256", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            ("flash_attention_bwd_hd256", "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
              "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
              "differentiates the XLA route)", hd256),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",

@@ -19,14 +19,18 @@
 // padded. Any strides over (B, H, S) with hd contiguous, so the model's
 // (B, S, H, hd) projections go in without a transpose.
 //
-// Three kernels compute it. The route, by dtype and head_dim (chosen in
+// Four kernels compute it. The route, by dtype and head_dim (chosen in
 // kernels/flash_attention.py, `flash_route`):
 //
-//   dtype  head_dim     kernel                     entry point
-//   bf16   64, 128      flash_fwd_wgmma_kernel     flash_attention_wgmma_bf16
-//   bf16   32, 80       flash_fwd_mma_kernel       flash_attention_mma_bf16
-//   bf16   256          flash_fwd_kernel (scalar)  flash_attention_scalar_bf16
-//   f32    every        flash_fwd_kernel (scalar)  flash_attention_f32
+//   dtype  head_dim     kernel                       entry point
+//   bf16   64, 128      flash_fwd_wgmma_kernel       flash_attention_wgmma_bf16
+//   bf16   256          flash_fwd_wgmma256_kernel    flash_attention_wgmma_bf16
+//   bf16   32, 80       flash_fwd_mma_kernel         flash_attention_mma_bf16
+//   f32    every        flash_fwd_kernel (scalar)    flash_attention_f32
+//
+// (`flash_attention_scalar_bf16`, the scalar kernel on bf16, served hd 256
+// until the wgmma kernel did; it stays callable at every head_dim for a
+// side-by-side timing.)
 //
 // * `flash_fwd_wgmma_kernel` (bf16, hd 64 and 128: internlm2-1.8b,
 //   minitron-4b, mistral-large, chameleon-34b at 128, musicgen-large at 64):
@@ -57,6 +61,17 @@
 //   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPointByVersion,
 //   so the library links no -lcuda. The building blocks it shares with the
 //   backward (barriers, TMA, descriptors, wgmma) are in csrc/flash_hopper.cuh.
+// * `flash_fwd_wgmma256_kernel` (bf16, hd 256: gemma2-9b): the same
+//   function and bound, every product on `wgmma` and every tile on TMA, in
+//   a 256-thread CTA of two warpgroups (64 query rows each; thread 0 issues
+//   the copies) with 64-key K and V tiles in a two-stage ring, because at
+//   hd 256 the output alone takes 128 registers a thread and Q 64 KB of
+//   shared memory (see the comment above the kernel). Both instantiations
+//   (with and without `stats`) as above. -Xptxas=-v (CUDA 12.8, sm_90a):
+//   191 registers (193 with the statistics), 0 bytes of spills, no
+//   serialised wgmma; dynamic shared memory 197,704 B (Q 64 KB, two stages
+//   of K and V at 32 KB each, the barriers, 1 KB for alignment): one CTA
+//   per SM.
 // * `flash_fwd_mma_kernel` (bf16, hd 32 and 80; also callable at 64 and 128
 //   as the earlier design, for a side-by-side timing): on the tensor cores
 //   through `mma.sync` m16n8k16 (bf16 operands, f32 accumulation). One CTA
@@ -67,7 +82,7 @@
 //   registers, the 4 lanes of a row reduce its max and sum with shuffles,
 //   and P goes back into the tensor cores as bf16 A fragments without
 //   touching shared memory (the FlashAttention-2 register layout).
-// * `flash_fwd_kernel` (f32 at every hd, and bf16 at hd = 256): scalar f32
+// * `flash_fwd_kernel` (f32 at every hd; bf16 only as the baseline): scalar f32
 //   FMAs on the CUDA cores (bf16 inputs are widened when staged), so P . V
 //   takes P in f32 as the reference does. One CTA of 128 threads per
 //   (b * h, BQ query rows); Q (pre-scaled by hd^-0.5, transposed) stays in
@@ -77,7 +92,7 @@
 //   reduce with shuffles, and P goes through shared memory; exp is the
 //   accurate expf. Bound: the CUDA cores' f32 rate (67 TFLOP/s peak).
 //
-// Numerics of the two bf16 tensor-core kernels: Q K^T is exact products
+// Numerics of the bf16 tensor-core kernels: Q K^T is exact products
 // summed in f32, then scaled by hd^-0.5 in f32 (the reference scales q
 // first; the two differ by f32 rounding); P is rounded to bf16 before
 // P . V, where the reference multiplies f32 P by V widened to f32: about
@@ -87,7 +102,7 @@
 // on them directly). Only tiles that cross the causal diagonal, the
 // window's edge or the last key are masked.
 //
-// tanh is the accurate tanhf in all three. For the causal mask and the
+// tanh is the accurate tanhf in all of them. For the causal mask and the
 // window, KV tiles that no row of the CTA may see are skipped, unless some
 // row of the CTA has no allowed key at all (then every tile counts, as in
 // the reference).
@@ -602,6 +617,114 @@ struct WgSmem {
   static constexpr int kBytes = kBar + 8 * (1 + 3 * kWgStages) + 1024;  // + 1024: base alignment
 };
 
+// Whether no score of a warpgroup's tile (its 64 query rows from wq0, KEYS
+// keys from k0) needs the mask: the tile lies inside the causal band and
+// the window and before the last key, and no row of the CTA lacks an
+// allowed key (needs_all; see kv_tile_range).
+template <int KEYS>
+__device__ __forceinline__ bool tile_inside(bool needs_all, int k0, int wq0, int T_len, int causal,
+                                            int window) {
+  return !needs_all && k0 + KEYS <= T_len && (!causal || k0 + KEYS - 1 <= wq0) &&
+         (window <= 0 || wq0 + 63 - k0 < window);
+}
+
+// The online softmax of one wgmma score tile of SB 8-key blocks (the
+// accumulator layout of m64n{8 SB}: rows row0 and row0 + 8, keys k0 + 8 j +
+// 2 t4 + {0, 1}). Scale and softcap the scores, mask them (only where the
+// tile crosses the causal diagonal, the window's edge or the last key, or
+// where some row of the CTA has no allowed key: !inside), then update the
+// running max m and normaliser l of both rows, with the scores, the running
+// max and the masks in log2 units (s * log2(e)), so that each weight is one
+// ex2.approx: exp(s - m) stays in sacc; corr gets the factors that rescale
+// O. The softcap's tanh applies to the natural-unit score, log2(e) after it.
+template <int SB>
+__device__ __forceinline__ void online_softmax(float* sacc, float* m, float* l, float* corr,
+                                               int row0, int k0, int t4, bool inside, int T_len,
+                                               int causal, int window, float softcap,
+                                               float scale) {
+  if (softcap > 0.f) {
+#pragma unroll
+    for (int e = 0; e < SB * 4; ++e) sacc[e] = softcap * tanhf(sacc[e] * scale / softcap) * kLog2e;
+  } else {
+    const float sl2 = scale * kLog2e;
+#pragma unroll
+    for (int e = 0; e < SB * 4; ++e) sacc[e] *= sl2;
+  }
+  if (!inside) {
+#pragma unroll
+    for (int j = 0; j < SB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sacc[4 * j + e] = mask_score(sacc[4 * j + e], row0 + (e / 2) * 8,
+                                     k0 + j * 8 + t4 * 2 + (e % 2), T_len, causal, window);
+  }
+  float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < SB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sacc[4 * j + e]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    corr[r] = ex2_approx(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int j = 0; j < SB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2_approx(sacc[4 * j + e] - m[e / 2]);
+      sacc[4 * j + e] = p;
+      sum[e / 2] += p;
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = l[r] * corr[r] + sum[r];
+  }
+}
+
+// O *= corr on an accumulator of OB 8-column blocks (rows row0, row0 + 8).
+template <int OB>
+__device__ __forceinline__ void rescale(float* oacc, const float* corr) {
+#pragma unroll
+  for (int j = 0; j < OB; ++j) {
+    oacc[4 * j] *= corr[0];
+    oacc[4 * j + 1] *= corr[0];
+    oacc[4 * j + 2] *= corr[1];
+    oacc[4 * j + 3] *= corr[1];
+  }
+}
+
+// The epilogue of a wgmma forward: O / l as bf16 (rows row0, row0 + 8 of
+// OB 8-column blocks), and with STATS each row's m and 1 / l (see the
+// header): the 4 lanes of a row hold the same m and l, the first one writes
+// them.
+template <int OB, bool STATS>
+__device__ __forceinline__ void store_rows(const float* oacc, const float* m, const float* l,
+                                           __nv_bfloat16* ob, float* stats, long long os_s,
+                                           int row0, int t4, int S, int bh, int n_bh) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= S) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    __nv_bfloat16* orow = ob + (long long)row * os_s + t4 * 2;
+#pragma unroll
+    for (int j = 0; j < OB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
+    if (STATS && t4 == 0) {
+      const long long at = (long long)bh * stats_rows(S) + row;
+      stats[at] = m[r];
+      stats[(long long)n_bh * stats_rows(S) + at] = inv;
+    }
+  }
+}
+
 template <int HD, bool STATS>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
@@ -715,80 +838,6 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       }
       wg_commit();
     };
-    // Scale, softcap and mask the scores of the tile at key k0 (the mask
-    // only where the tile crosses the causal diagonal, the window's edge or
-    // the last key, or where some row of the CTA has no allowed key), then
-    // the online softmax on rows g and g + 8 of each warp's 16, with the
-    // scores, the running max and the masks in log2 units (s * log2(e)), so
-    // that each weight is one ex2.approx: exp(s - m) stays in sacc; returns
-    // the factors that rescale O and l.
-    auto softmax = [&](int k0, float* corr) {
-      if (softcap > 0.f) {
-#pragma unroll
-        for (int e = 0; e < SB * 4; ++e)
-          sacc[e] = softcap * tanhf(sacc[e] * scale / softcap) * kLog2e;
-      } else {
-        const float sl2 = scale * kLog2e;
-#pragma unroll
-        for (int e = 0; e < SB * 4; ++e) sacc[e] *= sl2;
-      }
-      const bool inside = !needs_all && k0 + kWgKeys <= T_len &&
-                          (!causal || k0 + kWgKeys - 1 <= wq0) &&
-                          (window <= 0 || wq0 + 63 - k0 < window);
-      if (!inside) {
-#pragma unroll
-        for (int j = 0; j < SB; ++j)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            sacc[4 * j + e] = mask_score(sacc[4 * j + e], row0 + (e / 2) * 8,
-                                         k0 + j * 8 + t4 * 2 + (e % 2), T_len, causal, window);
-      }
-      float mx[2] = {kNeg, kNeg}, sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < SB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) mx[e / 2] = fmaxf(mx[e / 2], sacc[4 * j + e]);
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        corr[r] = ex2_approx(m[r] - m_new);
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int j = 0; j < SB; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = ex2_approx(sacc[4 * j + e] - m[e / 2]);
-          sacc[4 * j + e] = p;
-          sum[e / 2] += p;
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        l[r] = l[r] * corr[r] + sum[r];
-      }
-    };
-    // O *= corr, then P as bf16 A fragments: accumulator blocks 2kk and
-    // 2kk + 1 are the 16 keys of k-step kk.
-    auto rescale_and_pack = [&](const float* corr) {
-#pragma unroll
-      for (int j = 0; j < OB; ++j) {
-        oacc[4 * j] *= corr[0];
-        oacc[4 * j + 1] *= corr[0];
-        oacc[4 * j + 2] *= corr[1];
-        oacc[4 * j + 3] *= corr[1];
-      }
-#pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-        pa[kk][0] = pack_bf16(sacc[8 * kk], sacc[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(sacc[8 * kk + 2], sacc[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(sacc[8 * kk + 4], sacc[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(sacc[8 * kk + 6], sacc[8 * kk + 7]);
-      }
-    };
 
     // The two consumer warpgroups take turns to issue S = Q K^T (named
     // barriers 1 and 2, 256 threads: one warpgroup waits, the other
@@ -806,8 +855,12 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       if (wg == 0 || i + 1 < n_tiles) named_arrive(2 - wg, 256);
       wg_wait<0>();
       fence_regs<SB * 4>(sacc);
-      softmax((kt_begin + i) * kWgKeys, corr);
-      rescale_and_pack(corr);
+      const int k0 = (kt_begin + i) * kWgKeys;
+      online_softmax<SB>(sacc, m, l, corr, row0, k0, t4,
+                         tile_inside<kWgKeys>(needs_all, k0, wq0, T_len, causal, window), T_len,
+                         causal, window, softcap, scale);
+      rescale<OB>(oacc, corr);    // O *= corr
+      pack_frags<kWgKeys>(sacc, pa);  // P as bf16 A fragments
       mbar_wait(v_full(st), par);
       issue_pv(st);
       wg_wait<0>();
@@ -815,54 +868,230 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       if (lane == 0) mbar_arrive(empty(st));  // this warp is done with the stage
     }
 
-    __nv_bfloat16* ob = o + b * os.b + h * os.h;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row0 + 8 * r;
-      if (row >= S) continue;
-      const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = ob + (long long)row * os.s + t4 * 2;
-#pragma unroll
-      for (int j = 0; j < OB; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
-            __floats2bfloat162_rn(oacc[4 * j + 2 * r] * inv, oacc[4 * j + 2 * r + 1] * inv);
-      // The row statistics for the backward (see the header): the 4 lanes
-      // of a row hold the same m and l, the first one writes them.
-      if (STATS && t4 == 0) {
-        const long long at = (long long)bh * stats_rows(S) + row;
-        stats[at] = m[r];
-        stats[(long long)gridDim.y * stats_rows(S) + at] = inv;
-      }
-    }
+    store_rows<OB, STATS>(oacc, m, l, o + b * os.b + h * os.h, stats, os.s, row0, t4, S, bh,
+                          gridDim.y);
   }
 }
 
+// ------------------------------------------------ bf16, wgmma, hd 256 ----
+//
+// `flash_fwd_wgmma256_kernel`: one CTA of two warpgroups (256 threads) per
+// (b * h, 128 query rows), 64 rows per warpgroup, as the hd-128 kernel's
+// consumers; thread 0 also issues every copy, as in the backward's kernels.
+// The hd-128 kernel's shape does not carry over. Registers: O alone is
+// 64 x 256 f32 over 128 threads = 128 a thread, a 64-key score tile adds
+// 32 and its bf16 P fragments 16, above the 168 that ptxas allots a thread
+// of a 288- or 384-thread CTA; at 256 threads a thread may hold 255.
+// Shared memory: Q is 64 KB (four 128-byte swizzled boxes of 128 rows x 64
+// columns), a 64-key tile of K or V 32 KB, so the ring holds two stages of
+// K and V (128 KB). Per tile a warpgroup computes S = Q K^T with 16 `wgmma`
+// m64n64k16 (A = Q, B = K, both K-major from shared memory), runs the
+// online softmax on its registers, and accumulates O += P V with 4 k-steps
+// of two m64n128k16 on the halves of O (A = P from registers as bf16, B =
+// V MN-major). K and V have barriers of their own: a stage's K is released
+// when both warpgroups' S products are done with it, its V when their P V
+// products are, and thread 0 refills the K of tile i + 1 while tile i's S
+// products run and its V after its own softmax. The two warpgroups take
+// turns to issue their S products (named barriers), as in the hd-128
+// kernel. Rows past S and keys past T are zero-filled by TMA; keys past T
+// still get the -inf mask.
+
+constexpr int kW2Threads = 256;            // two warpgroups; thread 0 also issues the copies
+constexpr int kW2Keys = 64;                // keys per K/V tile
+constexpr int kW2Stages = 2;               // K/V ring depth
+constexpr int kW2QSlab = kWgRows * 128;    // one box of the 128-row Q tile: 16 KB
+constexpr int kW2KSlab = kW2Keys * 128;    // one box of a 64-key tile: 8 KB
+
+// Shared memory, in bytes from a 1024-byte aligned base: Q (64 KB), K[2],
+// V[2] (32 KB each), then the barriers (q_full, k_full[2], v_full[2],
+// k_empty[2], v_empty[2]): 192 KB + 1 KB of the 227 KB.
+struct W2Smem {
+  static constexpr int kQ = 0;
+  static constexpr int kTile = (256 / kSlab) * kW2KSlab;  // a K or V tile
+  static constexpr int kK = (256 / kSlab) * kW2QSlab;
+  static constexpr int kV = kK + kW2Stages * kTile;
+  static constexpr int kBar = kV + kW2Stages * kTile;
+  static constexpr int kBytes = kBar + 8 * (1 + 4 * kW2Stages) + 1024;  // + 1024: base alignment
+};
+
+template <bool STATS>
+__global__ void __launch_bounds__(kW2Threads, 1)
+flash_fwd_wgmma256_kernel(const __grid_constant__ CUtensorMap tmq,
+                          const __grid_constant__ CUtensorMap tmk,
+                          const __grid_constant__ CUtensorMap tmv, __nv_bfloat16* __restrict__ o,
+                          float* __restrict__ stats, int H, int Hkv, int S, int T_len, Strides os,
+                          int causal, int window, float softcap, float scale) {
+  using L = W2Smem;
+  constexpr int HD = 256;
+  constexpr int NSLAB = HD / kSlab;
+  constexpr int SB = kW2Keys / 8;  // 8-key blocks of a score tile
+  constexpr int OB = HD / 8;       // 8-column blocks of the output
+
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base + L::kQ;
+  auto sK = [&](int st) { return base + L::kK + st * L::kTile; };
+  auto sV = [&](int st) { return base + L::kV + st * L::kTile; };
+  const uint32_t q_full = base + L::kBar;
+  auto k_full = [&](int st) { return q_full + 8 * (1 + st); };
+  auto v_full = [&](int st) { return q_full + 8 * (1 + kW2Stages + st); };
+  auto k_empty = [&](int st) { return q_full + 8 * (1 + 2 * kW2Stages + st); };
+  auto v_empty = [&](int st) { return q_full + 8 * (1 + 3 * kW2Stages + st); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int hk = h / (H / Hkv);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kWgRows;
+  int kt_begin, kt_end;
+  const bool needs_all =
+      kv_tile_range(q0, kWgRows, kW2Keys, S, T_len, causal, window, kt_begin, kt_end);
+  const int n_tiles = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kW2Stages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), 8);  // the CTA's 8 warps
+      mbar_init(v_empty(st), 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Thread 0's copies of K and V of tile i into stage i % kW2Stages.
+  auto load_k = [&](int i) {
+    const int st = i % kW2Stages, k0 = (kt_begin + i) * kW2Keys;
+    mbar_expect_tx(k_full(st), L::kTile);
+    for (int s = 0; s < NSLAB; ++s)
+      tma_load_4d(sK(st) + s * kW2KSlab, &tmk, k_full(st), s * kSlab, k0, hk, b);
+  };
+  auto load_v = [&](int i) {
+    const int st = i % kW2Stages, k0 = (kt_begin + i) * kW2Keys;
+    mbar_expect_tx(v_full(st), L::kTile);
+    for (int s = 0; s < NSLAB; ++s)
+      tma_load_4d(sV(st) + s * kW2KSlab, &tmv, v_full(st), s * kSlab, k0, hk, b);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, NSLAB * kW2QSlab);
+    for (int s = 0; s < NSLAB; ++s)
+      tma_load_4d(sQ + s * kW2QSlab, &tmq, q_full, s * kSlab, q0, h, b);
+    for (int i = 0; i < min(kW2Stages, n_tiles); ++i) {
+      load_k(i);
+      load_v(i);
+    }
+  }
+
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int wq0 = q0 + 64 * wg;  // the warpgroup's first query row
+  const int row0 = wq0 + warp * 16 + g;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, corr[2];
+  float oacc[OB * 4];
+#pragma unroll
+  for (int j = 0; j < OB * 4; ++j) oacc[j] = 0.f;
+  float sacc[SB * 4];
+  uint32_t pa[kW2Keys / 16][4];
+
+  // The two warpgroups take turns to issue S = Q K^T (named barriers 1 and
+  // 2, as in the hd-128 kernel); warpgroup 0 goes first.
+  if (wg == 1) named_arrive(1, 256);
+  mbar_wait(q_full, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kW2Stages;
+    const uint32_t par = (i / kW2Stages) & 1;
+    // Tile i - 1 + kW2Stages goes into the stage of tile i - 1.
+    const int next = i - 1 + kW2Stages;
+    const bool refill = threadIdx.x == 0 && i >= 1 && next < n_tiles;
+    const uint32_t used = ((i - 1) / kW2Stages) & 1;
+
+    mbar_wait(k_full(st), par);
+    named_sync(1 + wg, 256);
+    {
+      uint32_t qa = sQ + wg * 64 * 128, ka = sK(st);
+      asm volatile("" : "+r"(qa), "+r"(ka));
+      fence_regs<SB * 4>(sacc);
+      wg_fence();
+      issue_nt<HD, kW2Keys, kW2QSlab, kW2KSlab>(sacc, qa, ka);
+      wg_commit();
+    }
+    if (wg == 0 || i + 1 < n_tiles) named_arrive(2 - wg, 256);
+    if (refill) {
+      mbar_wait(k_empty(next % kW2Stages), used);
+      load_k(next);
+    }
+    wg_wait<0>();
+    fence_regs<SB * 4>(sacc);
+    if (lane == 0) mbar_arrive(k_empty(st));  // this warp is done with the stage's K
+
+    const int k0 = (kt_begin + i) * kW2Keys;
+    online_softmax<SB>(sacc, m, l, corr, row0, k0, t4,
+                       tile_inside<kW2Keys>(needs_all, k0, wq0, T_len, causal, window), T_len,
+                       causal, window, softcap, scale);
+    rescale<OB>(oacc, corr);
+    pack_frags<kW2Keys>(sacc, pa);
+    if (refill) {
+      mbar_wait(v_empty(next % kW2Stages), used);
+      load_v(next);
+    }
+
+    mbar_wait(v_full(st), par);
+    {
+      uint32_t va = sV(st);
+      asm volatile("" : "+r"(va));
+      fence_regs<OB * 4>(oacc);
+      fence_regs<kW2Keys / 4>(&pa[0][0]);
+      wg_fence();
+      issue_nn<HD, kW2Keys / 16, kW2KSlab>(oacc, pa, va);
+      wg_commit();
+    }
+    wg_wait<0>();
+    fence_regs<OB * 4>(oacc);
+    if (lane == 0) mbar_arrive(v_empty(st));  // this warp is done with the stage's V
+  }
+
+  store_rows<OB, STATS>(oacc, m, l, o + b * os.b + h * os.h, stats, os.s, row0, t4, S, bh,
+                        gridDim.y);
+}
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* stats, int B, int H,
                  int Hkv, int S, int T_len, Strides qs, Strides ks, Strides vs, Strides os, int causal,
                  int window, float softcap, float scale, void* stream) {
+  constexpr bool kWide = HD == 256;  // the 256-thread kernel and its 64-key tiles
+  constexpr int keys = kWide ? kW2Keys : kWgKeys;
   const EncodeTiledFn enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tmq, tmk, tmv;
   if (!make_map(enc, &tmq, q, HD, S, H, B, qs, kWgRows) ||
-      !make_map(enc, &tmk, k, HD, T_len, Hkv, B, ks, kWgKeys) ||
-      !make_map(enc, &tmv, v, HD, T_len, Hkv, B, vs, kWgKeys))
+      !make_map(enc, &tmk, k, HD, T_len, Hkv, B, ks, keys) ||
+      !make_map(enc, &tmv, v, HD, T_len, Hkv, B, vs, keys))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = WgSmem<HD>::kBytes;
-  // The statistics are a template parameter, so that the prefill's kernel
-  // (no statistics) is the same code as before they were added.
-  auto kernel = stats != nullptr ? flash_fwd_wgmma_kernel<HD, true>
-                                 : flash_fwd_wgmma_kernel<HD, false>;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
   const int n_q = (S + kWgRows - 1) / kWgRows;
   if (B * H > 65535) return (int)cudaErrorInvalidConfiguration;
   const dim3 grid(n_q, B * H);
-  kernel<<<grid, kWgThreads, smem, (cudaStream_t)stream>>>(
-      tmq, tmk, tmv, (__nv_bfloat16*)o, (float*)stats, H, Hkv, S, T_len, os, causal, window,
-      softcap, scale);
+  const cudaStream_t cs = (cudaStream_t)stream;
+  // The statistics are a template parameter, so that the prefill's kernel
+  // (no statistics) is the same code as before they were added.
+  cudaError_t e;
+  if constexpr (kWide) {
+    auto kernel = stats != nullptr ? flash_fwd_wgmma256_kernel<true>
+                                   : flash_fwd_wgmma256_kernel<false>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W2Smem::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, kW2Threads, W2Smem::kBytes, cs>>>(tmq, tmk, tmv, (__nv_bfloat16*)o,
+                                                     (float*)stats, H, Hkv, S, T_len, os, causal,
+                                                     window, softcap, scale);
+  } else {
+    auto kernel = stats != nullptr ? flash_fwd_wgmma_kernel<HD, true>
+                                   : flash_fwd_wgmma_kernel<HD, false>;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             WgSmem<HD>::kBytes);
+    if (e != cudaSuccess) return (int)e;
+    kernel<<<grid, kWgThreads, WgSmem<HD>::kBytes, cs>>>(tmq, tmk, tmv, (__nv_bfloat16*)o,
+                                                         (float*)stats, H, Hkv, S, T_len, os,
+                                                         causal, window, softcap, scale);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -939,7 +1168,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, vo
                          scale, stream);
 }
 
-// bf16 at hd in {64, 128}: the warp-specialised wgmma + TMA kernel.
+// bf16 at hd in {64, 128}: the warp-specialised wgmma + TMA kernel; at hd 256
+// the 256-thread wgmma + TMA kernel.
 int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, void* stats,
                                int B, int H, int Hkv, int S, int T_len, int hd, const long long* st,
                                int causal, int window, float softcap, float scale,
@@ -949,6 +1179,7 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
   switch (hd) {
     case 64: return launch_wgmma<64>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 256: return launch_wgmma<256>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -971,8 +1202,9 @@ int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* 
   }
 }
 
-// bf16 at any hd (the route at hd 256, whose fragments would not fit in
-// registers): the scalar kernel, bf16 widened to f32 when staged.
+// bf16 at any hd: the scalar kernel, bf16 widened to f32 when staged (the
+// route at hd 256 until the wgmma kernel; kept callable for a side-by-side
+// timing).
 int flash_attention_scalar_bf16(const void* q, const void* k, const void* v, void* o,
                                 void* stats, int B, int H, int Hkv, int S, int T_len, int hd,
                                 const long long* st, int causal, int window, float softcap,

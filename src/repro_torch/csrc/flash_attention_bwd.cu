@@ -1,6 +1,6 @@
 // Flash attention (backward) for Hopper (sm_90a), f32 and bf16: the
 // 'scalar' route of kernels/flash_attention.py: flash_bwd_route (f32 at
-// every head_dim, bf16 at 32, 80 and 256). bf16 at 64 and 128 takes the
+// every head_dim, bf16 at 32 and 80). bf16 at 64, 128 and 256 takes the
 // 'wgmma' route (csrc/flash_attention_bwd_wgmma.cu); these kernels stay
 // callable there (`_bwd_launch("scalar", ...)`) as its timed baseline.
 //

@@ -2,8 +2,11 @@
 // wgmma route (csrc/flash_attention.cu: the forward; csrc/
 // flash_attention_bwd_wgmma.cu: the backward): mbarriers, TMA loads (tiled
 // 4-D tensor maps and 1-D bulk copies), wgmma shared-memory descriptors for
-// the 128-byte swizzle, the wgmma instructions the kernels issue, and the
-// host-side tensor-map encoder. Included once by each translation unit.
+// the 128-byte swizzle, the wgmma instructions the kernels issue and the
+// products built from them (issue_nt: a . b^T with both operands in shared
+// memory; issue_nn: register fragments . an MN-major tile, up to N = 256),
+// and the host-side tensor-map encoder. Included once by each translation
+// unit.
 #pragma once
 
 #include <cuda.h>
@@ -140,6 +143,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (m64 x n128, f32) += a (64 x 16, K-major in shared memory) . b (16 x n128, MN-major in
+// shared memory).
+__device__ __forceinline__ void wgmma_ss_n128_mn(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d (m64 x n128, f32) += a (64 x 16 bf16, in registers) . b (16 x n128, MN-major in shared memory).
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
   asm volatile(
@@ -189,6 +214,72 @@ __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db,
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n32, f32) (+)= a (64 x 16, K-major in shared memory) . b (16 x n32, K-major).
+__device__ __forceinline__ void wgmma_ss_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// acc (64 x N, f32) = a . b^T over HD columns, both K-major in 128-byte
+// swizzled boxes of 64 columns: a is 64 rows of a tile whose boxes are
+// ASLAB bytes apart, b the N rows of a tile whose boxes are BSLAB bytes
+// apart. HD / 16 wgmma m64n{N}k16, not yet committed.
+template <int HD, int N, int ASLAB, int BSLAB>
+__device__ __forceinline__ void issue_nt(float* acc, uint32_t a, uint32_t b) {
+  static_assert(N == 32 || N == 64, "issue_nt: N is 32 or 64");
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t col = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(a + (kk / 4) * ASLAB + col, 16, 1024);
+    const uint64_t db = sw128_desc(b + (kk / 4) * BSLAB + col, 16, 1024);
+    if constexpr (N == 64) {
+      wgmma_ss_n64(acc, da, db, kk > 0);
+    } else {
+      wgmma_ss_n32(acc, da, db, kk > 0);
+    }
+  }
+}
+
+// acc (64 x N, f32) += a (64 x 16 KSTEPS bf16, fragments in registers) . b
+// (16 KSTEPS rows x N columns, MN-major, 128-byte swizzled boxes of 64
+// columns BSLAB bytes apart): KSTEPS wgmma m64n{N}k16 (at N = 256, two
+// m64n128k16 on the halves of acc and b), not yet committed.
+template <int N, int KSTEPS, int BSLAB>
+__device__ __forceinline__ void issue_nn(float* acc, const uint32_t (*a)[4], uint32_t b) {
+  static_assert(N == 64 || N == 128 || N == 256, "issue_nn: N is 64, 128 or 256");
+#pragma unroll
+  for (int kk = 0; kk < KSTEPS; ++kk) {
+    const uint64_t db = sw128_desc(b + kk * 16 * 128, BSLAB, 1024);
+    if constexpr (N == 256) {
+      wgmma_rs_n128(acc, a[kk], db);
+      wgmma_rs_n128(acc + 64, a[kk], sw128_desc(b + 2 * BSLAB + kk * 16 * 128, BSLAB, 1024));
+    } else if constexpr (N == 128) {
+      wgmma_rs_n128(acc, a[kk], db);
+    } else {
+      wgmma_rs_n64(acc, a[kk], db);
+    }
+  }
+}
+
+// A 64 x COLS f32 accumulator as bf16 A fragments: blocks 2kk and 2kk + 1
+// are the 16 columns of k-step kk.
+template <int COLS>
+__device__ __forceinline__ void pack_frags(const float* acc, uint32_t (*a)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < COLS / 16; ++kk) {
+    a[kk][0] = pack_bf16(acc[8 * kk], acc[8 * kk + 1]);
+    a[kk][1] = pack_bf16(acc[8 * kk + 2], acc[8 * kk + 3]);
+    a[kk][2] = pack_bf16(acc[8 * kk + 4], acc[8 * kk + 5]);
+    a[kk][3] = pack_bf16(acc[8 * kk + 6], acc[8 * kk + 7]);
+  }
 }
 
 // A 1-D bulk copy of `bytes` (a multiple of 16, both addresses 16-byte

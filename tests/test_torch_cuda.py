@@ -344,8 +344,8 @@ FLASH_ROW_TOL = 1e-2
 # (B, H, Hkv, S, T, hd, causal, window, softcap): the path's variants at a
 # reduced size, and the cases where the kernel must not skip a KV tile. bf16
 # at hd 64 and 128 reaches the wgmma kernel (128 query rows and 128-key
-# tiles per CTA), at hd 32 and 80 the mma.sync one, f32 and hd = 256 the
-# scalar one (``flash_route``).
+# tiles per CTA), at hd 256 the 256-thread wgmma kernel (64-key tiles), at
+# hd 32 and 80 the mma.sync one, f32 the scalar one (``flash_route``).
 FLASH_CASES = [
     (2, 4, 2, 256, 256, 128, True, 0, 0.0),     # the path: GQA, causal
     (1, 2, 1, 1000, 1000, 128, True, 0, 0.0),   # ragged S = T = 1000
@@ -1522,10 +1522,11 @@ def test_flash_function_launches_both_kernels(dev):
         assert grad_check(g, w)["ok"]
 
 
-# The backward's 'wgmma' route (bf16 at hd 64 and 128): GQA at n_rep 1, 2
-# and 4, S off the 64- and 128-row tiles, S < T and S > T without
-# causality, a window, a softcap, rows with no allowed key (causal and
-# not), a single row. (B, H, Hkv, S, T, causal, window, softcap.)
+# The backward's 'wgmma' route (bf16 at hd 64, 128 and 256): GQA at n_rep 1,
+# 2, 4 and 8, S off the 32-, 64- and 128-row tiles, S < T and S > T without
+# causality, a window, a softcap, both (gemma2's softcap at a window that
+# binds), rows with no allowed key (causal and not), a single row. (B, H,
+# Hkv, S, T, causal, window, softcap.)
 WGMMA_BWD_CASES = [
     (1, 4, 4, 200, 200, True, 0, 0.0),
     (2, 4, 2, 200, 200, True, 0, 0.0),
@@ -1538,10 +1539,13 @@ WGMMA_BWD_CASES = [
     (1, 4, 2, 260, 40, False, 16, 0.0),
     (1, 4, 2, 1, 1, True, 0, 0.0),
     (1, 4, 2, 1, 300, False, 0, 0.0),
+    (1, 4, 2, 130, 130, True, 0, 0.0),
+    (1, 8, 1, 300, 300, True, 0, 0.0),
+    (2, 4, 2, 300, 300, True, 100, 50.0),
 ]
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 @pytest.mark.parametrize("case", WGMMA_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_bwd_wgmma_route_matches_plain_autograd(dev, case, hd):
     from repro_torch.kernels.flash_attention import flash_bwd_route
@@ -1670,15 +1674,15 @@ def test_reduced_train_step_on_card_matches_cpu(dev, dtype):
 
 # -- gemma2 and the MoE stacks -------------------------------------------------
 #
-# gemma2's head_dim 256 reaches the forward's 'scalar_bf16' route (f32:
-# 'scalar_f32') and the backward's 'scalar' route, with its softcap of 50 and
+# gemma2's head_dim 256 reaches the forward's and the backward's 'wgmma'
+# routes in bf16 (f32: 'scalar_f32' and 'scalar'), with its softcap of 50 and
 # a window that binds (100 at S = 600; gemma2's own is 4096).
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_hd256_window_softcap_matches_plain(dev, dtype):
     case = (1, 4, 2, 600, 600, 256, True, 100, 50.0)
     b, h, hkv, s, t, hd, causal, window, cap = case
-    assert flash_route(torch.bfloat16, hd) == "scalar_bf16"
+    assert flash_route(torch.bfloat16, hd) == "wgmma"
     q, k, v = _flash_inputs(dev, dtype, b, h, hkv, s, t, hd)
     queries = [q] if dtype == torch.float32 else [q, _edge_queries(k, h, s, window)]
     for qq in queries:
@@ -1689,8 +1693,109 @@ def test_flash_hd256_window_softcap_matches_plain(dev, dtype):
         if dtype == torch.bfloat16:
             assert _row_rel_err(got, want) <= FLASH_ROW_TOL
     from repro_torch.kernels.flash_attention import flash_bwd_route
-    assert flash_bwd_route(torch.bfloat16, hd) == "scalar"
+    assert flash_bwd_route(torch.bfloat16, hd) == "wgmma"
     _check_bwd(dev, dtype, case)
+
+
+# The forward's wgmma route at hd 256 (gemma2; its backward takes
+# WGMMA_BWD_CASES): S and T off the 64- and 128-row tiles (130, 300), S < T
+# and S > T without causality, GQA at n_rep 1, 2 and 8, a window of 100 with
+# a softcap of 50, rows with no allowed key (causal and not), one row. (B,
+# H, Hkv, S, T, causal, window, softcap.)
+HD256_CASES = [
+    (1, 4, 2, 130, 130, True, 0, 0.0),
+    (1, 2, 2, 300, 300, True, 0, 0.0),
+    (1, 8, 1, 300, 300, True, 0, 0.0),
+    (1, 4, 2, 100, 300, False, 0, 0.0),
+    (1, 4, 2, 300, 100, False, 0, 0.0),
+    (2, 4, 2, 300, 300, True, 100, 50.0),
+    (1, 4, 2, 300, 40, True, 8, 0.0),
+    (1, 4, 2, 260, 40, False, 16, 0.0),
+    (1, 4, 2, 1, 1, True, 0, 0.0),
+]
+
+
+@pytest.mark.parametrize("case", HD256_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_hd256_wgmma_forward_matches_plain(dev, case):
+    """Both instantiations of the hd-256 wgmma forward (without and with
+    the row statistics) against the plain version, on random and edge
+    queries: the bf16 limits elementwise and per row, the same output bits
+    with and without the statistics, and the statistics as the hd-128
+    kernel's are held (m exactly -1e30 on rows with no allowed key), but
+    1 / l within 3e-5 relative: the edge queries' scores reach ~50 in log2
+    units at hd 256, and the f32 sums of 256 products in the tensor cores'
+    order and in the plain version's differ by ~1e-5 of that, which moves
+    l by as much (1.29e-5 read on an H100 at S = 100, T = 300)."""
+    assert flash_route(torch.bfloat16, 256) == "wgmma"
+    b, h, hkv, s, t, causal, window, cap = case
+    kw = dict(causal=causal, window=window, softcap=cap)
+    q, k, v = _flash_inputs(dev, torch.bfloat16, b, h, hkv, s, t, 256)
+    for qq in (q, _edge_queries(k, h, s, window)):
+        want, want_st = flash_attention_plain(qq, k, v, return_stats=True, **kw)
+        before = _build.LAUNCHES["flash_attention"]
+        got = flash_attention_cuda(qq, k, v, **kw)
+        got_st, st = flash_attention_cuda(qq, k, v, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert _build.LAUNCHES["flash_attention"] == before + 2
+        assert torch.equal(got, got_st)
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+        assert _row_rel_err(got, want) <= FLASH_ROW_TOL
+        empty = want_st[0] == -1e30
+        assert bool((st[0][empty] == -1e30).all())
+        torch.testing.assert_close(st[0][~empty], want_st[0][~empty], rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(st[1], want_st[1], rtol=3e-5, atol=0)
+
+
+def test_flash_hd256_wgmma_takes_model_layout_strides(dev):
+    """The hd-256 wgmma kernels read the model's (B, S, H, hd) projections
+    through their tensor maps without a copy and write the model's layout,
+    with the same bits as on contiguous copies."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_cuda
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    mk = lambda *sh: torch.randn(*sh, generator=g, device=dev).to(torch.bfloat16)
+    x, kv, vv, do = mk(2, 300, 4, 256), mk(2, 300, 2, 256), mk(2, 300, 2, 256), mk(2, 300, 4, 256)
+    q, k, v, dot = (a.transpose(1, 2) for a in (x, kv, vv, do))
+    assert all(_kernel_ready(a) is a for a in (q, k, v, dot))
+    kw = dict(causal=True, window=100, softcap=50.0)
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert got.transpose(1, 2).is_contiguous()
+    contiguous = [a.contiguous() for a in (q, k, v, dot)]
+    assert torch.equal(got, flash_attention_cuda(*contiguous[:3], **kw))
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    assert _row_rel_err(got, want) <= FLASH_ROW_TOL
+    grads = flash_attention_bwd_cuda(q, k, v, dot, **kw)
+    assert grads[0].stride() == q.stride()
+    for a, b_ in zip(grads, flash_attention_bwd_cuda(*contiguous, **kw)):
+        assert torch.equal(a, b_)
+
+
+def test_flash_hd256_scalar_baselines_stay_callable(dev):
+    """The scalar kernels stay callable on bf16 hd 256 (``_launch`` of
+    ``ROUTES['scalar_bf16']`` and ``_bwd_launch('scalar', ...)``, both
+    uncounted) for the smoke's side-by-side timing: each holds against the
+    plain version, and the wgmma routes agree with them within the bf16
+    limits."""
+    from chip_smoke import grad_check
+    from repro_torch.kernels.flash_attention import (_bwd_launch, flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain)
+
+    q, k, v = _flash_inputs(dev, torch.bfloat16, 1, 4, 2, 300, 300, 256)
+    do = _flash_inputs(dev, torch.bfloat16, 1, 4, 4, 300, 1, 256, seed=12)[0]
+    before = dict(_build.LAUNCHES)
+    base = flash_launch(ROUTES["scalar_bf16"], q, k, v, True, 100, 50.0)
+    base_g = _bwd_launch("scalar", q, k, v, do, True, 100, 50.0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES == before
+    kw = dict(causal=True, window=100, softcap=50.0)
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(base.float(), want.float(), **FLASH_TOL[torch.bfloat16])
+    got = flash_attention_cuda(q, k, v, **kw)
+    assert _row_rel_err(got, base) <= FLASH_ROW_TOL
+    want_g = flash_attention_bwd_plain(q, k, v, do, **kw)
+    for a, b_, w in zip(flash_attention_bwd_cuda(q, k, v, do, **kw), base_g, want_g):
+        assert grad_check(b_, w)["ok"] and grad_check(a, b_)["ok"]
 
 
 @pytest.mark.parametrize("arch,dtype", [("gemma2-9b", "float32"), ("gemma2-9b", "bfloat16"),

@@ -25,7 +25,7 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 80, "scalar"),
-    (torch.bfloat16, 256, "scalar"),
+    (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 32, "scalar"), (torch.float32, 64, "scalar"), (torch.float32, 80, "scalar"),
     (torch.float32, 128, "scalar"), (torch.float32, 256, "scalar"),
 ])
@@ -67,6 +67,8 @@ STATS_CASES = [
     (1, 2, 2, 12, 45, 16, False, 0, 0.0),     # S < T, not causal
     (1, 2, 2, 40, 10, 16, True, 4, 0.0),      # rows with no allowed key
     (1, 2, 1, 40, 10, 16, False, 4, 5.0),     # the same, not causal, softcap
+    (1, 4, 2, 60, 60, 256, True, 20, 50.0),   # hd 256 (gemma2): window and softcap
+    (1, 2, 1, 64, 12, 256, True, 5, 50.0),    # hd 256: rows with no allowed key
 ]
 
 
@@ -145,3 +147,28 @@ def test_flash_function_on_cpu_differentiates_the_plain_version():
     want = tflash.flash_attention_bwd_plain(q, k, v, do, True, 5, 0.0)
     for a, b_ in zip(got, want):
         torch.testing.assert_close(a, b_, rtol=0, atol=0)
+
+
+def test_flash_function_hd256_window_softcap_matches_jax_grad():
+    """``FlashAttention.apply`` at hd 256 with a window and a softcap
+    (gemma2's attention at a reduced size, GQA at n_rep 2) on the CPU
+    against ``jax.grad`` of the reference's ``flash_attention_ref`` (the
+    reference's backward: it differentiates its XLA route), to 1e-5. Inputs
+    are made with numpy from a seed and handed to both packages."""
+    b, h, hkv, s, hd, window, cap = 1, 4, 2, 48, 256, 16, 50.0
+    rng = np.random.default_rng(24)
+    q = rng.standard_normal((b, h, s, hd), dtype=np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, hd), dtype=np.float32) for _ in range(2))
+    do = rng.standard_normal((b, h, s, hd), dtype=np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tflash.FlashAttention.apply(*leaves, True, window, cap)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+
+    def loss(q_, k_, v_):
+        kx, vx = (jnp.repeat(a, h // hkv, axis=1) for a in (k_, v_))
+        o = flash_attention_ref(q_, kx, vx, causal=True, window=window, softcap=cap)
+        return jnp.sum(o * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=name)
