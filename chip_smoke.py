@@ -86,7 +86,24 @@ path once through the user entry points:
   scalar kernels they replaced and autograd through ``flex_attention``),
   then gemma2 at 8
   layers on 1 x 8192 tokens and qwen2-moe at 4 layers on 4 x 2048 tokens,
-  3 steps each.
+  3 steps each;
+* zamba2 serving (item 13.4): the forward kernel at hd 80 (its 'mma' route,
+  zamba2's shared attention block) against its plain version at the path's
+  shape (4 x 4096, H = Hkv = 32), timed beside it and
+  ``scaled_dot_product_attention`` (the same function here), then
+  zamba2-2.7b at full width and depth (54 mamba2 layers, the shared block
+  after every 6) in bf16, 4 x 4096 + 32 greedy tokens, against its
+  ``use_flash="never"`` route, its first group against the same weights in
+  f32, decode after a prefill against a longer prefill, one mamba2 layer on
+  the card against the CPU, the SSD scan's share of a layer;
+* rwkv6 serving (item 13.5): rwkv6-3b at full width and depth, 4 x 4096 +
+  32, its first 2 layers against f32, decode against a longer prefill, one
+  layer on the card against the CPU, the chunked time mix against its
+  token loop, the WKV scan's share of a layer;
+* training both at full width through ``launch.train.main``: the backward
+  kernels at hd 80 (the 'scalar' route) against autograd through the plain
+  version at 4 x 2048, timed beside the SDPA backward, then zamba2 at 12
+  layers and rwkv6 at 8 on 4 x 2048 tokens, 3 steps each.
 
 Launch counts are set to 0 just before each path and read just after it.
 It checks that every kernel of each path launched, that the outputs are
@@ -137,8 +154,13 @@ PEAKS = {"sxm": {"f64": 67e12, "f64_simt": 34e12, "f32": 67e12, "bf16": 989e12,
          "pcie": {"f64": 51e12, "f64_simt": 25.6e12, "f32": 51e12, "bf16": 756e12,
                   "hbm": 2.0e12}}
 # The buckets-and-ladder phase: bucket levels per dimension, as the
-# reference's bucketed fit and prediction default to.
+# reference's bucketed fit and prediction default to; its four predictions
+# (uniform, bucketed f64, bucketed bf16 and bf16 on the plain route, each
+# led by a host kNN at the initial beta = 0.5) run on the first
+# N_LADDER_TEST held-out points, two chunks of CHUNK and the rest (cut from
+# N_TEST: at 50,000 they took 193 s of a 1199.7 s run on a slow host).
 N_BUCKETS = 4
+N_LADDER_TEST = CHUNK + 1_000
 # The exact-GP and KL phase: paper Fig. 4 at its paper scale
 # (benchmarks/fig4_kl_mspe.py --scale paper: n = 20,000, bs = 10, m = 30).
 N_EXACT, BS_EXACT, M_EXACT = 20_000, 10, 30
@@ -199,6 +221,21 @@ MOE_REROUTED_MAX, MOE_LOGITS_REL = 0.14, 0.15
 G2_TRAIN_LAYERS, G2_TRAIN_BATCH, G2_TRAIN_SEQ = 8, 1, 8192
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 2048
 FAMILY_TRAIN_STEPS = 3
+# The attention-free and hybrid paths: zamba2-2.7b (54 mamba2 layers, the
+# shared attention block after every 6: hd 80, the forward's 'mma' and the
+# backward's 'scalar' routes) and rwkv6-3b (32 layers), each at full width and
+# depth, bf16, at the internlm2 path's LM_BATCH x LM_PROMPT + LM_NEW. Holds:
+# the f32 routes and decode after a prefill of SSM_F32_PROMPT tokens on
+# zamba2's first group; one full-width layer in f32 on the card against the
+# CPU at SSM_HOLD_SHAPE tokens (three SSD chunks, the last ragged; 19 WKV
+# chunks); rwkv6's chunked time mix against its token loop on the card at 1 x
+# RWKV_LOOP_TOKENS. Training at full width, 4 x 2048 tokens, 3 steps: zamba2
+# at 12 layers (2 groups, the shared block applied twice), rwkv6 at 8, so
+# that the functional Adam's copies (22 B a parameter) fit: 53 and 68 GB at
+# full depth before activations.
+ZAMBA_ARCH, RWKV_ARCH = "zamba2-2.7b", "rwkv6-3b"
+SSM_F32_PROMPT, SSM_HOLD_SHAPE, RWKV_LOOP_TOKENS = 1000, (1, 300), 512
+ZAMBA_TRAIN_LAYERS, RWKV_TRAIN_LAYERS = 12, 8
 
 
 class SmokeFailure(RuntimeError):
@@ -634,13 +671,24 @@ def _main_run(ttrain, argv) -> tuple:
     return ttrain.main(argv, log=log_), log_
 
 
-def _train_run(dev, label: str, fn, steps: int, micro: int, n_layers: int, n_tok: int,
+def attn_applications(cfg) -> int:
+    """Attention calls in one forward of ``cfg``'s stack: every layer of an
+    attention stack, the shared block once per group of a hybrid, none in
+    rwkv6."""
+    if cfg.block_kind == "attn":
+        return cfg.n_layers
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
+
+def _train_run(dev, label: str, fn, steps: int, micro: int, n_attn: int, n_tok: int,
                note: str = "") -> tuple:
     """One training run, ``fn() -> (state, per-step log)``, with its
     launches counted and its peak device memory read: the losses and
-    gradient norms are finite, and each microbatch launched the forward
-    twice per layer (forward and remat recompute) and the backward once.
-    ``note`` is printed after the peak. Returns (state, record, counts)."""
+    gradient norms are finite (a finite norm: every gradient leaf finite),
+    and each microbatch launched the forward twice per attention
+    application (``n_attn``: forward and remat recompute) and the backward
+    once. ``note`` is printed after the peak. Returns (state, record,
+    counts)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -666,12 +714,12 @@ def _train_run(dev, label: str, fn, steps: int, micro: int, n_layers: int, n_tok
         f"{c['flash_attention_bwd']} ({c['flash_attention_bwd'] / steps:g} per step)")
     check(len(losses) == steps and all(math.isfinite(x) for x in losses + norms),
           f"lm training {label}: missing or non-finite loss or grad norm")
-    check(c["flash_attention"] == steps * micro * 2 * n_layers,
+    check(c["flash_attention"] == steps * micro * 2 * n_attn,
           f"lm training {label}: {c['flash_attention']} forward launches, expected "
-          f"{steps * micro * 2 * n_layers} (layers x (forward + remat recompute))")
-    check(c["flash_attention_bwd"] == steps * micro * n_layers,
+          f"{steps * micro * 2 * n_attn} (attention calls x (forward + remat recompute))")
+    check(c["flash_attention_bwd"] == steps * micro * n_attn,
           f"lm training {label}: {c['flash_attention_bwd']} backward launches, expected "
-          f"{steps * micro * n_layers}")
+          f"{steps * micro * n_attn}")
     rec = dict(seconds=wall, step_s=step_s, tokens_per_s=n_tok / step_s, peak_bytes=peak,
                losses=losses, grad_norms=norms)
     return state, rec, c
@@ -1068,9 +1116,9 @@ def _serve_path(label: str, model, prompt, n_new: int, cache_len: int, warm_mode
                                               f"take {hbm_ms:.2f} ms at HBM rate")
         + f"); launches {dec}")
     log(f"{label} sample tokens: {toks[0, :16].tolist()}")
-    check(pre["flash_attention"] == cfg.n_layers,
+    check(pre["flash_attention"] == attn_applications(cfg),
           f"{label}: prefill launched flash_attention {pre['flash_attention']} times, expected "
-          f"{cfg.n_layers}")
+          f"{attn_applications(cfg)}")
     check(dec["flash_attention"] == 0, f"{label}: decode launched flash_attention")
     check(logits.shape == (b, cfg.vocab) and bool(torch.isfinite(logits).all())
           and all(bool(torch.isfinite(x).all()) for x in step_logits),
@@ -1629,6 +1677,525 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
     return counts
 
 
+def _hd80_forward(dev, peaks, cfg) -> dict:
+    """The forward kernel at zamba2's shared-attention shape (LM_BATCH x
+    LM_PROMPT, H = Hkv = 32, hd 80, causal, no softcap; the 'mma' route)
+    against its plain version on random and edge queries (3e-2 per element,
+    1e-2 per row in relative L2), and timed beside the plain version and
+    ``scaled_dot_product_attention(is_causal=True)``, which with Hkv = H and
+    no softcap computes the same function (held per element; its rows are
+    printed)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda, flash_attention_plain,
+                                                     flash_route)
+
+    b, h, hkv, s, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, cfg.head_dim
+    route = flash_route(torch.bfloat16, hd)
+    check(route == "mma", f"zamba2: the forward's route at hd {hd} is {route!r}")
+    tol, row_tol = 3e-2, 1e-2
+    gen = torch.Generator(device=dev).manual_seed(SEED + 37)
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+    q, k, v = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd)
+    errs = {}
+    for inp in ("random", "edge"):
+        qq = q if inp == "random" else flash_edge_queries(k, h, s, 0)
+        want = flash_attention_plain(qq, k, v, causal=True)
+        outs = [("kernel", flash_attention_cuda(qq, k, v, causal=True))]
+        if inp == "random":
+            outs.append(("sdpa", F.scaled_dot_product_attention(q, k, v, is_causal=True)))
+        for who, got in outs:
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            bad = float(((got.float() - want.float()).abs() - tol * (1 + want.float().abs())).max())
+            row = row_rel_err(got, want)
+            log(f"flash zamba2 hd{hd} bf16 {inp} ({who}; {route} route): B={b} H={h} Hkv={hkv} "
+                f"S=T={s} causal: max_abs_err={err:.3e} (tol {tol:g}), row rel L2 max {row:.3e} "
+                f"(tol {row_tol:g})")
+            check(bool(torch.isfinite(got).all()), f"flash zamba2 hd{hd} {who}: non-finite output")
+            check(bad <= 0 and (who == "sdpa" or row <= row_tol),
+                  f"flash zamba2 hd{hd} {inp} {who} vs plain: max_abs_err {err:.3e}, row rel L2 "
+                  f"{row:.3e}")
+            if who == "kernel":
+                errs[inp] = (err, row)
+        del qq, want, outs, got
+        torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    k2_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    with torch.inference_mode():
+        p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=3)
+    torch.cuda.empty_cache()
+    l_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+    flops, nbytes = flash_work(b, h, hkv, s, hd, 2)
+    b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
+    log(f"flash time zamba2 (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal, {route} route): kernel "
+        f"{k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % "
+        f"of the bound); plain {p_ms:.3f} ms; scaled_dot_product_attention (the same function) "
+        f"{l_ms:.3f} ms ({k_ms / l_ms:.2f}x its time); bound {b_ms:.4f} ms ({b_by}; "
+        f"{flops:.3e} flop, {nbytes:.3e} B)")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=errs["random"][0], row_rel=errs["random"][1],
+                edge_max_abs_err=errs["edge"][0], ms=k_ms, ms2=k2_ms, plain_ms=p_ms,
+                library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+
+
+def _bf16_holds(label: str, model, n: int, prompt, relative: bool) -> dict:
+    """The first ``n`` layers of ``model`` in bf16, each prefill over the
+    whole prompt (S tokens): the kernel route's logits against the same
+    weights in f32 and, where the stack has attention, against the
+    ``use_flash="never"`` route (3e-2 in relative L2); decode after a
+    prefill of S - 1 tokens against the prefill of S. With ``relative``
+    False, the kernel route within 3e-2 of f32 and the decode within 3e-2 of
+    the prefill (the smoke's bf16 LM limit). With ``relative`` (zamba2,
+    whose seed-initialised stack amplifies rounding, so that both bf16
+    routes lie ~8e-2 from f32 on its first group), each no further from f32
+    than 1.25x its plain counterpart: the kernel route than the never route
+    (relative L2 and largest error), the decode than the bf16 prefill."""
+    import torch
+
+    from repro_torch.models.model import prefill_step, serve_step
+
+    s = prompt.shape[1]
+    rel = lambda x, y: float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+    sub = _sub_model(model, n)
+    attn = attn_applications(sub.cfg) > 0
+    with torch.inference_mode():
+        l_k, _ = prefill_step(sub, prompt, s + 8)
+        l_32, _ = prefill_step(_sub_model(model, n, dtype=torch.float32), prompt, s + 8)
+        torch.cuda.empty_cache()
+        l_n = (prefill_step(_sub_model(model, n, use_flash="never"), prompt, s + 8)[0]
+               if attn else None)
+        _, c = prefill_step(sub, prompt[:, :s - 1], s + 8)
+        dec, _ = serve_step(sub, prompt[:, s - 1:], c)
+        del c
+    torch.cuda.empty_cache()
+    res = dict(rel_f32=rel(l_k, l_32), max_f32=float((l_k - l_32).abs().max()),
+               decode_rel=rel(dec, l_k), decode_rel_f32=rel(dec, l_32))
+    msg = (f"{label} ({n} layers, bf16, {prompt.shape[0]}x{s}): kernel route vs f32 weights rel L2 "
+           f"{res['rel_f32']:.3e} (max {res['max_f32']:.3e}); decode after a prefill of {s - 1} vs "
+           f"the prefill of {s} rel L2 {res['decode_rel']:.3e}, the decode vs f32 "
+           f"{res['decode_rel_f32']:.3e}")
+    if attn:
+        res.update(rel_never=rel(l_k, l_n), never_rel_f32=rel(l_n, l_32),
+                   never_max_f32=float((l_n - l_32).abs().max()))
+        msg += (f"; use_flash=never route vs kernel route {res['rel_never']:.3e}, vs f32 "
+                f"{res['never_rel_f32']:.3e} (max {res['never_max_f32']:.3e})")
+    log(msg + (" (held relative to the plain counterparts, limit 1.25x)" if relative
+               else " (limit 3e-2)"))
+    check(bool(torch.isfinite(l_k).all()) and bool(torch.isfinite(dec).all()),
+          f"{label}: non-finite logits")
+    if attn:
+        check(res["rel_never"] <= 3e-2, f"{label}: kernel route vs never route rel L2 "
+                                        f"{res['rel_never']:.3e} > 3e-2")
+    if relative:
+        check(res["rel_f32"] <= 1.25 * res["never_rel_f32"]
+              and res["max_f32"] <= 1.25 * res["never_max_f32"],
+              f"{label}: kernel route further from f32 than 1.25x the never route ({res})")
+        check(res["decode_rel_f32"] <= 1.25 * res["rel_f32"],
+              f"{label}: decode further from f32 than 1.25x the prefill ({res})")
+    else:
+        check(res["rel_f32"] <= 3e-2 and res["decode_rel"] <= 3e-2,
+              f"{label}: bf16 vs f32 or decode vs prefill beyond 3e-2 ({res})")
+    return res
+
+
+def _f32_depth_holds(label: str, model, prompt, logits_bf16) -> dict:
+    """The whole stack in f32 (the same weights): decode after a prefill of
+    S - 1 tokens against the prefill of S within 2e-3 in relative L2
+    (tests/test_models_smoke.py's tolerance), and two readings of how the
+    seed-initialised stack amplifies rounding: the bf16 path's prefill
+    logits (``logits_bf16``) against the f32 ones, and the last hidden
+    states' response to a 1e-6 relative perturbation of the embeddings of
+    the first 1,024 prompt tokens."""
+    import torch
+
+    from repro_torch.models.model import embed_tokens, prefill_step, serve_step
+    from repro_torch.models.transformer import prefill as stack_prefill
+
+    b, s = prompt.shape
+    rel = lambda x, y: float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+    m32 = _sub_model(model, model.cfg.n_layers, dtype=torch.float32)
+    cfg = m32.cfg
+    with torch.inference_mode():
+        f, _ = prefill_step(m32, prompt, s + 8)
+        _, c = prefill_step(m32, prompt[:, :s - 1], s + 8)
+        d, _ = serve_step(m32, prompt[:, s - 1:], c)
+        del c
+        torch.cuda.empty_cache()
+        sp = min(s, 1024)
+        e = embed_tokens(m32, prompt[:, :sp])
+        pos = torch.arange(sp, dtype=torch.int32, device=prompt.device).expand(b, sp)
+        noise = torch.randn(e.shape, generator=torch.Generator(device=prompt.device).manual_seed(
+            SEED + 53), device=prompt.device) * (1e-6 * float(e.abs().mean()))
+        h0 = stack_prefill(m32.layers, e, cfg, pos, sp, m32.shared_attn)[0][:, -1]
+        h1 = stack_prefill(m32.layers, e + noise, cfg, pos, sp, m32.shared_attn)[0][:, -1]
+    gain = rel(h1, h0) / rel(e + noise, e)
+    res = dict(f32_decode_rel=rel(d, f), f32_decode_max=float((d - f).abs().max()),
+               bf16_vs_f32=rel(logits_bf16, f), perturbation_gain=gain)
+    log(f"{label} f32 at full depth ({cfg.n_layers} layers, {b}x{s}): decode after a prefill of "
+        f"{s - 1} vs the prefill of {s} rel L2 {res['f32_decode_rel']:.3e} (limit 2e-3), max_abs_err "
+        f"{res['f32_decode_max']:.3e}; readings: the bf16 path's prefill logits vs f32 rel L2 "
+        f"{res['bf16_vs_f32']:.3e}; the last hidden states' response to a 1e-6 perturbation of the "
+        f"embeddings (first {sp} tokens) {gain:.3g}x")
+    check(bool(torch.isfinite(d).all()) and res["f32_decode_rel"] <= 2e-3,
+          f"{label}: f32 decode vs prefill rel L2 {res['f32_decode_rel']:.3e} > 2e-3")
+    del m32
+    torch.cuda.empty_cache()
+    return res
+
+
+def _layer_card_vs_cpu(label: str, layer, dev) -> float:
+    """One full-width layer (``layer``'s weights in f32) on the card against
+    the same layer on the CPU, on the same f32 input of SSM_HOLD_SHAPE
+    tokens: every output (the hidden
+    states and the decode cache's pieces) within 1e-4 of its largest entry
+    (cuBLAS's and the CPU's f32 sums in other orders). Returns the worst."""
+    import torch
+
+    state = {k_: v_.float() for k_, v_ in layer.state_dict().items()}
+    on_card, on_cpu = (type(layer)(layer.cfg, dtype=torch.float32, device=d) for d in (dev, None))
+    on_card.load_state_dict(state)
+    on_cpu.load_state_dict({k_: v_.cpu() for k_, v_ in state.items()})
+    xb, xs = SSM_HOLD_SHAPE
+    x_cpu = torch.randn(xb, xs, layer.cfg.d_model,
+                        generator=torch.Generator().manual_seed(SEED + 41))
+    t = time.perf_counter()
+    with torch.inference_mode():
+        out_c = on_card(x_cpu.to(dev))
+        torch.cuda.synchronize()
+        out_h = on_cpu(x_cpu)
+    errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max()) for a, b in zip(out_c, out_h)]
+    log(f"{label} f32, card vs CPU at {xb}x{xs} tokens ({time.perf_counter() - t:.2f} s): "
+        f"outputs {[f'{e:.2e}' for e in errs]} of their largest (limit 1e-4)")
+    check(all(math.isfinite(e) and e <= 1e-4 for e in errs),
+          f"{label}: card vs CPU {errs} of the largest > 1e-4")
+    return max(errs)
+
+
+def _scan_share(label: str, layer, x, module, name: str) -> dict:
+    """The chunk scan's share of one prefill layer at the path's shape:
+    ``layer(x)`` and the scan function ``module.<name>`` alone on the
+    arguments that layer passes it (captured once), CUDA events, median of
+    5; beside the scan's host seconds to enqueue its launches (unsynchronised),
+    which, near its device time, says the scan is bound by its launches."""
+    import torch
+
+    fn, args = getattr(module, name), []
+    setattr(module, name, lambda *a: args.append(a) or fn(*a))
+    try:
+        with torch.inference_mode():
+            layer(x)
+    finally:
+        setattr(module, name, fn)
+    with torch.inference_mode():
+        layer_ms = cuda_ms(lambda: layer(x))
+        scan_ms = cuda_ms(lambda: fn(*args[0]))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn(*args[0])
+        host_ms = 1e3 * (time.perf_counter() - t)
+        torch.cuda.synchronize()
+    n_chunks = args[0][0].shape[1]
+    log(f"{label} prefill layer at {tuple(x.shape[:2])}: {layer_ms:.3f} ms, of which the chunk scan "
+        f"({name}, {n_chunks} chunks) {scan_ms:.3f} ms ({100 * scan_ms / layer_ms:.1f} %); the "
+        f"scan's host enqueue {host_ms:.3f} ms")
+    del args
+    return dict(layer_ms=layer_ms, scan_ms=scan_ms, scan_host_ms=host_ms, chunks=n_chunks)
+
+
+def zamba2_serving_phase(dev, peaks, results: dict) -> dict:
+    """zamba2-2.7b serving at full width and depth (ROADMAP item 13.4): the
+    hd-80 forward kernel ('mma') against its plain version at the shared
+    block's shape before the model is loaded; the path through the entry
+    points; the model against its ``use_flash="never"`` route, its first
+    group against the same weights in f32, decode after a prefill against a
+    longer prefill, one mamba2 layer on the card against the CPU, and the
+    SSD scan's share of a layer. Returns the launch counts of the path run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.models.model import embed_tokens, init_params
+
+    cfg = get_config(ZAMBA_ARCH)
+    a, n_groups = cfg.attn_every, attn_applications(cfg)
+
+    # 63. The hd-80 forward kernel at the path's shape.
+    kern = _hd80_forward(dev, peaks, cfg)
+
+    # 64. The path: zamba2-2.7b at full width and depth, 4 x 4096 + 32.
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_len = LM_PROMPT + LM_NEW
+    kv_bytes = 2 * n_groups * LM_BATCH * cache_len * cfg.n_kv_heads * cfg.head_dim * 2
+    st_bytes = cfg.n_layers * LM_BATCH * (cfg.ssm_heads * cfg.ssm_head_dim * cfg.ssm_state * 4
+                                          + (cfg.ssm_conv - 1) * cfg.d_inner * 2)
+    log(f"phase zamba2 init: {time.perf_counter() - t:.2f} s; {ZAMBA_ARCH} at full width and depth "
+        f"(L={cfg.n_layers} mamba2 layers, d={cfg.d_model}, d_inner={cfg.d_inner}, "
+        f"{cfg.ssm_heads} SSD heads of {cfg.ssm_head_dim}, N={cfg.ssm_state}; the shared block "
+        f"after every {a}: {n_groups} applications, H=Hkv={cfg.n_heads}, hd={cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}; V={cfg.vocab}): {n_par / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB; "
+        f"KV cache {kv_bytes / 1e9:.2f} GB, SSD and conv states {st_bytes / 1e9:.3f} GB")
+    prompt = torch.as_tensor(np.random.default_rng(7).integers(0, cfg.vocab,
+                                                               (LM_BATCH, LM_PROMPT)),
+                             dtype=torch.int32, device=dev)
+    hbm = 1e3 * (n_bytes + kv_bytes + st_bytes) / peaks["hbm"]
+    path = _serve_path("zamba2", model, prompt, LM_NEW, cache_len,
+                       warm_model=_sub_model(model, a), hbm_ms=hbm)
+    log(f"zamba2 prefill: flash_attention launches {path['launches']['flash_attention']} on the "
+        f"'mma' route (hd {cfg.head_dim}), {n_groups} x {kern['ms']:.3f} ms = "
+        f"{n_groups * kern['ms'] / 1e3:.4f} s of the {path['prefill_s']:.3f} s prefill")
+
+    # 65. The first group (6 mamba2 layers and the shared block) in bf16: the
+    # two attention routes, f32 weights, decode against the prefill (held
+    # relative to their plain counterparts: seed-initialised, the stack
+    # amplifies rounding ~2,000x at full depth, so bf16 lies ~8e-2 from f32
+    # on one group and ~0.9 at 54 layers; see step 67).
+    holds = {"group": _bf16_holds("zamba2 first group", model, a, prompt, relative=True)}
+
+    # 66. f32, the first group: the two routes elementwise, decode after a
+    # prefill against a longer prefill (2e-3).
+    holds.update(_f32_holds(f"zamba2 f32 first group ({SSM_F32_PROMPT + 1} tokens: 8 SSD chunks, "
+                            f"the last ragged)", _sub_model(model, a, dtype=torch.float32), prompt,
+                            SSM_F32_PROMPT))
+    torch.cuda.empty_cache()
+
+    # 67. f32, all 54 layers: decode against the prefill, and the depth's
+    # amplification of rounding.
+    holds["depth"] = _f32_depth_holds("zamba2", model, prompt, path["logits"])
+
+    # 68. One mamba2 layer (layer 0's weights in f32) on the card against the
+    # CPU.
+    holds["layer"] = _layer_card_vs_cpu("zamba2 mamba2 layer", model.layers[0], dev)
+
+    # 69. The SSD scan's share of one prefill layer at the path's shape.
+    with torch.inference_mode():
+        x = embed_tokens(model, prompt)
+    share = _scan_share("zamba2", model.layers[0], x, ssm, "_ssd_chunks")
+    del x, model, path["logits"]
+    torch.cuda.empty_cache()
+    results["zamba2"] = dict(kernel=kern, holds=holds, prefill_s=path["prefill_s"],
+                             decode_ms=path["decode_ms"], hbm_ms=hbm, params=n_par, **share)
+    results["flash_attention_hd80"] = kern
+    return path["launches"]
+
+
+def rwkv6_serving_phase(dev, peaks, results: dict) -> dict:
+    """rwkv6-3b serving at full width and depth (ROADMAP item 13.5): the
+    path through the entry points; the first 2 layers in bf16 against the
+    same weights in f32; decode after a prefill against a longer prefill;
+    one layer on the card against the CPU; the chunked time mix against its
+    token-by-token decode loop on the card; the WKV scan's share of a layer.
+    Returns the launch counts of the path run (no kernel: rwkv6 has no
+    attention)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import rwkv6
+    from repro_torch.models.model import embed_tokens, init_params
+
+    cfg = get_config(RWKV_ARCH)
+
+    # 70. The path: rwkv6-3b at full width and depth, 4 x 4096 + 32.
+    t = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_len = LM_PROMPT + LM_NEW
+    st_bytes = cfg.n_layers * LM_BATCH * (cfg.n_heads * cfg.head_dim ** 2 * 4 + 2 * cfg.d_model * 2)
+    log(f"phase rwkv6 init: {time.perf_counter() - t:.2f} s; {RWKV_ARCH} at full width and depth "
+        f"(L={cfg.n_layers}, d={cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}, "
+        f"d_ff={cfg.d_ff}, V={cfg.vocab}): {n_par / 1e9:.3f} B parameters, {n_bytes / 1e9:.2f} GB; "
+        f"WKV states and last tokens {st_bytes / 1e9:.3f} GB")
+    prompt = torch.as_tensor(np.random.default_rng(11).integers(0, cfg.vocab,
+                                                                (LM_BATCH, LM_PROMPT)),
+                             dtype=torch.int32, device=dev)
+    hbm = 1e3 * (n_bytes + st_bytes) / peaks["hbm"]
+    path = _serve_path("rwkv6", model, prompt, LM_NEW, cache_len, warm_model=_sub_model(model, 2),
+                       hbm_ms=hbm)
+    check(sum(path["launches"].values()) == 0, f"rwkv6: the path launched {path['launches']}")
+
+    # 71. The first 2 layers in bf16 against the same weights in f32 and
+    # decode against the prefill (3e-2); 72. all 32 layers in f32: decode
+    # against the prefill, and the depth's amplification of rounding.
+    holds = {"first": _bf16_holds("rwkv6 first layers", model, 2, prompt, relative=False),
+             "depth": _f32_depth_holds("rwkv6", model, prompt, path["logits"])}
+
+    # 73. One layer (layer 0's weights in f32) on the card against the CPU.
+    holds["layer"] = _layer_card_vs_cpu("rwkv6 layer", model.layers[0], dev)
+
+    # 74. The chunked time mix against rwkv6_time_mix_decode token by token
+    # on the card, layer 0 in f32 at 1 x RWKV_LOOP_TOKENS: every output and
+    # the final state within 1e-4 of their largest entry.
+    m = rwkv6.RWKV6(cfg, dtype=torch.float32, device=dev)
+    m.load_state_dict({k_: v_.float() for k_, v_ in model.layers[0].rwkv.state_dict().items()})
+    x = torch.randn(1, RWKV_LOOP_TOKENS, cfg.d_model, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(SEED + 43))
+    t = time.perf_counter()
+    with torch.inference_mode():
+        y, st, last = rwkv6.rwkv6_time_mix(m, x)
+        state = torch.zeros_like(st)
+        tok = torch.zeros_like(last)
+        ys = []
+        for i in range(RWKV_LOOP_TOKENS):
+            yi, state, tok = rwkv6.rwkv6_time_mix_decode(m, x[:, i:i + 1], state, tok)
+            ys.append(yi)
+        ys = torch.cat(ys, 1)
+    torch.cuda.synchronize()
+    errs = [float((a_ - b_).abs().max()) / float(b_.abs().max()) for a_, b_ in ((y, ys), (st, state))]
+    log(f"rwkv6 chunked time mix vs its token loop on the card (f32, 1x{RWKV_LOOP_TOKENS}, "
+        f"{time.perf_counter() - t:.2f} s): outputs {errs[0]:.2e}, final state {errs[1]:.2e} of "
+        f"their largest (limit 1e-4)")
+    check(all(e <= 1e-4 for e in errs) and torch.equal(last, tok),
+          f"rwkv6: chunked vs token loop {errs}")
+    holds["token_loop"] = max(errs)
+    del m, x, y, st, ys, state
+
+    # 75. The WKV scan's share of one prefill layer at the path's shape.
+    with torch.inference_mode():
+        x = embed_tokens(model, prompt)
+    share = _scan_share("rwkv6", model.layers[0], x, rwkv6, "_wkv_chunks")
+    del x, model, path["logits"]
+    torch.cuda.empty_cache()
+    results["rwkv6"] = dict(holds=holds, prefill_s=path["prefill_s"], decode_ms=path["decode_ms"],
+                            hbm_ms=hbm, params=n_par, **share)
+    return path["launches"]
+
+
+def _first_batch_loss(cfg, params, batch: int, seq: int, dev) -> float:
+    """``lm_loss`` at ``params`` on the first batch ``launch.train.main``
+    draws (``TokenStream(seed=17)``, batch 0): a training run's loss on the
+    same tokens before and after its steps."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.model import lm_loss
+    from repro_torch.training.train_step import _bind
+
+    tok, lab = TokenStream(cfg.vocab, batch, seq, seed=17).next()
+    with torch.no_grad():
+        return float(lm_loss(_bind(cfg, params), torch.as_tensor(tok, device=dev),
+                             torch.as_tensor(lab, device=dev)))
+
+
+def recurrent_training_phase(dev, peaks, results: dict) -> dict:
+    """Training zamba2 and rwkv6 at full width (ROADMAP items 13.4, 13.5):
+    the hd-80 backward kernels (the 'scalar' route) against autograd through
+    the plain version at zamba2's training shape (4 x 2048, H = Hkv = 32),
+    timed beside it and the backward of ``scaled_dot_product_attention``
+    (the same function); then ``launch.train.main`` for FAMILY_TRAIN_STEPS
+    steps on each, at ZAMBA_TRAIN_LAYERS and RWKV_TRAIN_LAYERS layers.
+    Returns the launch counts of the two training runs, by model."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain, flash_bwd_route)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.models.model import TransformerLM
+
+    zc = get_config(ZAMBA_ARCH)
+    b, h, hkv, s, hd = TRAIN_BATCH, zc.n_heads, zc.n_kv_heads, TRAIN_SEQ, zc.head_dim
+    route = flash_bwd_route(torch.bfloat16, hd)
+    check(route == "scalar", f"zamba2 training: the backward's route at hd {hd} is {route!r}")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 47)
+    mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
+
+    # 76. The backward kernels at the training shape against autograd through
+    # the plain version, then the backward of SDPA (the same function: each
+    # gradient within the kernel's elementwise limit of the plain version's;
+    # its rows are printed), and times.
+    q, k, v, do = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd), mk(b, h, s, hd)
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=True)
+    want = flash_attention_bwd_plain(q, k, v, do, causal=True)
+    torch.cuda.synchronize()
+    res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+    qx, kx, vx = (x.detach().requires_grad_(True) for x in (q, k, v))
+    ox = F.scaled_dot_product_attention(qx, kx, vx, is_causal=True)
+    lib = {n: grad_check(g, w) for n, g, w in
+           zip(("dq", "dk", "dv"), torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True),
+               want)}
+    log(f"flash_bwd zamba2 hd{hd} bf16 ({route} route): B={b} H={h} Hkv={hkv} S=T={s} causal: "
+        + "; ".join(f"{n} max_abs_err {r['max_abs_err']:.3e} ({r['scaled_err']:.2e} of the "
+                    f"largest, row rel L2 {r['row_rel']:.2e})" for n, r in res.items())
+        + f" (limits {BWD_TOL['bfloat16']:g} of the largest, rows {BWD_ROW_TOL:g}); the SDPA "
+        f"backward vs plain: " + "; ".join(f"{n} {r['scaled_err']:.2e}, rows {r['row_rel']:.2e}"
+                                            for n, r in lib.items()))
+    check(all(r["ok"] for r in res.values()), f"flash_bwd zamba2 hd{hd}: kernel vs plain {res}")
+    check(all(r["scaled_err"] <= BWD_TOL["bfloat16"] for r in lib.values()),
+          f"SDPA backward zamba2 hd{hd}: not the kernel's function {lib}")
+    del got, want
+    torch.cuda.empty_cache()
+    k_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, causal=True))
+    k2_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, causal=True))
+    p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do, causal=True), reps=3)
+    torch.cuda.empty_cache()
+    l_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True))
+    flops, nbytes = flash_bwd_work(b, h, hkv, s, hd, 2)
+    b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
+    log(f"flash_bwd time zamba2 (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal, {route} route): "
+        f"kernel {k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, "
+        f"{100 * b_ms / k_ms:.2f} % of the bound); plain (autograd through "
+        f"flash_attention_plain) {p_ms:.3f} ms; the backward of scaled_dot_product_attention (the "
+        f"same function) {l_ms:.3f} ms ({k_ms / l_ms:.2f}x its time); bound {b_ms:.4f} ms "
+        f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
+    results["flash_attention_bwd_hd80"] = dict(
+        max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        scaled_err=max(r["scaled_err"] for r in res.values()),
+        row_rel=max(r["row_rel"] for r in res.values()), ms=k_ms, ms2=k2_ms, plain_ms=p_ms,
+        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, do, qx, kx, vx, ox
+    torch.cuda.empty_cache()
+
+    # 77. The two training paths through launch.train.main.
+    out, counts = {}, {}
+    for arch, n_layers in ((ZAMBA_ARCH, ZAMBA_TRAIN_LAYERS), (RWKV_ARCH, RWKV_TRAIN_LAYERS)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+        n_par = sum(p.numel() for p in TransformerLM(cfg, device="meta").parameters())
+        full = sum(p.numel() for p in TransformerLM(get_config(arch), device="meta").parameters())
+        reckoned, at_update = 12 * n_par, 22 * n_par
+        n_attn = attn_applications(cfg)
+        argv = ["--arch", arch, "--override", f"n_layers={n_layers}", "--batch", str(TRAIN_BATCH),
+                "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--device", str(dev), "--steps",
+                str(FAMILY_TRAIN_STEPS)]
+        note = (f" against {reckoned / 1e9:.2f} GB reckoned for bf16 params and grads and f32 "
+                f"moments, {at_update / 1e9:.2f} GB with the old and new params and moments of "
+                f"the Adam update ({22 * full / 1e9:.1f} GB at full depth)")
+        state, rec, c = _train_run(
+            dev, f"{arch} ({n_layers} layers at full width, {n_attn} shared-attention "
+            f"applications, {TRAIN_BATCH}x{TRAIN_SEQ} tokens, {n_par / 1e9:.3f} B parameters)",
+            lambda: _main_run(ttrain, argv), FAMILY_TRAIN_STEPS, 1, n_attn,
+            TRAIN_BATCH * TRAIN_SEQ, note)
+        # Each step draws new uniform random tokens, whose loss moves by
+        # ~1e-2 from batch to batch, more than a step gains at lr 3e-4
+        # (zamba2's per-step losses, printed above, rise over these three
+        # steps); so the fall is held on the same tokens: the first batch's
+        # loss after the run against its loss at the first step.
+        after = _first_batch_loss(cfg, state.params, TRAIN_BATCH, TRAIN_SEQ, dev)
+        log(f"lm training {arch}: the first batch's loss {rec['losses'][0]:.5f} at the first step, "
+            f"{after:.5f} after {FAMILY_TRAIN_STEPS} steps")
+        check(math.isfinite(after) and after < rec["losses"][0],
+              f"lm training {arch}: the first batch's loss did not fall ({rec['losses'][0]} -> "
+              f"{after})")
+        counts[arch] = c
+        out[arch] = dict(rec, reckoned_bytes=[reckoned, at_update], params=n_par,
+                         first_batch_after=after)
+        del state
+        torch.cuda.empty_cache()
+    check(sum(counts[RWKV_ARCH].values()) == 0, f"rwkv6 training launched {counts[RWKV_ARCH]}")
+    results["recurrent_training"] = out
+    return counts
+
+
 # Per-block limits (relative to max(1, |value|); for predictions, to the
 # output scale) of the f32 and bf16 variants against their plain versions on
 # the same data, each set from its own readings at the fit's initial
@@ -2057,24 +2624,26 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     del cast, g16, g_ref
     torch.cuda.empty_cache()
 
-    # 23. Prediction: bucketed f64 against uniform, bf16 against f64.
+    # 23. Prediction: bucketed f64 against uniform, bf16 against f64, on the
+    # first N_LADDER_TEST held-out points.
     kw = dict(bs_pred=BS_PRED, m_pred=M_PRED, n_sims=N_SIMS, chunk_size=CHUNK, seed=SEED,
               device=dev)
+    x_lt, y_lt = x_te[:N_LADDER_TEST], y_te[:N_LADDER_TEST]
     t = time.perf_counter()
-    pred_u = tpredict.predict_sbv(init, x_tr, y_tr, x_te, **kw)
+    pred_u = tpredict.predict_sbv(init, x_tr, y_tr, x_lt, **kw)
     t_pu = time.perf_counter() - t
     t = time.perf_counter()
-    pred_b = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, **kw)
+    pred_b = tpredict.predict_sbv(init, x_tr, y_tr, x_lt, n_buckets=N_BUCKETS, **kw)
     t_pb = time.perf_counter() - t
     ops.reset_launch_counts()
     t = time.perf_counter()
-    pred_16 = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, precision="bf16",
+    pred_16 = tpredict.predict_sbv(init, x_tr, y_tr, x_lt, n_buckets=N_BUCKETS, precision="bf16",
                                    **kw)
     torch.cuda.synchronize()
     t_p16 = time.perf_counter() - t
     pred_launches = ops.launch_counts()
     launches["sbv_predict_bf16"] = pred_launches["sbv_predict_bf16"]
-    n_chunks = math.ceil(len(x_te) / CHUNK)
+    n_chunks = math.ceil(len(x_lt) / CHUNK)
     check(pred_launches["sbv_predict_bf16"] == n_chunks and pred_launches["sbv_predict"] == 0,
           f"bucketed bf16 predict launches {pred_launches}, expected one bf16 launch per chunk "
           f"({n_chunks})")
@@ -2082,7 +2651,7 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     # runs its ``ref`` route: the bf16 coordinates' rounding alone. Here too,
     # on the plain version (not a kernel path; its launches are not counted).
     t = time.perf_counter()
-    pred_r = tpredict.predict_sbv(init, x_tr, y_tr, x_te, n_buckets=N_BUCKETS, precision="bf16",
+    pred_r = tpredict.predict_sbv(init, x_tr, y_tr, x_lt, n_buckets=N_BUCKETS, precision="bf16",
                                   backend="ref", **kw)
     t_pr = time.perf_counter() - t
     scale = max(1.0, float(np.abs(pred_u.mean).max()))
@@ -2090,8 +2659,9 @@ def buckets_ladder_phase(dev, peaks, results: dict, packed0, packed_m, x_tr, y_t
     d_var = float(np.abs(pred_b.var - pred_u.var).max())
     rms = [float(np.sqrt(np.mean((p.mean - pred_u.mean) ** 2)) / np.sqrt(np.mean(pred_u.mean ** 2)))
            for p in (pred_16, pred_r)]
-    mspe = [float(np.mean((p.mean - y_te) ** 2)) for p in (pred_u, pred_16, pred_r)]
-    log(f"phase bucketed predict at the initial params: uniform {t_pu:.2f} s, bucketed f64 "
+    mspe = [float(np.mean((p.mean - y_lt) ** 2)) for p in (pred_u, pred_16, pred_r)]
+    log(f"phase bucketed predict at the initial params ({len(x_lt)} points in {n_chunks} chunks): "
+        f"uniform {t_pu:.2f} s, bucketed f64 "
         f"{t_pb:.2f} s, bucketed bf16 {t_p16:.2f} s (ref route {t_pr:.2f} s); bucketed vs "
         f"uniform max |d mean| {d_mean:.3e}, |d var| {d_var:.3e}; bf16 vs f64 relative RMS: "
         f"kernel route {rms[0]:.4f} (printed: its pivot floor 2^-7 * sigma2 = "
@@ -3645,7 +4215,8 @@ def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, i
 
 
 FLASH_ROUTE_OF = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
-                  "flash_attention_hd256": "wgmma", "flash_attention_bwd_hd256": "wgmma"}
+                  "flash_attention_hd256": "wgmma", "flash_attention_bwd_hd256": "wgmma",
+                  "flash_attention_hd80": "mma", "flash_attention_bwd_hd80": "scalar"}
 
 
 def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launches: dict,
@@ -3768,6 +4339,7 @@ def main() -> int:
     t_gen = time.perf_counter() - t
     log(f"phase generate: {t_gen:.2f} s (n={N_TRAIN + N_TEST}, d={D})")
     log(json.dumps({"reduced": {"n_train": [500_000, N_TRAIN], "n_test": N_TEST,
+                                "ladder_n_test": [N_TEST, N_LADDER_TEST],
                                 "why": "host preprocess time grows faster than linearly in n; "
                                        "d, m, bs, m_pred, bs_pred and dtype are full"}}))
 
@@ -4416,6 +4988,26 @@ def main() -> int:
     lm_launches, hd256 = flash_counts(results, lm_launches, g2_launches, moe_launches,
                                       fam_launches)
 
+    # 63.-69. zamba2 serving, 70.-75. rwkv6 serving, 76.-77. their training
+    # (ROADMAP items 13.4, 13.5); zamba2's shared block runs the hd-80 routes.
+    t = time.perf_counter()
+    z_launches = zamba2_serving_phase(dev, peaks, results)
+    log(f"phase zamba2 serving: {time.perf_counter() - t:.1f} s; launches {z_launches}")
+    t = time.perf_counter()
+    r_launches = rwkv6_serving_phase(dev, peaks, results)
+    log(f"phase rwkv6 serving: {time.perf_counter() - t:.1f} s; launches {r_launches}")
+    t = time.perf_counter()
+    rec_launches = recurrent_training_phase(dev, peaks, results)
+    log(f"phase zamba2 and rwkv6 training: {time.perf_counter() - t:.1f} s; launches "
+        f"{rec_launches}")
+    hd80 = {"flash_attention_hd80": z_launches["flash_attention"]
+            + rec_launches[ZAMBA_ARCH]["flash_attention"],
+            "flash_attention_bwd_hd80": rec_launches[ZAMBA_ARCH]["flash_attention_bwd"]}
+    log(f"flash launches on the hd-80 routes (zamba2's shared block): 'mma' forward "
+        f"{hd80['flash_attention_hd80']}, 'scalar' backward {hd80['flash_attention_bwd_hd80']}")
+    check(hd80["flash_attention_hd80"] > 0 and hd80["flash_attention_bwd_hd80"] > 0,
+          "the hd-80 routes were not launched on the zamba2 paths")
+
     kernels = []
     for kname, src, replaces, count in (
             ("sbv_loglik", "src/repro_torch/csrc/sbv_loglik.cu",
@@ -4436,6 +5028,11 @@ def main() -> int:
             ("flash_attention_bwd_hd256", "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
              "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
              "differentiates the XLA route)", hd256),
+            ("flash_attention_hd80", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:92", hd80),
+            ("flash_attention_bwd_hd80", "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
+             "differentiates the XLA route)", hd80),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",
              "src/repro/kernels/sbv_loglik.py:289", ladder_launches),
             ("sbv_predict_bf16", "src/repro_torch/csrc/sbv_predict.cu",

@@ -70,10 +70,13 @@ def _flatten(tree, prefix=()) -> dict:
 def _reference_path(name: str) -> tuple[tuple, int | None]:
     """The reference leaf of parameter ``name``, and its layer index: the
     per-layer leaves are stacked on a leading L axis under
-    ``["stack"]["layers"]``."""
+    ``["stack"]["layers"]``; the hybrid's shared block lies unstacked under
+    ``["stack"]["shared_attn"]``."""
     parts = name.split(".")
     if parts[0] == "layers":
         return ("stack", "layers") + tuple(parts[2:]), int(parts[1])
+    if parts[0] == "shared_attn":
+        return ("stack",) + tuple(parts), None
     return tuple(parts), None
 
 
@@ -107,17 +110,21 @@ def reference_tree(names, tensors) -> dict:
     ``names``): per-layer tensors stacked on a leading L axis."""
     layered: dict = {}
     tree: dict = {}
-    for name, t in zip(names, tensors):
-        path, layer = _reference_path(name)
-        if layer is None:
-            tree[path[0]] = t
-        else:
-            layered.setdefault(path, []).append(t)
-    for path, per_layer in layered.items():
+
+    def put(path, t):
         node = tree
         for key in path[:-1]:
             node = node.setdefault(key, {})
-        node[path[-1]] = torch.stack(per_layer)
+        node[path[-1]] = t
+
+    for name, t in zip(names, tensors):
+        path, layer = _reference_path(name)
+        if layer is None:
+            put(path, t)
+        else:
+            layered.setdefault(path, []).append(t)
+    for path, per_layer in layered.items():
+        put(path, torch.stack(per_layer))
     return tree
 
 

@@ -13,8 +13,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .layers import cross_entropy, rms_norm, softcap
-from .transformer import (AttnBlock, check_supported, decode_step, forward_train, init_cache,
-                          prefill)
+from .transformer import AttnBlock, decode_step, forward_train, init_cache, make_layers, prefill
 
 _LOSS_CHUNK = 512
 
@@ -24,7 +23,10 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 class TransformerLM(nn.Module):
-    """``embed`` (V, D), ``layers`` (an ``nn.ModuleList`` of ``AttnBlock``),
+    """``embed`` (V, D), ``layers`` (an ``nn.ModuleList`` of the blocks of
+    ``cfg.block_kind``: ``AttnBlock``, ``MambaBlock`` or ``RwkvBlock``), the
+    hybrid's ``shared_attn`` (an ``AttnBlock`` when ``cfg.attn_every``, else
+    None),
     ``ln_f`` (D,) in f32, and ``lm_head`` (D, V) unless the config ties the
     embeddings (then the head is ``embed.T``). Parameters are allocated
     uninitialised; ``init_params`` draws them. The matrices take ``dtype``,
@@ -32,12 +34,11 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg, *, device=None, dtype=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dtype = dtype or model_dtype(cfg)
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
-        self.layers = nn.ModuleList(AttnBlock(cfg, dtype=dtype, device=device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = make_layers(cfg, dtype=dtype, device=device)
+        self.shared_attn = AttnBlock(cfg, dtype=dtype, device=device) if cfg.attn_every else None
         self.ln_f = nn.Parameter(torch.zeros(cfg.d_model, dtype=torch.float32, device=device))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype,
@@ -58,13 +59,16 @@ class TransformerLM(nn.Module):
         """The reference's distributions: ``normal * 0.02`` for the embedding
         and the head, ``d_in ** -0.5`` for the dense layers (``d_ff ** -0.5``
         and ``(H hd) ** -0.5`` for the down and output projections), the
-        MoE's as ``models.moe.MoE`` draws them, zero norms."""
+        MoE's, mamba2's and rwkv6's as ``models.moe.MoE``, ``models.ssm.
+        Mamba2`` and ``models.rwkv6.RWKV6`` draw them, zero norms."""
         with torch.no_grad():
             draw = lambda w: torch.randn(w.shape, generator=generator, dtype=torch.float32,
                                          device=w.device)
             self.embed.copy_(draw(self.embed) * 0.02)
             for layer in self.layers:
                 layer.reset_parameters(generator)
+            if self.shared_attn is not None:
+                self.shared_attn.reset_parameters(generator)
             self.ln_f.zero_()
             if not self.cfg.tie_embeddings:
                 self.lm_head.copy_(draw(self.lm_head) * 0.02)
@@ -110,7 +114,7 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     x = embed_tokens(model, tokens)
-    hidden, aux = forward_train(model.layers, x, cfg, positions, tp)
+    hidden, aux = forward_train(model.layers, x, cfg, positions, tp, model.shared_attn)
     hidden = rms_norm(hidden, model.ln_f, cfg.norm_eps)
     head = model.head_matrix()
     chunk = min(_LOSS_CHUNK, s)
@@ -132,7 +136,7 @@ def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int):
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     x = embed_tokens(model, tokens)
-    hidden, cache = prefill(model.layers, x, model.cfg, positions, cache_len)
+    hidden, cache = prefill(model.layers, x, model.cfg, positions, cache_len, model.shared_attn)
     hidden = rms_norm(hidden[:, -1:], model.ln_f, model.cfg.norm_eps)
     return logits_fn(model, hidden)[:, 0], cache
 
@@ -140,7 +144,7 @@ def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int):
 def serve_step(model: TransformerLM, tokens: torch.Tensor, cache: dict):
     """One decode step: tokens (B, 1) -> (logits (B, V) f32, cache)."""
     x = embed_tokens(model, tokens)
-    hidden, cache = decode_step(model.layers, x, model.cfg, cache)
+    hidden, cache = decode_step(model.layers, x, model.cfg, cache, model.shared_attn)
     hidden = rms_norm(hidden, model.ln_f, model.cfg.norm_eps)
     return logits_fn(model, hidden)[:, 0], cache
 

@@ -1,0 +1,184 @@
+"""RWKV-6 "Finch" block: a linear recurrence with a data-dependent decay per
+channel. The counterpart of ``repro.models.rwkv6``.
+
+Per head (key dim K, value dim V):
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+with w_t = exp(-exp(wlog_t)) from a LoRA of the token-shifted input.
+
+The time mix runs in chunks of ``_CHUNK`` = 16 steps (the reference's
+default), exactly: inside a chunk the decay enters only as exp(c_{t-1} -
+c_s) for s < t, which is at most 1. The (Q, Q, K) decay tensor is formed
+once per chunk, with the strict causal mask applied before the ``exp``,
+and reduced over K (with r and k) before the product with v; the factored
+r exp(c), k exp(-c) form, which overflows for strong decay, is not used.
+As in ``ssm.py``, every chunk's state-free terms are evaluated at once and
+only the carry ``S = contrib + exp(c_last) S`` loops over chunks. The
+reference's ``REPRO_RWKV_CHUNK`` switch and its sharding constraints are
+not carried over (meshes are ROADMAP queue 1 item 13.6).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import dense_init_, linear_weight, rms_norm
+from .ssm import _carry, _pad_seq
+
+_CHUNK = 16
+_LORA = 64
+
+
+class RWKV6(nn.Module):
+    """The reference's leaves: time mix ``mu`` (5, d) (the r, k, v, g, w
+    shifts), ``wr``, ``wk``, ``wv``, ``wg`` (d, H K), ``w_base`` (H K,) f32,
+    ``w_lora_a`` (d, 64), ``w_lora_b`` (64, H K), ``u_bonus`` (H, K) f32,
+    ``ln_out`` (H K,) f32, ``wo`` (H K, d); channel mix ``mu_cm`` (2, d),
+    ``w_cm_r`` (d, d), ``w_cm_1`` (d, d_ff), ``w_cm_2`` (d_ff, d). The
+    matrices and the shifts take ``dtype``."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, hk = cfg.d_model, cfg.n_heads * cfg.head_dim
+        f32 = lambda *shape: nn.Parameter(torch.empty(*shape, dtype=torch.float32,
+                                                      device=device))
+        self.mu = nn.Parameter(torch.empty(5, d, dtype=dtype, device=device))
+        self.wr = linear_weight(d, hk, dtype, device)
+        self.wk = linear_weight(d, hk, dtype, device)
+        self.wv = linear_weight(d, hk, dtype, device)
+        self.wg = linear_weight(d, hk, dtype, device)
+        self.w_base = f32(hk)
+        self.w_lora_a = linear_weight(d, _LORA, dtype, device)
+        self.w_lora_b = linear_weight(_LORA, hk, dtype, device)
+        self.u_bonus = f32(cfg.n_heads, cfg.head_dim)
+        self.ln_out = f32(hk)
+        self.wo = linear_weight(hk, d, dtype, device)
+        self.mu_cm = nn.Parameter(torch.empty(2, d, dtype=dtype, device=device))
+        self.w_cm_r = linear_weight(d, d, dtype, device)
+        self.w_cm_1 = linear_weight(d, cfg.d_ff, dtype, device)
+        self.w_cm_2 = linear_weight(cfg.d_ff, d, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's ``rwkv6_init``: shifts 0.5, ``w_base`` -0.6,
+        dense draws (``w_lora_b`` at 0.01, ``wo`` at ``(H K) ** -0.5``,
+        ``w_cm_2`` at ``d_ff ** -0.5``), ``u_bonus`` and ``ln_out`` zero."""
+        for w in (self.wr, self.wk, self.wv, self.wg, self.w_lora_a):
+            dense_init_(w, generator)
+        dense_init_(self.w_lora_b, generator, scale=0.01)
+        dense_init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
+        dense_init_(self.w_cm_r, generator)
+        dense_init_(self.w_cm_1, generator)
+        dense_init_(self.w_cm_2, generator, scale=self.w_cm_2.shape[0] ** -0.5)
+        with torch.no_grad():
+            self.mu.fill_(0.5)
+            self.mu_cm.fill_(0.5)
+            self.w_base.fill_(-0.6)
+            self.u_bonus.zero_()
+            self.ln_out.zero_()
+
+
+def _token_shift(x: torch.Tensor, last: torch.Tensor | None = None) -> torch.Tensor:
+    """Previous-token features; ``last`` (B, 1, D) carries across calls."""
+    if last is None:
+        last = torch.zeros_like(x[:, :1])
+    return torch.cat([last, x[:, :-1]], dim=1)
+
+
+def _wkv_chunks(r, k, v, logw, u, state):
+    """Every WKV chunk: the reference's ``_wkv_chunk`` scanned over chunks.
+
+    r, k, v (B, C, Q, H, K) in the model dtype, logw (B, C, Q, H, K) f32,
+    u (H, K) f32, state (B, H, K, V) f32. Returns (y (B, C, Q, H, V) f32,
+    the final state)."""
+    q = r.shape[2]
+    rf, kf, vf = (t.float().transpose(2, 3) for t in (r, k, v))    # (B, C, H, Q, K)
+    clog = torch.cumsum(logw, dim=2).transpose(2, 3)                # (B, C, H, Q, K)
+    cshift = F.pad(clog, (0, 0, 1, 0))[..., :q, :]                  # clog_{t-1}
+    # intra: A[t, s] = sum_K r_t exp(c_{t-1} - c_s) k_s   (strictly s < t)
+    below = torch.ones(q, q, dtype=torch.bool, device=r.device).tril(-1)
+    dten = torch.exp((cshift[..., :, None, :] - clog[..., None, :, :])
+                     .masked_fill(~below[..., None], float("-inf")))  # (B, C, H, Q, Q, K) t, s
+    amat = torch.einsum("bchtsk,bchsk->bchts", dten * rf[..., :, None, :], kf)
+    y = amat @ vf
+    # diagonal u-bonus: y_t += (r_t . (u * k_t)) v_t
+    y = y + (rf * u[:, None, :] * kf).sum(-1, keepdim=True) * vf
+    # each chunk's own contribution to the state it passes on
+    contrib = (kf * torch.exp(clog[..., -1:, :] - clog)).transpose(-1, -2) @ vf
+    s_prev, state = _carry(contrib, torch.exp(clog[..., -1, :])[..., None], state)
+    # inter: y_t += (r_t * exp(c_{t-1})) S_prev
+    y = y + (rf * torch.exp(cshift)) @ s_prev
+    return y.transpose(2, 3), state
+
+
+def _heads(x: torch.Tensor, h: int, hk: int) -> torch.Tensor:
+    return x.reshape(x.shape[0], x.shape[1], h, hk)
+
+
+def _decay_log(m: RWKV6, wx: torch.Tensor) -> torch.Tensor:
+    """wlog = w_base + tanh(wx @ A) @ B, in f32."""
+    return m.w_base + (torch.tanh(wx @ m.w_lora_a) @ m.w_lora_b).float()
+
+
+def rwkv6_time_mix(m: RWKV6, x: torch.Tensor, state: torch.Tensor | None = None,
+                   last_tok: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), final WKV state (B, H, K, K) f32, the
+    last input token (B, 1, D))."""
+    cfg = m.cfg
+    b, s, _ = x.shape
+    h, hk = cfg.n_heads, cfg.head_dim
+    dtype = x.dtype
+    xs = _token_shift(x, last_tok)
+    mix = lambda i: x + m.mu[i] * (xs - x)
+    r = _heads(mix(0) @ m.wr, h, hk)
+    k = _heads(mix(1) @ m.wk, h, hk)
+    v = _heads(mix(2) @ m.wv, h, hk)
+    g = F.silu(mix(3) @ m.wg)
+    logw = _heads(-torch.exp(_decay_log(m, mix(4))), h, hk)         # (B, S, H, K) < 0
+
+    if state is None:
+        state = torch.zeros(b, h, hk, hk, dtype=torch.float32, device=x.device)
+    q = min(_CHUNK, s)
+    pad = (-s) % q
+    if pad:
+        # zero k (no state additions) + zero logw (no decay): padded steps
+        # are exact no-ops on the recurrence.
+        r, k, v, logw = (_pad_seq(a, pad) for a in (r, k, v, logw))
+    nc = (s + pad) // q
+    chunked = lambda a: a.reshape((b, nc, q) + a.shape[2:])
+    y, state = _wkv_chunks(chunked(r), chunked(k), chunked(v), chunked(logw), m.u_bonus, state)
+    y = y.reshape(b, s + pad, h * hk)[:, :s].to(dtype)
+    y = rms_norm(y, m.ln_out, cfg.norm_eps) * g
+    return y @ m.wo, state, x[:, -1:]
+
+
+def rwkv6_time_mix_decode(m: RWKV6, x: torch.Tensor, state: torch.Tensor,
+                          last_tok: torch.Tensor):
+    """One-token step: x (B, 1, D). Returns (y, new state, new last token)."""
+    cfg = m.cfg
+    b = x.shape[0]
+    h, hk = cfg.n_heads, cfg.head_dim
+    mix = lambda i: x + m.mu[i] * (last_tok - x)
+    r = _heads(mix(0) @ m.wr, h, hk)[:, 0]                         # (B, H, K)
+    k = _heads(mix(1) @ m.wk, h, hk)[:, 0]
+    v = _heads(mix(2) @ m.wv, h, hk)[:, 0]
+    g = F.silu(mix(3) @ m.wg)
+    w = torch.exp(-torch.exp(_decay_log(m, mix(4)))).reshape(b, h, hk)
+
+    kv = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
+    y = torch.einsum("bhk,bhkv->bhv", r.float(), state + m.u_bonus[None, :, :, None] * kv)
+    state = w[..., None] * state + kv
+    y = y.reshape(b, 1, h * hk).to(x.dtype)
+    y = rms_norm(y, m.ln_out, cfg.norm_eps) * g
+    return y @ m.wo, state, x
+
+
+def rwkv6_channel_mix(m: RWKV6, x: torch.Tensor, last_tok: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), the last input token (B, 1, D))."""
+    xs = _token_shift(x, last_tok)
+    xk = x + m.mu_cm[0] * (xs - x)
+    xr = x + m.mu_cm[1] * (xs - x)
+    r = torch.sigmoid(xr @ m.w_cm_r)
+    kk = torch.square(F.relu(xk @ m.w_cm_1))
+    return r * (kk @ m.w_cm_2), x[:, -1:]

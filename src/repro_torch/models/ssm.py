@@ -1,0 +1,227 @@
+"""Mamba-2 (SSD) block: the chunked state-space dual form. The counterpart
+of ``repro.models.ssm``.
+
+Recurrence (per head h, head dim P, state N):
+    h_t = a_t * h_{t-1} + (dt_t x_t) B_t^T        a_t = exp(-exp(A_log) dt_t)
+    y_t = C_t h_t + D x_t
+It runs in chunks of ``_CHUNK`` = 128 steps, as the reference's scan does,
+with a zero-padded ragged tail (zero ``xbar``, B, C and log-decay: exact
+no-ops on the state) and the state in f32. The reference's simplifications
+are kept: one B/C group, the short causal conv on x only, the gated norm as
+``rms_norm(y) * silu(z)``.
+
+The port evaluates every chunk at once where a term does not depend on the
+carried state (the cumulative log-decay, C B^T, the intra-chunk decay and
+product, each chunk's contribution to the state) and loops over chunks
+only for the carry ``h = contrib + exp(clog_last) * h`` (one ``addcmul`` a
+chunk); the inter-chunk term then reads every chunk's incoming state in one
+product. The arithmetic is the reference's ``_ssd_chunk``, term by term.
+Three points differ on purpose:
+
+* the causal mask is applied before the ``exp`` (``exp(-inf) = 0``): the
+  reference takes ``exp`` of the whole (t, s) decay difference, whose
+  upper triangle overflows to inf in f32 over a 128-step chunk, and masks
+  after it, so its forward is right but its gradient is NaN from 128
+  tokens on (ROADMAP fault 9);
+* the decay from step s to step t is formed from the segment sum of the
+  log-decays over (s, t] (``_segsum``), not as the difference of two
+  cumulative sums: the same value, but over 128 steps the cumulative sums
+  reach ~90, whose f32 spacing (~8e-6) the difference would carry into
+  every decay. With the difference one layer's gradient at S = 256 moves
+  by 9.0e-6 of its largest entry between chunks of 128 and 32, with the
+  segment sums by 2.9e-7 (tests/_torch_ssm_floor.py);
+* the intra-chunk product is formed in two steps, ``(C B^T)[..., None] *
+  decay`` and then a batched matmul with ``xbar``, so the (Q, Q, H, P)
+  tensor of a naive three-operand einsum never exists.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import dense_init_, linear_weight, rms_norm
+
+_CHUNK = 128
+
+
+class Mamba2(nn.Module):
+    """The reference's leaves: ``wz``, ``wx`` (d, d_inner), ``wB``, ``wC``
+    (d, N), ``wdt`` (d, H), ``dt_bias``, ``A_log``, ``D_skip`` (H,) f32,
+    ``conv_w`` (K, d_inner), ``norm`` (d_inner,) f32, ``wo`` (d_inner, d).
+    The matrices and ``conv_w`` take ``dtype``."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        f32 = lambda *shape: nn.Parameter(torch.empty(*shape, dtype=torch.float32,
+                                                      device=device))
+        self.wz = linear_weight(d, di, dtype, device)
+        self.wx = linear_weight(d, di, dtype, device)
+        self.wB = linear_weight(d, n, dtype, device)
+        self.wC = linear_weight(d, n, dtype, device)
+        self.wdt = linear_weight(d, h, dtype, device)
+        self.dt_bias = f32(h)
+        self.A_log = f32(h)
+        self.D_skip = f32(h)
+        self.conv_w = nn.Parameter(torch.empty(cfg.ssm_conv, di, dtype=dtype, device=device))
+        self.norm = f32(di)
+        self.wo = linear_weight(di, d, dtype, device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """The reference's ``mamba2_init``: dense draws, ``dt_bias`` and
+        ``A_log`` zero (A = -1), ``D_skip`` one, ``conv_w`` normal * 0.2,
+        ``norm`` zero, ``wo`` at ``d_inner ** -0.5``."""
+        for w in (self.wz, self.wx, self.wB, self.wC, self.wdt):
+            dense_init_(w, generator)
+        dense_init_(self.conv_w, generator, scale=0.2)
+        dense_init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
+        with torch.no_grad():
+            self.dt_bias.zero_()
+            self.A_log.zero_()
+            self.D_skip.fill_(1.0)
+            self.norm.zero_()
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv by K shifted adds: x (B, S, C), w (K, C) ->
+    (B, S, C) in x's dtype. The taps are summed in f32 and rounded once, as
+    XLA's fused elementwise pass evaluates the reference's shifted adds;
+    decode runs this same function over its K-token window, so the two
+    agree bit for bit."""
+    k, s = w.shape[0], x.shape[1]
+    xf, wf = x.float(), w.float()
+    out = xf * wf[k - 1]
+    for i in range(1, k):
+        out = out + F.pad(xf, (0, 0, i, 0))[:, :s] * wf[k - 1 - i]
+    return out.to(x.dtype)
+
+
+def conv_tail(xp: torch.Tensor, k: int) -> torch.Tensor:
+    """The decode cache's conv window after a prefill: the last ``k``
+    positions of the conv input ``x @ wx`` (B, S, C), zero-padded in front
+    when S < k."""
+    s = xp.shape[1]
+    return xp[:, s - k:] if s >= k else F.pad(xp, (0, 0, k - s, 0))
+
+
+def _carry(contrib: torch.Tensor, decay: torch.Tensor, state: torch.Tensor):
+    """The state carried across chunks: ``state = contrib[:, c] + decay[:,
+    c] * state`` for each chunk c in order. contrib (B, C, H, X, Y), decay
+    broadcastable to it, state (B, H, X, Y). Returns (the state entering
+    each chunk (B, C, H, X, Y), the final state)."""
+    prevs = []
+    for c in range(contrib.shape[1]):
+        prevs.append(state)
+        state = torch.addcmul(contrib[:, c], decay[:, c], state)
+    return torch.stack(prevs, 1), state
+
+
+def _segsum(loga: torch.Tensor) -> torch.Tensor:
+    """loga (..., Q) -> (..., Q, Q) with [t, s] = sum of loga over (s, t]
+    for s <= t (0 on the diagonal) and -inf above it."""
+    q = loga.shape[-1]
+    ones = torch.ones(q, q, dtype=torch.bool, device=loga.device)
+    seg = torch.cumsum(loga[..., :, None].expand(*loga.shape, q)
+                       .masked_fill(~ones.tril(-1), 0.0), dim=-2)
+    return seg.masked_fill(~ones.tril(), float("-inf"))
+
+
+def _ssd_chunks(xbar, bc, cc, loga, state):
+    """Every SSD chunk: the reference's ``_ssd_chunk`` scanned over chunks.
+
+    xbar (B, C, Q, H, P) and bc, cc (B, C, Q, N) in the model dtype, loga
+    (B, C, Q, H) f32, state (B, H, P, N) f32. Returns (y (B, C, Q, H, P)
+    f32, the final state)."""
+    loga = loga.transpose(2, 3)                                     # (B, C, H, Q)
+    clog = torch.cumsum(loga, dim=-1)
+    gt = (cc @ bc.transpose(-1, -2)).float()                        # (B, C, Q, Q) t, s
+    dmat = torch.exp(_segsum(loga))                                 # (B, C, H, Q, Q) t, s
+    xbar32 = xbar.float().transpose(2, 3)                           # (B, C, H, Q, P)
+    # intra-chunk: y[t] = sum_{s<=t} (C_t . B_s) exp(clog_t - clog_s) xbar_s
+    y = (gt[:, :, None] * dmat) @ xbar32
+    # each chunk's own contribution to the state it passes on, decayed by
+    # exp(clog_last - clog_s): the last row of dmat
+    wdecay = dmat[..., -1, :]                                       # (B, C, H, Q)
+    contrib = (xbar32 * wdecay[..., None]).transpose(-1, -2) @ bc.float()[:, :, None]
+    h_prev, state = _carry(contrib, torch.exp(clog[..., -1])[..., None, None], state)
+    # inter-chunk: y[t] += exp(clog_t) * C_t h_prev
+    y_inter = (cc.float()[:, :, None] @ h_prev.transpose(-1, -2)) * torch.exp(clog)[..., None]
+    return (y + y_inter).transpose(2, 3), state
+
+
+def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad the sequence axis (dim 1) at its end."""
+    return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
+
+
+def mamba2_forward(m: Mamba2, x: torch.Tensor, state: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), final SSD state (B, H, P, N) f32, conv
+    tail (B, K - 1, d_inner)). ``state`` is the initial SSD state; the conv
+    tail is what the reference's prefill recomputes as the decode cache's
+    conv window (``conv_tail`` of ``x @ wx``)."""
+    cfg = m.cfg
+    b, s, _ = x.shape
+    h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+    dtype = x.dtype
+    z = x @ m.wz
+    xp = x @ m.wx
+    xr = F.silu(_causal_conv(xp, m.conv_w))
+    bproj = x @ m.wB
+    cproj = x @ m.wC
+    dt = F.softplus((x @ m.wdt).float() + m.dt_bias)               # (B, S, H)
+    loga = -torch.exp(m.A_log) * dt                                 # (B, S, H) in (-inf, 0)
+
+    xh = xr.reshape(b, s, h, p)
+    xbar = xh * dt[..., None].to(dtype)
+    if state is None:
+        state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+    q = min(_CHUNK, s)
+    pad = (-s) % q
+    if pad:
+        xbar, bproj, cproj, loga = (_pad_seq(a, pad) for a in (xbar, bproj, cproj, loga))
+    nc = (s + pad) // q
+    chunked = lambda a: a.reshape((b, nc, q) + a.shape[2:])
+    y, state = _ssd_chunks(chunked(xbar), chunked(bproj), chunked(cproj), chunked(loga), state)
+    y = y.reshape(b, s + pad, h, p)[:, :s]
+    y = y + m.D_skip[:, None] * xh.float()
+    y = y.reshape(b, s, -1).to(dtype)
+    y = rms_norm(y, m.norm, cfg.norm_eps) * F.silu(z)
+    return y @ m.wo, state, conv_tail(xp, cfg.ssm_conv - 1)
+
+
+def mamba2_init_cache(cfg, batch: int, dtype, device=None) -> dict:
+    return {"ssd": torch.zeros(batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                               dtype=torch.float32, device=device),
+            "conv": torch.zeros(batch, cfg.ssm_conv - 1, cfg.d_inner, dtype=dtype,
+                                device=device)}
+
+
+def mamba2_decode(m: Mamba2, x: torch.Tensor, cache: dict):
+    """One-token step: x (B, 1, D), cache ``{"ssd", "conv"}`` -> (y (B, 1,
+    D), new cache)."""
+    cfg = m.cfg
+    b = x.shape[0]
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    dtype = x.dtype
+    z = x @ m.wz
+    xp = x @ m.wx                                                   # (B, 1, di)
+    window = torch.cat([cache["conv"], xp], dim=1)                  # (B, K, di)
+    xr = F.silu(_causal_conv(window, m.conv_w)[:, -1:])
+    new_conv = window[:, 1:]
+
+    bproj = x @ m.wB                                                # (B, 1, N)
+    cproj = x @ m.wC
+    dt = F.softplus((x @ m.wdt).float() + m.dt_bias)
+    a = torch.exp(-torch.exp(m.A_log) * dt)                         # (B, 1, H)
+
+    xh = xr.reshape(b, h, p)
+    xbar = (xh * dt[:, 0, :, None].to(dtype)).float()
+    ssd = cache["ssd"] * a[:, 0, :, None, None] + torch.einsum(
+        "bhp,bn->bhpn", xbar, bproj[:, 0].float())
+    y = torch.einsum("bn,bhpn->bhp", cproj[:, 0].float(), ssd)
+    y = y + m.D_skip[None, :, None] * xh.float()
+    y = y.reshape(b, 1, -1).to(dtype)
+    y = rms_norm(y, m.norm, cfg.norm_eps) * F.silu(z)
+    return y @ m.wo, {"ssd": ssd, "conv": new_conv}

@@ -1,16 +1,21 @@
 """Decoder blocks and their training forward, prefill and decode loops: the
-``block_kind == "attn"`` branch of ``repro.models.transformer``. It runs
-the global-attention stacks (musicgen, internlm2, minitron, mistral,
-chameleon), gemma2 (local and global layers alternating, the attention
-softcap, sandwich norms) and the MoE stacks (dbrx, qwen2-moe: attention and
-a grouped-dispatch MoE, ``models/moe.py``).
+counterpart of ``repro.models.transformer``, for all five stack patterns:
+
+* the global-attention stacks (musicgen, internlm2, minitron, mistral,
+  chameleon), gemma2 (local and global layers alternating, the attention
+  softcap, sandwich norms) and the MoE stacks (dbrx, qwen2-moe: attention
+  and a grouped-dispatch MoE, ``models/moe.py``): ``block_kind == "attn"``;
+* rwkv6: time mix and channel mix, attention-free (``models/rwkv6.py``);
+* mamba2, and the zamba2 hybrid: groups of ``attn_every`` mamba2 layers
+  (``models/ssm.py``), each group followed by ONE shared attention block
+  (the same weights every time, window 0; its KV cache is per group).
 
 The layers are an ``nn.ModuleList`` walked by a Python loop (the reference
 stacks them for ``lax.scan``), so each layer's window reaches the flash
-kernel as a Python int. The decode cache stays stacked as in the
-reference: ``{"k": (L, B, S_max, Hkv, hd), "v": ..., "pos": int}``. The
-attention-free and hybrid stacks (mamba2 / zamba2, rwkv6) raise
-``NotImplementedError``.
+kernel as a Python int. The decode caches keep the reference's stacked
+layouts and dtypes (``init_cache``); ``pos`` is a Python int. Decode writes
+new K/V into the attention caches in place and returns new recurrent
+states.
 """
 from __future__ import annotations
 
@@ -21,14 +26,8 @@ from torch.utils.checkpoint import checkpoint
 from .attention import Attention
 from .layers import MLP, rms_norm
 from .moe import MoE
-
-
-def check_supported(cfg) -> None:
-    """Raise for the configurations the port does not run yet."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: block_kind {cfg.block_kind!r} (mamba2 / rwkv6) is not ported yet "
-            "(ROADMAP queue 1 items 13.4, 13.5)")
+from .rwkv6 import RWKV6, rwkv6_channel_mix, rwkv6_time_mix, rwkv6_time_mix_decode
+from .ssm import Mamba2, mamba2_decode, mamba2_forward
 
 
 def _norm(d: int, device) -> nn.Parameter:
@@ -88,6 +87,79 @@ class AttnBlock(nn.Module):
         return self._ffn_residual(x, h)[0]
 
 
+class MambaBlock(nn.Module):
+    """``ln1`` and ``mamba``: x + mamba2(rms_norm(x))."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _norm(cfg.d_model, device)
+        self.mamba = Mamba2(cfg, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.ln1)
+        self.mamba.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor):
+        """(B, S, D) -> ``(x, ssd state, conv tail)``: the layer's decode
+        cache after a prefill."""
+        h, ssd, conv = mamba2_forward(self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps))
+        return x + h, ssd, conv
+
+    def decode(self, x: torch.Tensor, ssd: torch.Tensor, conv: torch.Tensor):
+        h, new = mamba2_decode(self.mamba, rms_norm(x, self.ln1, self.cfg.norm_eps),
+                               {"ssd": ssd, "conv": conv})
+        return x + h, new["ssd"], new["conv"]
+
+
+class RwkvBlock(nn.Module):
+    """``ln1``, ``ln2`` and ``rwkv``: x + time_mix(rms_norm(x)), then
+    + channel_mix(rms_norm(x))."""
+
+    def __init__(self, cfg, *, dtype=torch.float32, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = _norm(cfg.d_model, device)
+        self.ln2 = _norm(cfg.d_model, device)
+        self.rwkv = RWKV6(cfg, dtype=dtype, device=device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        nn.init.zeros_(self.ln1)
+        nn.init.zeros_(self.ln2)
+        self.rwkv.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor):
+        """(B, S, D) -> ``(x, wkv state, last1, last2)``: the layer's decode
+        cache after a prefill (the last token of each mix's input)."""
+        eps = self.cfg.norm_eps
+        h, wkv, last1 = rwkv6_time_mix(self.rwkv, rms_norm(x, self.ln1, eps))
+        x = x + h
+        h, last2 = rwkv6_channel_mix(self.rwkv, rms_norm(x, self.ln2, eps))
+        return x + h, wkv, last1, last2
+
+    def decode(self, x: torch.Tensor, wkv: torch.Tensor, last1: torch.Tensor,
+               last2: torch.Tensor):
+        eps = self.cfg.norm_eps
+        h, wkv, last1 = rwkv6_time_mix_decode(self.rwkv, rms_norm(x, self.ln1, eps), wkv, last1)
+        x = x + h
+        h, last2 = rwkv6_channel_mix(self.rwkv, rms_norm(x, self.ln2, eps), last_tok=last2)
+        return x + h, wkv, last1, last2
+
+
+def make_layers(cfg, *, dtype=torch.float32, device=None) -> nn.ModuleList:
+    """The ``n_layers`` blocks of ``cfg.block_kind``. Raises ``ValueError``
+    for a stack the reference does not build: another ``block_kind``, or a
+    hybrid whose layers do not split into whole groups of ``attn_every``."""
+    blocks = {"attn": AttnBlock, "mamba2": MambaBlock, "rwkv6": RwkvBlock}
+    if cfg.block_kind not in blocks:
+        raise ValueError(f"{cfg.name}: block_kind {cfg.block_kind!r} not in {tuple(blocks)}")
+    if cfg.attn_every and cfg.n_layers % cfg.attn_every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups of "
+                         f"attn_every = {cfg.attn_every}")
+    block = blocks[cfg.block_kind]
+    return nn.ModuleList(block(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers))
+
+
 def layer_windows(cfg) -> list[int]:
     """Per-layer sliding-window sizes (0 = global attention)."""
     if cfg.local_global and cfg.sliding_window:
@@ -102,65 +174,149 @@ def _train_layer(layer: AttnBlock, x: torch.Tensor, positions: torch.Tensor, win
     return x, aux
 
 
+def _train_group(group: nn.ModuleList, shared: AttnBlock, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    """One hybrid group: its mamba2 layers, then the shared block at window 0."""
+    for layer in group:
+        x = layer(x)[0]
+    return shared(x, positions, 0)[0]
+
+
 def forward_train(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor,
-                  tp: int = 1):
+                  tp: int = 1, shared_attn: AttnBlock | None = None):
     """x (B, S, D) embeddings -> ``(hidden (B, S, D), aux_loss)``: aux is
     the MoE layers' load-balancing losses summed over layers (0.0 for
-    dense stacks).
+    every other stack). ``shared_attn`` is the hybrid's shared block.
 
     With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), as the reference wraps its scan body in
     ``jax.checkpoint``: the backward pass recomputes each layer's
     activations instead of keeping L layers of them, so the attention
-    forward runs twice per layer and step."""
+    forward runs twice per layer and step. The hybrid checkpoints each
+    group (its mamba2 layers and the shared block) as one, as the reference
+    checkpoints ``group_body``."""
     if tp != 1:
         raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported yet "
                                   "(ROADMAP queue 1 item 13.6)")
-    aux = 0.0
-    for layer, w in zip(layers, layer_windows(cfg)):
-        if cfg.remat:
-            x, a = checkpoint(_train_layer, layer, x, positions, w, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = _train_layer(layer, x, positions, w)
-        aux = aux + a
-    return x, aux
+    ckpt = ((lambda f, *a: checkpoint(f, *a, use_reentrant=False, preserve_rng_state=False))
+            if cfg.remat else (lambda f, *a: f(*a)))
+    if cfg.block_kind == "attn":
+        aux = 0.0
+        for layer, w in zip(layers, layer_windows(cfg)):
+            x, a = ckpt(_train_layer, layer, x, positions, w)
+            aux = aux + a
+        return x, aux
+    if cfg.attn_every:
+        for i in range(0, cfg.n_layers, cfg.attn_every):
+            x = ckpt(_train_group, layers[i:i + cfg.attn_every], shared_attn, x, positions)
+        return x, 0.0
+    for layer in layers:
+        x = ckpt(lambda lyr, x: lyr(x)[0], layer, x)
+    return x, 0.0
 
 
 def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor,
-            cache_len: int):
+            cache_len: int, shared_attn: AttnBlock | None = None):
     """Forward over the prompt, building the decode cache.
 
-    Returns ``(hidden (B, S, D), cache)``; K/V are written into
-    length-``cache_len`` buffers and ``pos`` is S."""
+    Returns ``(hidden (B, S, D), cache)`` with ``pos`` = S; attention K/V
+    are written into length-``cache_len`` buffers."""
     b, s, _ = x.shape
-    if cache_len < s:
+    kv_layers = (cfg.n_layers if cfg.block_kind == "attn"
+                 else cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+    if kv_layers and cache_len < s:
         raise ValueError(f"prefill: cache_len {cache_len} < prompt length {s}")
-    shape = (cfg.n_layers, b, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
-        x, k, v, _ = layer(x, positions, w)
-        ck[i, :, :s] = k
-        cv[i, :, :s] = v
-    return x, {"k": ck, "v": cv, "pos": s}
+    if cfg.block_kind == "rwkv6":
+        states = []
+        for layer in layers:
+            x, *st = layer(x)
+            states.append(st)
+        wkv, last1, last2 = (torch.stack(t) for t in zip(*states))
+        return x, {"wkv": wkv, "last1": last1, "last2": last2, "pos": s}
+    if kv_layers:
+        shape = (kv_layers, b, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    if cfg.block_kind == "attn":
+        for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
+            x, k, v, _ = layer(x, positions, w)
+            ck[i, :, :s] = k
+            cv[i, :, :s] = v
+        return x, {"k": ck, "v": cv, "pos": s}
+    states = []
+    for i, layer in enumerate(layers):
+        x, ssd, conv = layer(x)
+        states.append((ssd, conv))
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            g = i // cfg.attn_every
+            x, k, v, _ = shared_attn(x, positions, 0)
+            ck[g, :, :s] = k
+            cv[g, :, :s] = v
+    ssd, conv = (torch.stack(t) for t in zip(*states))
+    if not cfg.attn_every:
+        return x, {"ssd": ssd, "conv": conv, "pos": s}
+    grouped = lambda t: t.reshape((kv_layers, cfg.attn_every) + t.shape[1:])
+    return x, {"ssd": grouped(ssd), "conv": grouped(conv), "k": ck, "v": cv, "pos": s}
 
 
-def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict):
+def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
+                shared_attn: AttnBlock | None = None):
     """One-token decode, x (B, 1, D). Returns ``(hidden (B, 1, D), cache)``;
-    the cache's K/V buffers are updated in place and ``pos`` advances."""
+    the attention K/V buffers are updated in place, the recurrent states
+    come back as new tensors, and ``pos`` advances."""
     pos = int(cache["pos"])
-    if not 0 <= pos < cache["k"].shape[2]:
+    if "k" in cache and not 0 <= pos < cache["k"].shape[2]:
         raise ValueError(f"decode: position {pos} outside the cache of length "
                          f"{cache['k'].shape[2]}")
-    for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
-        x = layer.decode(x, cache["k"][i], cache["v"][i], pos, w)
-    return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    if cfg.block_kind == "attn":
+        for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
+            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, w)
+        return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    if cfg.block_kind == "rwkv6":
+        states = []
+        for i, layer in enumerate(layers):
+            x, *st = layer.decode(x, cache["wkv"][i], cache["last1"][i], cache["last2"][i])
+            states.append(st)
+        wkv, last1, last2 = (torch.stack(t) for t in zip(*states))
+        return x, {"wkv": wkv, "last1": last1, "last2": last2, "pos": pos + 1}
+    flat = lambda t: t.reshape((cfg.n_layers,) + t.shape[2:]) if cfg.attn_every else t
+    ssd_in, conv_in = flat(cache["ssd"]), flat(cache["conv"])
+    states = []
+    for i, layer in enumerate(layers):
+        x, *st = layer.decode(x, ssd_in[i], conv_in[i])
+        states.append(st)
+        if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
+            g = i // cfg.attn_every
+            x = shared_attn.decode(x, cache["k"][g], cache["v"][g], pos, 0)
+    ssd, conv = (torch.stack(t) for t in zip(*states))
+    if not cfg.attn_every:
+        return x, {"ssd": ssd, "conv": conv, "pos": pos + 1}
+    grouped = lambda t: t.reshape(cache["ssd"].shape[:2] + t.shape[1:])
+    return x, {"ssd": grouped(ssd), "conv": grouped(conv), "k": cache["k"], "v": cache["v"],
+               "pos": pos + 1}
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
     """Empty decode cache (for decode without a prefill), ``pos`` at the
-    last slot as in the reference."""
-    shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device), "pos": cache_len - 1}
+    last slot as in the reference: attention K/V (L, B, cache_len, Hkv, hd);
+    rwkv6 ``wkv`` (L, B, H, hd, hd) f32, ``last1`` / ``last2`` (L, B, 1,
+    D); mamba2 ``ssd`` (L, B, H, P, N) f32 and ``conv`` (L, B, K - 1,
+    d_inner), grouped as (G, attn_every, ...) in the hybrid, whose shared
+    block's K/V are (G, B, cache_len, Hkv, hd)."""
+    zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
+    kv = lambda n: (n, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    pos = cache_len - 1
+    n = cfg.n_layers
+    if cfg.block_kind == "attn":
+        return {"k": zeros(kv(n)), "v": zeros(kv(n)), "pos": pos}
+    if cfg.block_kind == "rwkv6":
+        return {"wkv": zeros((n, batch, cfg.n_heads, cfg.head_dim, cfg.head_dim), torch.float32),
+                "last1": zeros((n, batch, 1, cfg.d_model)),
+                "last2": zeros((n, batch, 1, cfg.d_model)), "pos": pos}
+    lead = (n // cfg.attn_every, cfg.attn_every) if cfg.attn_every else (n,)
+    out = {"ssd": zeros(lead + (batch, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state),
+                        torch.float32),
+           "conv": zeros(lead + (batch, cfg.ssm_conv - 1, cfg.d_inner)), "pos": pos}
+    if cfg.attn_every:
+        out["k"], out["v"] = zeros(kv(lead[0])), zeros(kv(lead[0]))
+    return out

@@ -32,10 +32,12 @@ from repro_torch.models.model import (init_params, prefill_step, serve_step,  # 
 from repro_torch.training.serve import greedy_generate  # noqa: E402
 
 F32 = dict(rtol=1e-4, atol=1e-4)
-# MHA by design (musicgen, qwen2-moe) keeps n_kv_heads = n_heads; musicgen
-# runs at its published head_dim of 64 instead of reduced()'s 32. gemma2's
-# window is cut to 16 so that it binds in the 24-token prompt (reduced()'s
-# 64 would not).
+# MHA by design (musicgen, qwen2-moe, zamba2's shared block) keeps
+# n_kv_heads = n_heads; musicgen runs at its published head_dim of 64 instead
+# of reduced()'s 32. gemma2's window is cut to 16 so that it binds in the
+# 24-token prompt (reduced()'s 64 would not). zamba2 runs reduced()'s 4
+# mamba2 layers in 2 groups (the shared block applied twice), rwkv6 its 4
+# layers.
 ARCHS = {
     "internlm2-1.8b": dict(n_kv_heads=2),
     "minitron-4b": dict(n_kv_heads=2),
@@ -45,6 +47,8 @@ ARCHS = {
     "gemma2-9b": dict(n_kv_heads=2, sliding_window=16),
     "qwen2-moe-a2.7b": dict(),
     "dbrx-132b": dict(n_kv_heads=2),
+    "zamba2-2.7b": dict(),
+    "rwkv6-3b": dict(),
 }
 B, S, NEW = 2, 24, 8
 
@@ -75,8 +79,8 @@ def served(request):
     prefill = jax.jit(make_prefill_step(jcfg, cache_len))
     decode = jax.jit(make_decode_step(jcfg))
     logits, cache = prefill(params, jnp.asarray(prompt))
-    ref = {"prefill_logits": np.asarray(logits), "k": np.asarray(cache["k"]),
-           "v": np.asarray(cache["v"]), "step_logits": [], "tokens": []}
+    ref = {"prefill_logits": np.asarray(logits), "step_logits": [], "tokens": [],
+           "cache": {k: np.asarray(v) for k, v in cache.items() if k != "pos"}}
     tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
     ref["tokens"].append(np.array(tok))
     for _ in range(NEW - 1):
@@ -95,12 +99,18 @@ def test_prefill_logits_match_reference(served):
 
 
 def test_prefill_cache_matches_reference(served):
+    """Every leaf of the decode cache, in the reference's layout and dtype:
+    attention K/V, rwkv6's WKV state and last tokens, mamba2's SSD state and
+    conv window (grouped per shared-block application in zamba2)."""
     with torch.no_grad():
         _, cache = prefill_step(served["model"], torch.from_numpy(served["prompt"]),
                                 served["cache_len"])
     assert cache["pos"] == S
-    np.testing.assert_allclose(cache["k"].numpy(), served["ref"]["k"], **F32)
-    np.testing.assert_allclose(cache["v"].numpy(), served["ref"]["v"], **F32)
+    want = served["ref"]["cache"]
+    assert sorted(cache) == sorted([*want, "pos"])
+    for key, leaf in want.items():
+        assert cache[key].dtype == torch.float32, key
+        np.testing.assert_allclose(cache[key].numpy(), leaf, err_msg=key, **F32)
 
 
 def test_decode_logits_match_reference(served):
@@ -187,13 +197,18 @@ def test_decode_after_prefill_matches_longer_prefill():
     np.testing.assert_allclose(dec.numpy(), direct.numpy(), rtol=2e-3, atol=2e-3)
 
 
-# The families of the attention branch beyond the dense stacks: gemma2
-# (local/global windows, softcaps, sandwich norms, tied and scaled
-# embeddings) and the MoE stacks.
-FAMILIES = ["gemma2-9b", "qwen2-moe-a2.7b", "dbrx-132b"]
+# The families beyond the dense stacks: gemma2 (local/global windows,
+# softcaps, sandwich norms, tied and scaled embeddings), the MoE stacks, the
+# zamba2 hybrid (mamba2 groups and a shared attention block) and the
+# attention-free rwkv6. ROUTED: those with attention, whose flash route is
+# held against the never route.
+ATTN_FAMILIES = ["gemma2-9b", "qwen2-moe-a2.7b", "dbrx-132b"]
+RECURRENT = ["zamba2-2.7b", "rwkv6-3b"]
+FAMILIES = ATTN_FAMILIES + RECURRENT
+ROUTED = ATTN_FAMILIES + ["zamba2-2.7b"]
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", ATTN_FAMILIES)
 def test_bf16_families_match_reference(arch):
     """bf16 prefill logits and one decode step at 3e-2, the cache at the
     reference's flash-vs-XLA 8e-2 (as ``test_bf16_internlm2_matches_reference``)."""
@@ -213,6 +228,49 @@ def test_bf16_families_match_reference(arch):
     np.testing.assert_allclose(got.numpy(), np.asarray(logits), **tol)
     np.testing.assert_allclose(got2.numpy(), np.asarray(logits2), **tol)
     np.testing.assert_allclose(k_prefill, np.asarray(cache["k"], np.float32), rtol=8e-2, atol=8e-2)
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_bf16_recurrent_families_match_reference(arch, seed):
+    """bf16 prefill logits, one decode step and every cache leaf (in its
+    dtype: the recurrent states f32, the rest bf16), each held against the
+    reference's f32 run of the same weights: no further from it (relative
+    L2) than 1.25x the reference's own bf16 result is. The two packages'
+    bf16 results lie 1.2-6.0 % from each other and each 1.0-7.4 % from f32
+    (readings at these seeds, tests/_torch_ssm_floor.py): the reference's
+    XLA CPU keeps some bf16 intermediates in f32 (ROADMAP fault 5), the
+    port rounds op by op, so an elementwise 3e-2 fails on single entries
+    (a logit, a near-cancelling WKV entry) while the port is as close to
+    f32 as the reference (ratio at most 1.11)."""
+    jcfg, tcfg = _reduced(arch, dtype="bfloat16")
+    j32 = dataclasses.replace(jcfg, dtype="float32")
+    params = jinit_params(jax.random.key(seed), jcfg)
+    prompt = _prompt(jcfg.vocab, seed=seed)
+
+    def ref(cfg, p):
+        logits, cache = jax.jit(make_prefill_step(cfg, S + 4))(p, jnp.asarray(prompt))
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)[:, None]
+        _, logits2, _ = jax.jit(make_decode_step(cfg))(p, tok, cache)
+        return dict(prefill=logits, decode=logits2, tok=tok,
+                    **{k: v for k, v in cache.items() if k != "pos"})
+
+    want, f32 = ref(jcfg, params), ref(j32, _np32(params))
+    model = convert.lm_params_from_reference(_np32(params), tcfg)
+    with torch.no_grad():
+        got, tcache = prefill_step(model, torch.from_numpy(prompt), S + 4)
+        # decode writes K/V in place: keep the prefill's.
+        got = dict(prefill=got, **{k: v.clone() for k, v in tcache.items() if k != "pos"})
+        # The decode is fed the reference's bf16 token (the f32 run's may differ).
+        got["decode"], _ = serve_step(model, torch.from_numpy(np.array(want["tok"])), tcache)
+    rel = lambda a, b: float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    assert sorted(got) == sorted(k for k in want if k != "tok")
+    for key, leaf in got.items():
+        if key not in ("prefill", "decode"):
+            assert str(leaf.dtype).split(".")[-1] == str(want[key].dtype), key
+        a, b, c = (np.asarray(x, np.float32) for x in (leaf.float(), want[key], f32[key]))
+        assert np.isfinite(a).all(), key
+        assert rel(a, c) <= 1.25 * rel(b, c), (key, rel(a, c), rel(b, c), rel(a, b))
 
 
 def test_gemma2_window_binds_and_embeddings_are_tied():
@@ -246,12 +304,13 @@ def test_families_decode_after_prefill_matches_longer_prefill(arch):
     np.testing.assert_allclose(dec.numpy(), direct.numpy(), rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("arch", ROUTED)
 def test_families_kernel_route_matches_never_route(arch):
     """The flash route (its plain version on CPU tensors) against the
     ``use_flash="never"`` route, f32, S = 2048 (two of the never route's
     1024-query chunks and of the MoE's 1024-token groups, past gemma2's
-    64-token window)."""
+    64-token window; zamba2 at 2 layers: one group of 2 mamba2 layers and
+    the shared block, 16 SSD chunks)."""
     cfg = tconfigs.get_config(arch).reduced(dtype="float32", n_layers=2)
     model = init_params(cfg, torch.Generator().manual_seed(0))
     never = TransformerLM(dataclasses.replace(cfg, use_flash="never"))
@@ -282,6 +341,16 @@ def test_families_param_round_trip_is_bitwise(arch):
                 "layers.0.moe.w_down"} <= names
         assert model.layers[0].moe.router.dtype == torch.float32
         assert ("layers.0.moe.shared.w_gate" in names) == bool(tcfg.shared_d_ff)
+    if tcfg.block_kind == "mamba2":
+        assert {"layers.0.mamba.A_log", "layers.0.mamba.conv_w", "shared_attn.attn.wq",
+                "shared_attn.mlp.w_down"} <= names
+        assert model.layers[0].mamba.D_skip.dtype == torch.float32
+        assert model.layers[0].mamba.conv_w.dtype == torch.bfloat16
+        assert "shared_attn" in back["stack"] and "layers.0" not in str(back["stack"].keys())
+    if tcfg.block_kind == "rwkv6":
+        assert {"layers.0.rwkv.u_bonus", "layers.0.rwkv.w_cm_2", "layers.0.ln2"} <= names
+        assert model.layers[0].rwkv.w_base.dtype == torch.float32
+        assert model.layers[0].rwkv.mu.dtype == torch.bfloat16
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
@@ -324,10 +393,12 @@ def test_config_registry_is_a_copy():
                 jconfigs.applicable(cfg, shape)
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-3b"])
-def test_unported_configurations_raise(arch):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TransformerLM(tconfigs.get_config(arch).reduced())
+@pytest.mark.parametrize("over,match", [(dict(block_kind="retnet"), "block_kind"),
+                                        (dict(n_layers=3), "whole groups")])
+def test_stacks_the_reference_does_not_build_raise(over, match):
+    cfg = dataclasses.replace(tconfigs.get_config("zamba2-2.7b").reduced(), **over)
+    with pytest.raises(ValueError, match=match):
+        TransformerLM(cfg)
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 16, 32])

@@ -337,22 +337,47 @@ def test_train_loss_finite_and_grad_flows(arch):
 
 # Reduced f32 configurations of the new families: gemma2's window cut to 16
 # so that it binds in the 64-token batches; the MoE stacks at reduced()'s
-# 4 experts top-2 (their loss carries the router's aux term).
+# 4 experts top-2 (their loss carries the router's aux term); zamba2 at
+# reduced()'s 4 mamba2 layers in 2 groups, so that the shared block's
+# gradient sums two applications; rwkv6 at 2 layers.
 FAMILIES = {"gemma2-9b": dict(sliding_window=16, n_kv_heads=2),
             "qwen2-moe-a2.7b": dict(),
-            "dbrx-132b": dict(n_kv_heads=2)}
+            "dbrx-132b": dict(n_kv_heads=2),
+            "zamba2-2.7b": dict(n_layers=4),
+            "rwkv6-3b": dict()}
+# Gradient leaves are held at 1e-5 of their largest entry, zamba2's at
+# 2.5e-4: its f32 gradient is ill-conditioned, the embedding's most. Readings
+# (tests/_torch_ssm_floor.py, on the CPU): at S = 64 the reference against
+# itself with its SSD chunk at 32 / 16 instead of 128 moves by 5.8e-5 /
+# 4.7e-5 of the largest entry (the port: 1.7e-5 / 1.1e-5), port against
+# reference 9.6e-5; at S = 256, against an f64 evaluation of the same loss,
+# the port's f32 gradient lies 8.3e-5 off and the reference's
+# token-by-token form (tests/test_torch_recurrent.py) 4.0e-5, and they lie
+# 1.2e-4 from each other: the two roundings added.
+GRAD_RTOL = {"zamba2-2.7b": 2.5e-4}
+# The train step's loss and grad norm after the first step, (loss, grad
+# norm) rtol where not 1e-5: Adam's first update is lr g / (|g| + eps), so
+# an entry whose gradient is near eps or near zero moves by up to 2 lr on a
+# rounding of g. Readings (tests/_torch_ssm_floor.py, lr 3e-3): the
+# reference against itself with the SSD chunk at 32 instead of 128 (rwkv6:
+# WKV chunk 8, not 16) moves zamba2's loss by 2.3e-6 / 1.7e-5 and its grad
+# norm by 2.4e-3 / 5.2e-3 at steps 2 / 3, rwkv6's grad norm by 1.1e-6 /
+# 2.5e-6; the port against the reference reads 2.0e-7 / 3.2e-5 and 9.2e-4
+# / 2.9e-3 (zamba2), 1.4e-5 / 5.9e-7 (rwkv6's grad norm).
+STEP_RTOL = {"zamba2-2.7b": (1e-4, 1e-2), "rwkv6-3b": (1e-5, 1e-4)}
 
 
 def _family_cfgs(arch, **kw):
-    kw = dict(n_layers=2, vocab=128, dtype="float32", **FAMILIES[arch], **kw)
+    kw = {**dict(n_layers=2, vocab=128, dtype="float32"), **FAMILIES[arch], **kw}
     return jconfigs.get_config(arch).reduced(**kw), tconfigs.get_config(arch).reduced(**kw)
 
 
 @pytest.mark.parametrize("arch", sorted(FAMILIES))
 def test_families_lm_loss_and_gradients_match_reference(arch):
     """The loss (with the MoE's aux term) at rtol 1e-5 and every gradient
-    leaf within 1e-5 of its largest entry, gemma2's tied embedding included
-    (its gradient sums the lookup's and the head's)."""
+    leaf within 1e-5 of its largest entry (zamba2: ``GRAD_RTOL``), gemma2's
+    tied embedding included (its gradient sums the lookup's and the
+    head's), zamba2's shared block too (two applications)."""
     jcfg, tcfg = _family_cfgs(arch)
     params = jinit_params(jax.random.key(0), jcfg)
     tok, lab = _batch(jcfg.vocab, b=4)
@@ -363,7 +388,7 @@ def test_families_lm_loss_and_gradients_match_reference(arch):
     grads_t = torch.autograd.grad(loss_t, list(model.parameters()))
     np.testing.assert_allclose(float(loss_t.detach()), float(loss_j), rtol=1e-5)
     for (name, _), g, w in zip(model.named_parameters(), grads_t, _ref_grads(tcfg, grads_j)):
-        _close_scaled(g, w, 1e-5)
+        _close_scaled(g, w, GRAD_RTOL.get(arch, 1e-5))
     if tcfg.tie_embeddings:
         assert "lm_head" not in dict(model.named_parameters())
     if tcfg.n_experts:
@@ -389,8 +414,9 @@ def test_families_train_step_matches_reference_over_three_steps(arch):
         tok, lab = _batch(jcfg.vocab, seed=10 + i)
         jstate, jm = jstep(jstate, jnp.asarray(tok), jnp.asarray(lab))
         tstate, tm = tstep(tstate, tok, lab)
-        for key in ("loss", "grad_norm"):
-            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=1e-5, err_msg=key)
+        rtols = STEP_RTOL.get(arch, (1e-5, 1e-5)) if i else (1e-5, 1e-5)
+        for key, rtol in zip(("loss", "grad_norm"), rtols):
+            np.testing.assert_allclose(float(tm[key]), float(jm[key]), rtol=rtol, err_msg=key)
     got = convert.train_state_to_reference(tstate, tcfg)
     for a, b in zip(jax.tree.leaves(got["params"]), jax.tree.leaves(_np32(jstate.params))):
         np.testing.assert_allclose(a, b, rtol=0, atol=10 * lr)
