@@ -87,10 +87,11 @@ path once through the user entry points:
   then gemma2 at 8
   layers on 1 x 8192 tokens and qwen2-moe at 4 layers on 4 x 2048 tokens,
   3 steps each;
-* zamba2 serving (item 13.4): the forward kernel at hd 80 (its 'mma' route,
-  zamba2's shared attention block) against its plain version at the path's
-  shape (4 x 4096, H = Hkv = 32), timed beside it and
-  ``scaled_dot_product_attention`` (the same function here), then
+* zamba2 serving (item 13.4): the forward kernel at hd 80 (its 'wgmma'
+  route, zamba2's shared attention block) against its plain version at the
+  path's shape (4 x 4096, H = Hkv = 32), its row statistics against the
+  plain version's, timed beside the 'mma' kernel it replaced, the plain
+  version and ``scaled_dot_product_attention`` (the same function here), then
   zamba2-2.7b at full width and depth (54 mamba2 layers, the shared block
   after every 6) in bf16, 4 x 4096 + 32 greedy tokens, against its
   ``use_flash="never"`` route, its first group against the same weights in
@@ -101,8 +102,9 @@ path once through the user entry points:
   layer on the card against the CPU, the chunked time mix against its
   token loop, the WKV scan's share of a layer;
 * training both at full width through ``launch.train.main``: the backward
-  kernels at hd 80 (the 'scalar' route) against autograd through the plain
-  version at 4 x 2048, timed beside the SDPA backward, then zamba2 at 12
+  kernels at hd 80 (the 'wgmma' route, fed by the forward's statistics)
+  against autograd through the plain version at 4 x 2048, timed beside the
+  'scalar' kernels they replaced and the SDPA backward, then zamba2 at 12
   layers and rwkv6 at 8 on 4 x 2048 tokens, 3 steps each.
 
 Launch counts are set to 0 just before each path and read just after it.
@@ -115,9 +117,12 @@ the repository's sources are not beside this file, or when any check fails.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -222,8 +227,8 @@ G2_TRAIN_LAYERS, G2_TRAIN_BATCH, G2_TRAIN_SEQ = 8, 1, 8192
 MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH, MOE_TRAIN_SEQ = 4, 4, 2048
 FAMILY_TRAIN_STEPS = 3
 # The attention-free and hybrid paths: zamba2-2.7b (54 mamba2 layers, the
-# shared attention block after every 6: hd 80, the forward's 'mma' and the
-# backward's 'scalar' routes) and rwkv6-3b (32 layers), each at full width and
+# shared attention block after every 6: hd 80, the forward's and the
+# backward's 'wgmma' routes) and rwkv6-3b (32 layers), each at full width and
 # depth, bf16, at the internlm2 path's LM_BATCH x LM_PROMPT + LM_NEW. Holds:
 # the f32 routes and decode after a prefill of SSM_F32_PROMPT tokens on
 # zamba2's first group; one full-width layer in f32 on the card against the
@@ -274,6 +279,43 @@ def cuda_ms(fn, reps: int = 5, warm: int = 1, inner: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def ptxas_summary(nvcc_log: str, marker: str) -> list[str]:
+    """The registers, spills and serialised-wgmma notes ptxas (-Xptxas=-v)
+    printed for each kernel whose mangled name holds ``marker`` (a template
+    argument, e.g. "Li80E"), one line per kernel: "name<args>: ..."."""
+    found, name = {}, None
+    for line in nvcc_log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            name = entry.group(1) if marker in entry.group(1) else None
+            if name:
+                found[name] = {"regs": "? registers", "spill": "? spills"}
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if name and spill:
+            found[name]["spill"] = f"{spill.group(1)} B spill stores, {spill.group(2)} B spill loads"
+        elif name and regs:
+            found[name]["regs"] = f"{regs.group(1)} registers"
+    out = []
+    for mangled, r in found.items():
+        # The kernel's name follows its length in the mangling, then its
+        # template arguments (ints, bools, the element type).
+        label = mangled
+        for m in re.finditer(r"flash_(?:fwd|bwd)\w*?kernel(?=I)", mangled):
+            if mangled[:m.start()].endswith(str(len(m.group(0)))):
+                args = re.findall(r"Li(\d+)E|Lb([01])E|I(13__nv_bfloat16|f)",
+                                  mangled[m.end():].split("EEv")[0] + "E")
+                label = m.group(0) + "<" + ", ".join(
+                    n or {"1": "true", "0": "false"}.get(b_) or
+                    {"f": "float", "13__nv_bfloat16": "bf16"}[t] for n, b_, t in args) + ">"
+                break
+        serial = any("C7512" in ln and mangled in ln for ln in nvcc_log.splitlines())
+        out.append(f"{label}: {r['regs']}, {r['spill']}, wgmma serialised (C7512): "
+                   f"{'yes' if serial else 'no'}")
+    return out
 
 
 def card_peaks(name: str) -> dict:
@@ -755,9 +797,9 @@ def lm_training_phase(dev, peaks, results: dict, work: str) -> dict:
     # at the path's shape (B = 4, H = 16, Hkv = 8, S = T = 2048, hd = 128,
     # causal) and at small variants (window, softcap, hd 64 and 80, GQA at
     # n_rep 4 off the tiles, S < T without causality, rows with no allowed
-    # key, one row), through the route flash_bwd_route gives: bf16 at hd 64
-    # and 128 on 'wgmma' (the forward's statistics computed first), the rest
-    # on 'scalar'.
+    # key, one row), through the route flash_bwd_route gives: bf16 at hd 64,
+    # 80 and 128 on 'wgmma' (the forward's statistics computed first), the
+    # rest on 'scalar'.
     path = (TRAIN_BATCH, cfg.n_heads, cfg.n_kv_heads, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim,
             True, 0, 0.0)
     cases = [("path", path), ("window", (1, 4, 2, 600, 600, 128, True, 100, 0.0)),
@@ -1679,21 +1721,26 @@ def families_training_phase(dev, peaks, results: dict) -> dict:
 
 def _hd80_forward(dev, peaks, cfg) -> dict:
     """The forward kernel at zamba2's shared-attention shape (LM_BATCH x
-    LM_PROMPT, H = Hkv = 32, hd 80, causal, no softcap; the 'mma' route)
+    LM_PROMPT, H = Hkv = 32, hd 80, causal, no softcap; the 'wgmma' route)
     against its plain version on random and edge queries (3e-2 per element,
-    1e-2 per row in relative L2), and timed beside the plain version and
+    1e-2 per row in relative L2), its row statistics against the plain
+    version's (as at hd 64 and 128: m exactly -1e30 on rows with no allowed
+    key, within 1e-5 elsewhere; 1 / l within 1e-5 relative), and timed
+    beside the 'mma' kernel it replaced (uncounted, first held against it per
+    row: baseline, kernel, kernel, baseline), the plain version and
     ``scaled_dot_product_attention(is_causal=True)``, which with Hkv = H and
     no softcap computes the same function (held per element; its rows are
     printed)."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attention import (flash_attention_cuda, flash_attention_plain,
-                                                     flash_route)
+    from repro_torch.kernels.flash_attention import (ROUTES, flash_attention_cuda,
+                                                     flash_attention_plain, flash_route)
+    from repro_torch.kernels.flash_attention import _launch as flash_launch
 
     b, h, hkv, s, hd = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, LM_PROMPT, cfg.head_dim
     route = flash_route(torch.bfloat16, hd)
-    check(route == "mma", f"zamba2: the forward's route at hd {hd} is {route!r}")
+    check(route == "wgmma", f"zamba2: the forward's route at hd {hd} is {route!r}")
     tol, row_tol = 3e-2, 1e-2
     gen = torch.Generator(device=dev).manual_seed(SEED + 37)
     mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
@@ -1701,28 +1748,45 @@ def _hd80_forward(dev, peaks, cfg) -> dict:
     errs = {}
     for inp in ("random", "edge"):
         qq = q if inp == "random" else flash_edge_queries(k, h, s, 0)
-        want = flash_attention_plain(qq, k, v, causal=True)
-        outs = [("kernel", flash_attention_cuda(qq, k, v, causal=True))]
+        want, want_st = flash_attention_plain(qq, k, v, causal=True, return_stats=True)
+        got, st = flash_attention_cuda(qq, k, v, causal=True, return_stats=True)
+        outs = [("kernel", got)]
         if inp == "random":
             outs.append(("sdpa", F.scaled_dot_product_attention(q, k, v, is_causal=True)))
-        for who, got in outs:
+        for who, out in outs:
             torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            bad = float(((got.float() - want.float()).abs() - tol * (1 + want.float().abs())).max())
-            row = row_rel_err(got, want)
+            err = float((out.float() - want.float()).abs().max())
+            bad = float(((out.float() - want.float()).abs() - tol * (1 + want.float().abs())).max())
+            row = row_rel_err(out, want)
             log(f"flash zamba2 hd{hd} bf16 {inp} ({who}; {route} route): B={b} H={h} Hkv={hkv} "
                 f"S=T={s} causal: max_abs_err={err:.3e} (tol {tol:g}), row rel L2 max {row:.3e} "
                 f"(tol {row_tol:g})")
-            check(bool(torch.isfinite(got).all()), f"flash zamba2 hd{hd} {who}: non-finite output")
+            check(bool(torch.isfinite(out).all()), f"flash zamba2 hd{hd} {who}: non-finite output")
             check(bad <= 0 and (who == "sdpa" or row <= row_tol),
                   f"flash zamba2 hd{hd} {inp} {who} vs plain: max_abs_err {err:.3e}, row rel L2 "
                   f"{row:.3e}")
             if who == "kernel":
                 errs[inp] = (err, row)
-        del qq, want, outs, got
+        empty = want_st[0] == -1e30
+        m_err = float((st[0][~empty] - want_st[0][~empty]).abs().max())
+        l_rel = float(((st[1] - want_st[1]) / want_st[1]).abs().max())
+        log(f"flash zamba2 hd{hd} {inp}: the row statistics vs plain: m max_abs_err {m_err:.3e} "
+            f"(tol 1e-5 (1 + |m|)), 1 / l max rel err {l_rel:.3e} (tol 1e-5); rows with no "
+            f"allowed key {int(empty.sum())}")
+        check(bool((st[0][empty] == -1e30).all()) and l_rel <= 1e-5 and bool(
+            ((st[0][~empty] - want_st[0][~empty]).abs()
+             <= 1e-5 * (1 + want_st[0][~empty].abs())).all()),
+            f"flash zamba2 hd{hd} {inp}: statistics vs plain (m {m_err:.3e}, 1 / l {l_rel:.3e})")
+        del qq, want, want_st, got, st, outs, out
         torch.cuda.empty_cache()
-    k_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
-    k2_ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+    kern = lambda: flash_attention_cuda(q, k, v, causal=True)
+    base = lambda: flash_launch(ROUTES["mma"], q, k, v, True, 0, 0.0)
+    base_row = row_rel_err(kern(), base())
+    log(f"flash zamba2 hd{hd}: wgmma route vs the 'mma' kernel it replaced: row rel L2 max "
+        f"{base_row:.3e} (tol {row_tol:g})")
+    check(base_row <= row_tol, f"flash zamba2 hd{hd}: wgmma vs the mma baseline row rel L2 "
+                               f"{base_row:.3e}")
+    b1_ms, k_ms, k2_ms, b2_ms = timed_against_baseline(f"flash zamba2 hd{hd}", kern, base)
     with torch.inference_mode():
         p_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=3)
     torch.cuda.empty_cache()
@@ -1731,14 +1795,17 @@ def _hd80_forward(dev, peaks, cfg) -> dict:
     b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
     log(f"flash time zamba2 (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal, {route} route): kernel "
         f"{k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % "
-        f"of the bound); plain {p_ms:.3f} ms; scaled_dot_product_attention (the same function) "
-        f"{l_ms:.3f} ms ({k_ms / l_ms:.2f}x its time); bound {b_ms:.4f} ms ({b_by}; "
-        f"{flops:.3e} flop, {nbytes:.3e} B)")
+        f"of the bound); the 'mma' kernel it replaced {b1_ms:.3f} / {b2_ms:.3f} ms (before / "
+        f"after; {min(b1_ms, b2_ms) / max(k_ms, k2_ms):.2f}x the wgmma route's time, "
+        f"{100 * b_ms / min(b1_ms, b2_ms):.2f} % of the bound); plain {p_ms:.3f} ms; "
+        f"scaled_dot_product_attention (the same function) {l_ms:.3f} ms ({k_ms / l_ms:.2f}x its "
+        f"time); bound {b_ms:.4f} ms ({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
     del q, k, v
     torch.cuda.empty_cache()
     return dict(max_abs_err=errs["random"][0], row_rel=errs["random"][1],
                 edge_max_abs_err=errs["edge"][0], ms=k_ms, ms2=k2_ms, plain_ms=p_ms,
-                library_ms=l_ms, bound_ms=b_ms, bound_by=b_by, flops=flops)
+                library_ms=l_ms, baseline_ms=[b1_ms, b2_ms], bound_ms=b_ms, bound_by=b_by,
+                flops=flops)
 
 
 def _bf16_holds(label: str, model, n: int, prompt, relative: bool) -> dict:
@@ -1907,7 +1974,7 @@ def _scan_share(label: str, layer, x, module, name: str) -> dict:
 
 def zamba2_serving_phase(dev, peaks, results: dict) -> dict:
     """zamba2-2.7b serving at full width and depth (ROADMAP item 13.4): the
-    hd-80 forward kernel ('mma') against its plain version at the shared
+    hd-80 forward kernel ('wgmma') against its plain version at the shared
     block's shape before the model is loaded; the path through the entry
     points; the model against its ``use_flash="never"`` route, its first
     group against the same weights in f32, decode after a prefill against a
@@ -1948,7 +2015,7 @@ def zamba2_serving_phase(dev, peaks, results: dict) -> dict:
     path = _serve_path("zamba2", model, prompt, LM_NEW, cache_len,
                        warm_model=_sub_model(model, a), hbm_ms=hbm)
     log(f"zamba2 prefill: flash_attention launches {path['launches']['flash_attention']} on the "
-        f"'mma' route (hd {cfg.head_dim}), {n_groups} x {kern['ms']:.3f} ms = "
+        f"'wgmma' route (hd {cfg.head_dim}), {n_groups} x {kern['ms']:.3f} ms = "
         f"{n_groups * kern['ms'] / 1e3:.4f} s of the {path['prefill_s']:.3f} s prefill")
 
     # 65. The first group (6 mamba2 layers and the shared block) in bf16: the
@@ -2086,10 +2153,11 @@ def _first_batch_loss(cfg, params, batch: int, seq: int, dev) -> float:
 
 def recurrent_training_phase(dev, peaks, results: dict) -> dict:
     """Training zamba2 and rwkv6 at full width (ROADMAP items 13.4, 13.5):
-    the hd-80 backward kernels (the 'scalar' route) against autograd through
-    the plain version at zamba2's training shape (4 x 2048, H = Hkv = 32),
-    timed beside it and the backward of ``scaled_dot_product_attention``
-    (the same function); then ``launch.train.main`` for FAMILY_TRAIN_STEPS
+    the hd-80 backward kernels (the 'wgmma' route, fed by the forward's
+    statistics) against autograd through the plain version at zamba2's
+    training shape (4 x 2048, H = Hkv = 32), timed beside the 'scalar'
+    kernels they replaced, the plain version and the backward of
+    ``scaled_dot_product_attention`` (the same function); then ``launch.train.main`` for FAMILY_TRAIN_STEPS
     steps on each, at ZAMBA_TRAIN_LAYERS and RWKV_TRAIN_LAYERS layers.
     Returns the launch counts of the two training runs, by model."""
     import dataclasses
@@ -2098,24 +2166,29 @@ def recurrent_training_phase(dev, peaks, results: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import (flash_attention_bwd_cuda,
-                                                     flash_attention_bwd_plain, flash_bwd_route)
+    from repro_torch.kernels.flash_attention import (_bwd_launch, flash_attention_bwd_cuda,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_cuda, flash_bwd_route)
     from repro_torch.launch import train as ttrain
     from repro_torch.models.model import TransformerLM
 
     zc = get_config(ZAMBA_ARCH)
     b, h, hkv, s, hd = TRAIN_BATCH, zc.n_heads, zc.n_kv_heads, TRAIN_SEQ, zc.head_dim
     route = flash_bwd_route(torch.bfloat16, hd)
-    check(route == "scalar", f"zamba2 training: the backward's route at hd {hd} is {route!r}")
+    check(route == "wgmma", f"zamba2 training: the backward's route at hd {hd} is {route!r}")
     gen = torch.Generator(device=dev).manual_seed(SEED + 47)
     mk = lambda *sh: torch.randn(*sh, generator=gen, device=dev).to(torch.bfloat16)
 
-    # 76. The backward kernels at the training shape against autograd through
-    # the plain version, then the backward of SDPA (the same function: each
+    # 76. The backward kernels at the training shape, fed by the forward's
+    # statistics (as training calls them), against autograd through the
+    # plain version, then the backward of SDPA (the same function: each
     # gradient within the kernel's elementwise limit of the plain version's;
-    # its rows are printed), and times.
+    # its rows are printed), and times: the kernels beside the 'scalar'
+    # kernels they replaced (uncounted, first held against them: baseline,
+    # kernel, kernel, baseline), the plain version and the SDPA backward.
     q, k, v, do = mk(b, h, s, hd), mk(b, hkv, s, hd), mk(b, hkv, s, hd), mk(b, h, s, hd)
-    got = flash_attention_bwd_cuda(q, k, v, do, causal=True)
+    _, stats = flash_attention_cuda(q, k, v, causal=True, return_stats=True)
+    got = flash_attention_bwd_cuda(q, k, v, do, causal=True, stats=stats)
     want = flash_attention_bwd_plain(q, k, v, do, causal=True)
     torch.cuda.synchronize()
     res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), got, want)}
@@ -2135,16 +2208,27 @@ def recurrent_training_phase(dev, peaks, results: dict) -> dict:
           f"SDPA backward zamba2 hd{hd}: not the kernel's function {lib}")
     del got, want
     torch.cuda.empty_cache()
-    k_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, causal=True))
-    k2_ms = cuda_ms(lambda: flash_attention_bwd_cuda(q, k, v, do, causal=True))
+    kern = lambda: flash_attention_bwd_cuda(q, k, v, do, causal=True, stats=stats)
+    base = lambda: _bwd_launch("scalar", q, k, v, do, True, 0, 0.0)
+    base_res = {n: grad_check(g, w) for n, g, w in zip(("dq", "dk", "dv"), kern(), base())}
+    log(f"flash_bwd zamba2 hd{hd}: wgmma route vs the 'scalar' kernels it replaced: " + "; ".join(
+        f"{n} {r['scaled_err']:.2e} of the largest, rows {r['row_rel']:.2e}"
+        for n, r in base_res.items()))
+    check(all(r["ok"] for r in base_res.values()),
+          f"flash_bwd zamba2 hd{hd}: wgmma vs the scalar baseline {base_res}")
+    torch.cuda.empty_cache()
+    b1_ms, k_ms, k2_ms, b2_ms = timed_against_baseline(f"flash_bwd zamba2 hd{hd}", kern, base)
     p_ms = cuda_ms(lambda: flash_attention_bwd_plain(q, k, v, do, causal=True), reps=3)
     torch.cuda.empty_cache()
     l_ms = cuda_ms(lambda: torch.autograd.grad(ox, (qx, kx, vx), do, retain_graph=True))
     flops, nbytes = flash_bwd_work(b, h, hkv, s, hd, 2)
     b_ms, b_by = bound_ms(flops, nbytes, peaks, "bf16")
-    log(f"flash_bwd time zamba2 (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal, {route} route): "
-        f"kernel {k_ms:.3f} / {k2_ms:.3f} ms ({flops / k_ms / 1e9:.2f} TFLOP/s, "
-        f"{100 * b_ms / k_ms:.2f} % of the bound); plain (autograd through "
+    log(f"flash_bwd time zamba2 (B={b} H={h} Hkv={hkv} S=T={s} hd={hd} causal, {route} route, "
+        f"from the forward's statistics): kernel {k_ms:.3f} / {k2_ms:.3f} ms "
+        f"({flops / k_ms / 1e9:.2f} TFLOP/s, {100 * b_ms / k_ms:.2f} % of the bound); the "
+        f"'scalar' kernels it replaced {b1_ms:.3f} / {b2_ms:.3f} ms (before / after; "
+        f"{min(b1_ms, b2_ms) / max(k_ms, k2_ms):.1f}x the wgmma route's time, "
+        f"{100 * b_ms / min(b1_ms, b2_ms):.2f} % of the bound); plain (autograd through "
         f"flash_attention_plain) {p_ms:.3f} ms; the backward of scaled_dot_product_attention (the "
         f"same function) {l_ms:.3f} ms ({k_ms / l_ms:.2f}x its time); bound {b_ms:.4f} ms "
         f"({b_by}; {flops:.3e} flop, {nbytes:.3e} B)")
@@ -2152,8 +2236,8 @@ def recurrent_training_phase(dev, peaks, results: dict) -> dict:
         max_abs_err=max(r["max_abs_err"] for r in res.values()),
         scaled_err=max(r["scaled_err"] for r in res.values()),
         row_rel=max(r["row_rel"] for r in res.values()), ms=k_ms, ms2=k2_ms, plain_ms=p_ms,
-        library_ms=l_ms, bound_ms=b_ms, bound_by=b_by)
-    del q, k, v, do, qx, kx, vx, ox
+        library_ms=l_ms, baseline_ms=[b1_ms, b2_ms], bound_ms=b_ms, bound_by=b_by)
+    del q, k, v, do, stats, qx, kx, vx, ox
     torch.cuda.empty_cache()
 
     # 77. The two training paths through launch.train.main.
@@ -4216,7 +4300,7 @@ def serving_phase(dev, results: dict, x_tr, y_tr, x_te, fit_params, beta_true, i
 
 FLASH_ROUTE_OF = {"flash_attention": "wgmma", "flash_attention_bwd": "wgmma",
                   "flash_attention_hd256": "wgmma", "flash_attention_bwd_hd256": "wgmma",
-                  "flash_attention_hd80": "mma", "flash_attention_bwd_hd80": "scalar"}
+                  "flash_attention_hd80": "wgmma", "flash_attention_bwd_hd80": "wgmma"}
 
 
 def flash_counts(results: dict, lm_launches: dict, g2_launches: dict, moe_launches: dict,
@@ -4325,8 +4409,13 @@ def main() -> int:
 
     # 2. Build.
     t = time.perf_counter()
-    paths = _build.build(verbose=True)
+    nvcc_out = io.StringIO()
+    with contextlib.redirect_stdout(nvcc_out):
+        paths = _build.build(verbose=True)
+    sys.stdout.write(nvcc_out.getvalue())
     log(f"build: {time.perf_counter() - t:.1f} s -> {', '.join(p.name for p in paths.values())}")
+    for line in ptxas_summary(nvcc_out.getvalue(), "Li80E"):
+        log(f"ptxas (-Xptxas=-v), hd 80: {line}")
     log(f"matern_cov resident CTAs per SM at d={D} f32/f64/bf16: "
         f"{[_build.load('matern_cov').matern_cov_ctas_per_sm(D, v) for v in (0, 1, 2)]}")
 
@@ -5003,8 +5092,8 @@ def main() -> int:
     hd80 = {"flash_attention_hd80": z_launches["flash_attention"]
             + rec_launches[ZAMBA_ARCH]["flash_attention"],
             "flash_attention_bwd_hd80": rec_launches[ZAMBA_ARCH]["flash_attention_bwd"]}
-    log(f"flash launches on the hd-80 routes (zamba2's shared block): 'mma' forward "
-        f"{hd80['flash_attention_hd80']}, 'scalar' backward {hd80['flash_attention_bwd_hd80']}")
+    log(f"flash launches on the hd-80 routes (zamba2's shared block): 'wgmma' forward "
+        f"{hd80['flash_attention_hd80']}, 'wgmma' backward {hd80['flash_attention_bwd_hd80']}")
     check(hd80["flash_attention_hd80"] > 0 and hd80["flash_attention_bwd_hd80"] > 0,
           "the hd-80 routes were not launched on the zamba2 paths")
 
@@ -5030,7 +5119,7 @@ def main() -> int:
              "differentiates the XLA route)", hd256),
             ("flash_attention_hd80", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:92", hd80),
-            ("flash_attention_bwd_hd80", "src/repro_torch/csrc/flash_attention_bwd.cu",
+            ("flash_attention_bwd_hd80", "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
              "none: src/repro/kernels/flash_attention.py:92 has no backward kernel (jax.grad "
              "differentiates the XLA route)", hd80),
             ("sbv_loglik_bf16", "src/repro_torch/csrc/sbv_loglik.cu",

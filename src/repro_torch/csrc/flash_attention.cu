@@ -23,17 +23,19 @@
 // kernels/flash_attention.py, `flash_route`):
 //
 //   dtype  head_dim     kernel                       entry point
-//   bf16   64, 128      flash_fwd_wgmma_kernel       flash_attention_wgmma_bf16
+//   bf16   64, 80, 128  flash_fwd_wgmma_kernel       flash_attention_wgmma_bf16
 //   bf16   256          flash_fwd_wgmma256_kernel    flash_attention_wgmma_bf16
-//   bf16   32, 80       flash_fwd_mma_kernel         flash_attention_mma_bf16
+//   bf16   32           flash_fwd_mma_kernel         flash_attention_mma_bf16
 //   f32    every        flash_fwd_kernel (scalar)    flash_attention_f32
 //
 // (`flash_attention_scalar_bf16`, the scalar kernel on bf16, served hd 256
 // until the wgmma kernel did; it stays callable at every head_dim for a
-// side-by-side timing.)
+// side-by-side timing, and `flash_attention_mma_bf16` likewise at hd 64, 80
+// and 128.)
 //
-// * `flash_fwd_wgmma_kernel` (bf16, hd 64 and 128: internlm2-1.8b,
-//   minitron-4b, mistral-large, chameleon-34b at 128, musicgen-large at 64):
+// * `flash_fwd_wgmma_kernel` (bf16, hd 64, 80 and 128: internlm2-1.8b,
+//   minitron-4b, mistral-large, chameleon-34b at 128, zamba2-2.7b's shared
+//   block at 80, musicgen-large at 64):
 //   warp-specialised, one producer warpgroup issuing TMA loads of Q and of
 //   128-key K/V tiles into a three-stage ring guarded by mbarriers, two
 //   consumer warpgroups of 64 query rows each running `wgmma` (see the
@@ -54,10 +56,17 @@
 //   one store per row and plane from the first lane of the row's quad,
 //   after O. m and 1 / l are kept apart, not as m + log l, so that a row
 //   with no allowed key keeps m = -1e30 exactly (m + log l rounds to m).
-//   -Xptxas=-v: 168 registers per thread (a 384-thread CTA's allotment),
-//   0 bytes of spills, at hd 128 and 64; dynamic shared memory 230,480 B at
-//   hd 128 (Q 32 KB, three stages of K and V at 32 KB each, the barriers,
-//   1 KB for alignment) and 115,792 B at hd 64: one CTA per SM. Tensor maps are encoded on the host by
+//   At hd 80 every tile is two 64-column boxes, the second holding columns
+//   64-79 and the zeros TMA fills past the tensor's 80 (n_boxes in
+//   csrc/flash_hopper.cuh): S = Q K^T takes 5 k-steps, the fifth on the
+//   second box, and O += P V one m64n80k16 a k-step, V MN-major across both
+//   boxes (its descriptor's leading byte offset is the box stride), into 40
+//   accumulators a thread where hd 128 holds 64. -Xptxas=-v (CUDA 12.8,
+//   sm_90a): 168 registers per thread (a 384-thread CTA's allotment), 0
+//   bytes of spills, no serialised wgmma, at hd 128, 80 and 64 (with and
+//   without the statistics); dynamic shared memory 230,480 B at hd 128 and
+//   80 (Q 32 KB, three stages of K and V at 32 KB each, the barriers, 1 KB
+//   for alignment) and 115,792 B at hd 64: one CTA per SM. Tensor maps are encoded on the host by
 //   cuTensorMapEncodeTiled, fetched with cudaGetDriverEntryPointByVersion,
 //   so the library links no -lcuda. The building blocks it shares with the
 //   backward (barriers, TMA, descriptors, wgmma) are in csrc/flash_hopper.cuh.
@@ -72,8 +81,8 @@
 //   serialised wgmma; dynamic shared memory 197,704 B (Q 64 KB, two stages
 //   of K and V at 32 KB each, the barriers, 1 KB for alignment): one CTA
 //   per SM.
-// * `flash_fwd_mma_kernel` (bf16, hd 32 and 80; also callable at 64 and 128
-//   as the earlier design, for a side-by-side timing): on the tensor cores
+// * `flash_fwd_mma_kernel` (bf16, hd 32; also callable at 64, 80 and 128 as
+//   the earlier design, for a side-by-side timing): on the tensor cores
 //   through `mma.sync` m16n8k16 (bf16 operands, f32 accumulation). One CTA
 //   of 4 warps per (b * h, 64 query rows), 16 rows per warp; Q stays in
 //   registers as A fragments, each 64-key tile of K and V is copied into
@@ -605,11 +614,12 @@ constexpr int kSlabBytes = kWgKeys * 128;  // one box of a 128-row tile: 16 KB
 constexpr int kWgStages = 3;      // K/V ring depth
 
 // Shared memory, in bytes from a 1024-byte aligned base: Q, K[3], V[3] (one
-// 128-row tile each, hd / 64 boxes of 16 KB), then the barriers (q_full,
-// k_full[3], v_full[3], empty[3]). At hd 128: 224 KB + 1 KB of the 227 KB.
+// 128-row tile each, ceil(hd / 64) boxes of 16 KB), then the barriers
+// (q_full, k_full[3], v_full[3], empty[3]). At hd 80 and 128: 224 KB + 1 KB
+// of the 227 KB.
 template <int HD>
 struct WgSmem {
-  static constexpr int kTile = (HD / kSlab) * kSlabBytes;
+  static constexpr int kTile = n_boxes(HD) * kSlabBytes;
   static constexpr int kQ = 0;
   static constexpr int kK = kTile;
   static constexpr int kV = (1 + kWgStages) * kTile;
@@ -733,10 +743,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
                        float* __restrict__ stats, int H, int Hkv, int S, int T_len, Strides os,
                        int causal, int window, float softcap, float scale) {
   using L = WgSmem<HD>;
-  constexpr int NSLAB = HD / kSlab;
+  constexpr int NSLAB = n_boxes(HD);
   constexpr int SB = kWgKeys / 8;  // 8-key blocks of a score tile
   constexpr int OB = HD / 8;       // 8-column blocks of the output
-  static_assert(HD == 64 || HD == 128, "the wgmma route takes head_dim 64 or 128");
+  static_assert(HD == 64 || HD == 80 || HD == 128, "the wgmma route takes head_dim 64, 80 or 128");
 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -827,15 +837,7 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
       fence_regs<OB * 4>(oacc);
       fence_regs<kWgKeys / 4>(&pa[0][0]);
       wg_fence();
-#pragma unroll
-      for (int kk = 0; kk < kWgKeys / 16; ++kk) {
-        const uint64_t dv = sw128_desc(va + kk * 16 * 128, kSlabBytes, 1024);
-        if constexpr (HD == 128) {
-          wgmma_rs_n128(oacc, pa[kk], dv);
-        } else {
-          wgmma_rs_n64(oacc, pa[kk], dv);
-        }
-      }
+      issue_nn<HD, kWgKeys / 16, kSlabBytes>(oacc, pa, va);
       wg_commit();
     };
 
@@ -1168,8 +1170,8 @@ int flash_attention_f32(const void* q, const void* k, const void* v, void* o, vo
                          scale, stream);
 }
 
-// bf16 at hd in {64, 128}: the warp-specialised wgmma + TMA kernel; at hd 256
-// the 256-thread wgmma + TMA kernel.
+// bf16 at hd in {64, 80, 128}: the warp-specialised wgmma + TMA kernel; at hd
+// 256 the 256-thread wgmma + TMA kernel.
 int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void* o, void* stats,
                                int B, int H, int Hkv, int S, int T_len, int hd, const long long* st,
                                int causal, int window, float softcap, float scale,
@@ -1178,15 +1180,16 @@ int flash_attention_wgmma_bf16(const void* q, const void* k, const void* v, void
       os{st[9], st[10], st[11]};
   switch (hd) {
     case 64: return launch_wgmma<64>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
+    case 80: return launch_wgmma<80>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     case 128: return launch_wgmma<128>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     case 256: return launch_wgmma<256>(q, k, v, o, stats, B, H, Hkv, S, T_len, qs, ks, vs, os, causal, window, softcap, scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// bf16 at hd in {32, 64, 80, 128}: the mma.sync kernel (the serving route
-// at hd 32 and 80; at 64 and 128 the earlier design, kept callable for a
-// side-by-side timing).
+// bf16 at hd in {32, 64, 80, 128}: the mma.sync kernel (the route at hd 32;
+// at 64, 80 and 128 the earlier design, kept callable for a side-by-side
+// timing).
 int flash_attention_mma_bf16(const void* q, const void* k, const void* v, void* o, void* stats,
                              int B, int H, int Hkv, int S, int T_len, int hd, const long long* st,
                              int causal, int window, float softcap, float scale, void* stream) {

@@ -1,5 +1,6 @@
-// Flash attention (backward) for Hopper (sm_90a), bf16 at head_dim 64, 128
-// and 256: the 'wgmma' route of kernels/flash_attention.py: flash_bwd_route.
+// Flash attention (backward) for Hopper (sm_90a), bf16 at head_dim 64, 80,
+// 128 and 256: the 'wgmma' route of kernels/flash_attention.py:
+// flash_bwd_route.
 //
 // Replaces no Pallas kernel (the reference differentiates its XLA attention
 // route with jax.grad; see csrc/flash_attention_bwd.cu, the 'scalar' route,
@@ -27,8 +28,10 @@
 // with it; thread 0 refills the stage of tile i - 1 while tile i's first
 // products run. Every product is a `wgmma` with
 // bf16 operands and f32 accumulation; tiles are 128-byte swizzled boxes of
-// 64 head-dim columns, as in the forward. The tile shapes depend on hd
-// (`Shape`):
+// 64 head-dim columns, as in the forward (at hd 80 two boxes, the second
+// holding columns 64-79 and TMA's zeros: the products with K = hd take 5
+// k-steps, those with N = hd one m64n80k16 a k-step into 40 accumulators a
+// thread). The tile shapes depend on hd (`Shape`):
 //
 // * `flash_bwd_dq_wgmma_kernel`: one CTA per (b * h, 128 query rows), 64
 //   per warpgroup, Q and dO resident, K and V streamed in tiles of 64 keys
@@ -40,7 +43,7 @@
 //   the halves of dQ; A = dS from registers as bf16, B = K MN-major from
 //   shared memory). Query tiles run latest first (the longest under a
 //   causal mask), so the tail is short.
-// * `flash_bwd_dkdv_wgmma_kernel` (hd 64, 128): one CTA per (b * hkv, 128
+// * `flash_bwd_dkdv_wgmma_kernel` (hd 64, 80, 128): one CTA per (b * hkv, 128
 //   keys), 64 per warpgroup, K and V resident; it walks the 64-row query
 //   tiles of the group's n_rep heads (the band, and every tile that holds a
 //   row with no allowed key), with Q, dO, and the tile's m, 1 / l and D (1-D
@@ -78,9 +81,9 @@
 // warpgroup holds dK and dV (2 x 64 f32 at hd 128), S^T and dP^T (2 x 32)
 // and the bf16 fragments of P^T and dS^T, so at 168 it spilled ~1 KB and
 // ptxas serialised its wgmma. At 256 threads (up to 255 registers)
-// -Xptxas=-v (CUDA 12.8, sm_90a) prints, hd 256 / 128 / 64: dK/dV 195 /
-// 227 / 162 registers, dQ 196 / 162 / 128, 0 bytes of spills, no
-// serialised wgmma. Shared memory at hd 128: dQ kernel 197,704 B (Q and dO
+// -Xptxas=-v (CUDA 12.8, sm_90a) prints, hd 256 / 128 / 80 / 64: dK/dV 195 /
+// 227 / 179 / 162 registers, dQ 196 / 162 / 137 / 128, 0 bytes of spills, no
+// serialised wgmma. Shared memory at hd 128 and 80: dQ kernel 197,704 B (Q and dO
 // 32 KB each, four stages of K and V at 16 KB each, barriers, 1 KB for
 // alignment), dK/dV kernel 200,776 B (K and V 32 KB each, four stages of Q
 // and dO at 16 KB each and 768 B of statistics); at hd 256: dQ kernel
@@ -125,8 +128,8 @@ template <int HD, int RES, int STEP, int STAGES, bool STATS, int XBYTES = 0>
 struct BwdSmem {
   static constexpr int kResSlab = RES * 128;        // one box of a resident tile
   static constexpr int kStepSlab = STEP * 128;      // one box of a streamed tile
-  static constexpr int kBig = (HD / kSlab) * kResSlab;
-  static constexpr int kSmall = (HD / kSlab) * kStepSlab;
+  static constexpr int kBig = n_boxes(HD) * kResSlab;
+  static constexpr int kSmall = n_boxes(HD) * kStepSlab;
   static constexpr int kRes = 0;                    // resident tiles: [0], [kBig]
   static constexpr int kRing = 2 * kBig;            // stage st: [kRing + 2 st kSmall], + kSmall
   static constexpr int kX = kRing + STAGES * 2 * kSmall;
@@ -186,7 +189,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   using L = DqSmem<HD>;
   constexpr int KS = Shape<HD>::kKeyStep;      // keys per streamed tile
   constexpr int STAGES = Shape<HD>::kDqStages;
-  constexpr int NSLAB = HD / kSlab;
+  constexpr int NSLAB = n_boxes(HD);
   constexpr int OB = HD / 8;  // 8-column blocks of dQ
   constexpr int SA = KS / 2;  // f32 accumulators of a 64 x KS score tile per thread
 
@@ -349,7 +352,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tmq,
   using Sh = Shape<HD>;
   constexpr int QS = kQStep;                // query rows per streamed tile
   constexpr int STAGES = Sh::kKvStages;
-  constexpr int NSLAB = HD / kSlab;
+  constexpr int NSLAB = n_boxes(HD);
   constexpr int OB = HD / 8;                // 8-column blocks of dK and dV
   static_assert(!Sh::kWide, "hd 256 has a dK/dV kernel of its own");
 
@@ -544,7 +547,7 @@ flash_bwd_dkdv_wgmma256_kernel(const __grid_constant__ CUtensorMap tmq,
   constexpr int QS = kQStep;                 // query rows per streamed tile
   constexpr int KR = Shape<HD>::kKeyRows;    // keys per CTA: 64
   constexpr int STAGES = Shape<HD>::kKvStages;
-  constexpr int NSLAB = HD / kSlab;
+  constexpr int NSLAB = n_boxes(HD);
   constexpr int OB = HD / 2 / 8;             // 8-column blocks of the warpgroup's dK and dV
   static_assert(KR == 64 && L::kX % 1024 == 0, "the exchange tiles are 64 x 64, 1 KB aligned");
 
@@ -766,7 +769,7 @@ extern "C" {
 // q, k, v, do (inputs, bf16), dq, dk, dv (outputs, bf16); stats: the wgmma
 // forward's statistics (2 x B H x stats_rows(S) f32: m in log2 units, then
 // 1 / l); dsum: an f32 scratch of B H x stats_rows(S) floats (D); B, H, Hkv,
-// S, T, hd (64, 128 or 256); strides: 21 element strides, (b, h, s) of q, k, v,
+// S, T, hd (64, 80, 128 or 256); strides: 21 element strides, (b, h, s) of q, k, v,
 // do, dq, dk and dv in that order (hd contiguous, the (b, h, s) strides and
 // base addresses of q, k, v and do in whole 16-byte vectors: TMA); causal,
 // window, softcap; scale: hd^-0.5 rounded to f32 by the caller.
@@ -779,6 +782,7 @@ int flash_attention_bwd_wgmma_bf16(const void* q, const void* k, const void* v, 
   float* dp = (float*)dsum;
   switch (hd) {
     case 64: return launch<64>(q, k, v, dout, dq, dk, dv, sp, dp, B, H, Hkv, S, T_len, strides, causal, window, softcap, scale, stream);
+    case 80: return launch<80>(q, k, v, dout, dq, dk, dv, sp, dp, B, H, Hkv, S, T_len, strides, causal, window, softcap, scale, stream);
     case 128: return launch<128>(q, k, v, dout, dq, dk, dv, sp, dp, B, H, Hkv, S, T_len, strides, causal, window, softcap, scale, stream);
     case 256: return launch<256>(q, k, v, dout, dq, dk, dv, sp, dp, B, H, Hkv, S, T_len, strides, causal, window, softcap, scale, stream);
     default: return (int)cudaErrorInvalidValue;

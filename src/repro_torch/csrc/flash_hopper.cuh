@@ -19,6 +19,13 @@ namespace {
 constexpr float kNeg = -1e30f;  // the reference's mask value
 constexpr int kSlab = 64;       // head-dim columns of one 128-byte swizzled box
 
+// The boxes of a tile at head_dim hd. At hd 80 the second box reads columns
+// 64-127 of a tensor map whose dimension 0 is 80, so TMA fills columns
+// 80-127 with zeros (and counts their bytes): the map is not widened to 128
+// columns, which in the model's (B, S, H, hd) layout would read the next
+// head's values.
+__host__ __device__ constexpr int n_boxes(int hd) { return (hd + kSlab - 1) / kSlab; }
+
 // The row statistics the wgmma forward writes for the backward: two f32
 // planes (the row max m in log2 units, then 1 / l) of B H rows of
 // stats_rows(S) floats, padded to whole 128-row tiles, so that the
@@ -201,6 +208,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d (m64 x n80, f32) += a (64 x 16 bf16, in registers) . b (16 x n80, MN-major in shared
+// memory): the 64 columns of the box at db's start address, then the first 16 columns of
+// the box one leading byte offset on (at hd 80 the rest of that box holds the zeros TMA
+// fills past the tensor's 80 columns; no instruction reads them).
+__device__ __forceinline__ void wgmma_rs_n80(float* d, const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d (m64 x n64, f32) (+)= a (64 x 16, K-major in shared memory) . b (16 x n64, K-major).
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
   asm volatile(
@@ -251,10 +278,11 @@ __device__ __forceinline__ void issue_nt(float* acc, uint32_t a, uint32_t b) {
 // acc (64 x N, f32) += a (64 x 16 KSTEPS bf16, fragments in registers) . b
 // (16 KSTEPS rows x N columns, MN-major, 128-byte swizzled boxes of 64
 // columns BSLAB bytes apart): KSTEPS wgmma m64n{N}k16 (at N = 256, two
-// m64n128k16 on the halves of acc and b), not yet committed.
+// m64n128k16 on the halves of acc and b; at N = 80, m64n80k16 over the
+// first box and 16 columns of the second), not yet committed.
 template <int N, int KSTEPS, int BSLAB>
 __device__ __forceinline__ void issue_nn(float* acc, const uint32_t (*a)[4], uint32_t b) {
-  static_assert(N == 64 || N == 128 || N == 256, "issue_nn: N is 64, 128 or 256");
+  static_assert(N == 64 || N == 80 || N == 128 || N == 256, "issue_nn: N is 64, 80, 128 or 256");
 #pragma unroll
   for (int kk = 0; kk < KSTEPS; ++kk) {
     const uint64_t db = sw128_desc(b + kk * 16 * 128, BSLAB, 1024);
@@ -263,6 +291,8 @@ __device__ __forceinline__ void issue_nn(float* acc, const uint32_t (*a)[4], uin
       wgmma_rs_n128(acc + 64, a[kk], sw128_desc(b + 2 * BSLAB + kk * 16 * 128, BSLAB, 1024));
     } else if constexpr (N == 128) {
       wgmma_rs_n128(acc, a[kk], db);
+    } else if constexpr (N == 80) {
+      wgmma_rs_n80(acc, a[kk], db);
     } else {
       wgmma_rs_n64(acc, a[kk], db);
     }

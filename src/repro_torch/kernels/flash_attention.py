@@ -99,22 +99,23 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
 # The CUDA entry point of each route (csrc/flash_attention.cu). 'scalar_bf16'
 # serves no dtype and head_dim of ``flash_route`` any more: it stays callable
 # through ``_launch`` at every head_dim, for a side-by-side timing against
-# the wgmma route at hd 256.
+# the wgmma route at hd 256; 'mma' likewise at hd 64, 80 and 128.
 ROUTES = {"wgmma": "flash_attention_wgmma_bf16", "mma": "flash_attention_mma_bf16",
           "scalar_bf16": "flash_attention_scalar_bf16", "scalar_f32": "flash_attention_f32"}
 
 
 def flash_route(dtype, hd: int) -> str:
     """The kernel that serves ``dtype`` at head_dim ``hd``: ``'wgmma'``
-    (bf16 at 64, 128 and 256), ``'mma'`` (bf16 at 32 and 80) or
-    ``'scalar_f32'`` (f32 at every head_dim)."""
+    (bf16 at 64, 80, 128 and 256), ``'mma'`` (bf16 at 32; callable at 64,
+    80 and 128 through ``_launch(ROUTES["mma"], ...)``, for a side-by-side
+    timing) or ``'scalar_f32'`` (f32 at every head_dim)."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head_dim {hd} not in {HEAD_DIMS}")
     if dtype == torch.float32:
         return "scalar_f32"
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention: kernel runs in float32 or bfloat16, got {dtype}")
-    return "mma" if hd in (32, 80) else "wgmma"
+    return "mma" if hd == 32 else "wgmma"
 
 
 def stats_rows(s: int) -> int:
@@ -174,7 +175,7 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0,
     if return_stats:
         if route != "wgmma":
             raise ValueError(f"flash_attention: the row statistics come from the wgmma route "
-                             f"(bf16 at head_dim 64, 128 or 256), not {route}")
+                             f"(bf16 at head_dim 64, 80, 128 or 256), not {route}")
         b, h, s = q.shape[:3]
         stats = torch.empty(2, b, h, stats_rows(s), dtype=torch.float32, device=q.device)
     out = _launch(ROUTES[route], q, k, v, causal, window, softcap, stats)
@@ -204,18 +205,19 @@ def flash_attention_bwd_plain(q, k, v, do, causal: bool = True, window: int = 0,
 
 def flash_bwd_route(dtype, hd: int) -> str:
     """The backward kernels that serve ``dtype`` at head_dim ``hd``:
-    ``'wgmma'`` (bf16 at 64, 128 and 256: csrc/flash_attention_bwd_wgmma.cu,
-    fed by the forward's row statistics) or ``'scalar'`` (f32 at every
-    head_dim, bf16 at 32 and 80: csrc/flash_attention_bwd.cu; callable at
-    every head_dim through ``_bwd_launch("scalar", ...)``, for a side-by-side
-    timing). Raises for any other dtype or head_dim."""
+    ``'wgmma'`` (bf16 at 64, 80, 128 and 256:
+    csrc/flash_attention_bwd_wgmma.cu, fed by the forward's row statistics)
+    or ``'scalar'`` (f32 at every head_dim, bf16 at 32:
+    csrc/flash_attention_bwd.cu; callable at every head_dim through
+    ``_bwd_launch("scalar", ...)``, for a side-by-side timing). Raises for
+    any other dtype or head_dim."""
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} not in {HEAD_DIMS}")
     if dtype == torch.float32:
         return "scalar"
     if dtype != torch.bfloat16:
         raise TypeError(f"flash_attention_bwd: kernels run in float32 or bfloat16, got {dtype}")
-    return "scalar" if hd in (32, 80) else "wgmma"
+    return "scalar" if hd == 32 else "wgmma"
 
 
 def _kernel_stats(stats, b: int, h: int, s: int, device) -> torch.Tensor:

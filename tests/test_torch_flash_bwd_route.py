@@ -24,7 +24,7 @@ from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 
 @pytest.mark.parametrize("dtype,hd,route", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 80, "scalar"),
+    (torch.bfloat16, 32, "scalar"), (torch.bfloat16, 80, "wgmma"),
     (torch.bfloat16, 256, "wgmma"),
     (torch.float32, 32, "scalar"), (torch.float32, 64, "scalar"), (torch.float32, 80, "scalar"),
     (torch.float32, 128, "scalar"), (torch.float32, 256, "scalar"),
@@ -69,6 +69,9 @@ STATS_CASES = [
     (1, 2, 1, 40, 10, 16, False, 4, 5.0),     # the same, not causal, softcap
     (1, 4, 2, 60, 60, 256, True, 20, 50.0),   # hd 256 (gemma2): window and softcap
     (1, 2, 1, 64, 12, 256, True, 5, 50.0),    # hd 256: rows with no allowed key
+    (2, 4, 4, 70, 70, 80, True, 0, 0.0),      # hd 80 (zamba2): H = Hkv, causal
+    (1, 4, 2, 50, 50, 80, True, 12, 30.0),    # hd 80: window and softcap, GQA
+    (1, 2, 1, 40, 9, 80, True, 4, 0.0),       # hd 80: rows with no allowed key
 ]
 
 
@@ -157,6 +160,34 @@ def test_flash_function_hd256_window_softcap_matches_jax_grad():
     are made with numpy from a seed and handed to both packages."""
     b, h, hkv, s, hd, window, cap = 1, 4, 2, 48, 256, 16, 50.0
     rng = np.random.default_rng(24)
+    q = rng.standard_normal((b, h, s, hd), dtype=np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, hd), dtype=np.float32) for _ in range(2))
+    do = rng.standard_normal((b, h, s, hd), dtype=np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    out = tflash.FlashAttention.apply(*leaves, True, window, cap)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(do))
+
+    def loss(q_, k_, v_):
+        kx, vx = (jnp.repeat(a, h // hkv, axis=1) for a in (k_, v_))
+        o = flash_attention_ref(q_, kx, vx, causal=True, window=window, softcap=cap)
+        return jnp.sum(o * do)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("case", [(2, 4, 4, 40, 0, 0.0), (1, 4, 2, 48, 16, 30.0)],
+                         ids=["zamba2-causal", "window-softcap-gqa"])
+def test_flash_function_hd80_matches_jax_grad(case):
+    """``FlashAttention.apply`` at hd 80 (zamba2's shared attention at a
+    reduced size: H = Hkv, causal; and with a window, a softcap and GQA at
+    n_rep 2) on the CPU against ``jax.grad`` of the reference's
+    ``flash_attention_ref``, to 1e-5. Inputs are made with numpy from a seed
+    and handed to both packages."""
+    b, h, hkv, s, window, cap = case
+    hd = 80
+    rng = np.random.default_rng(80 + window)
     q = rng.standard_normal((b, h, s, hd), dtype=np.float32)
     k, v = (rng.standard_normal((b, hkv, s, hd), dtype=np.float32) for _ in range(2))
     do = rng.standard_normal((b, h, s, hd), dtype=np.float32)

@@ -295,9 +295,9 @@ def test_bf16_tier_plain_versions_follow_their_kernels_order(kernel):
 
 
 def test_flash_route_by_dtype_and_head_dim():
-    """bf16 at hd 64, 128 and 256 takes a wgmma kernel, at 32 and 80 the
+    """bf16 at hd 64, 80, 128 and 256 takes a wgmma kernel, at 32 the
     mma.sync one; f32 always the scalar one."""
-    want = {32: "mma", 64: "wgmma", 80: "mma", 128: "wgmma", 256: "wgmma"}
+    want = {32: "mma", 64: "wgmma", 80: "wgmma", 128: "wgmma", 256: "wgmma"}
     assert {hd: flash_route(torch.bfloat16, hd) for hd in HEAD_DIMS} == want
     assert {flash_route(torch.float32, hd) for hd in HEAD_DIMS} == {"scalar_f32"}
     with pytest.raises(ValueError, match="head_dim"):
