@@ -105,7 +105,15 @@ path once through the user entry points:
   kernels at hd 80 (the 'wgmma' route, fed by the forward's statistics)
   against autograd through the plain version at 4 x 2048, timed beside the
   'scalar' kernels they replaced and the SDPA backward, then zamba2 at 12
-  layers and rwkv6 at 8 on 4 x 2048 tokens, 3 steps each.
+  layers and rwkv6 at 8 on 4 x 2048 tokens, 3 steps each;
+* meshes, tp and the dry run (item 13.6): the internlm2 serving path again
+  at ``--mesh 1x16`` (tp = 16: its 8 KV heads cached twice each) and the
+  qwen2-moe path at ``--mesh 1x8`` (tp = 8: 60 experts padded in place to
+  64) on the weights of their tp = 1 runs, each held against that run
+  (tokens, logits, the expanded cache bitwise, the kept MoE assignments),
+  the dry run's reckoned parameter and cache bytes against the tensors on
+  the card, and ``python -m repro_torch.launch.dryrun`` over every cell of
+  both production meshes and one card in a subprocess.
 
 Launch counts are set to 0 just before each path and read just after it.
 It checks that every kernel of each path launched, that the outputs are
@@ -241,6 +249,13 @@ FAMILY_TRAIN_STEPS = 3
 ZAMBA_ARCH, RWKV_ARCH = "zamba2-2.7b", "rwkv6-3b"
 SSM_F32_PROMPT, SSM_HOLD_SHAPE, RWKV_LOOP_TOKENS = 1000, (1, 300), 512
 ZAMBA_TRAIN_LAYERS, RWKV_TRAIN_LAYERS = 12, 8
+# Meshes, tp and the dry run (ROADMAP item 13.6): the internlm2 serving path
+# at --mesh 1x16 (tp = 16: its 8 KV heads cached as 16) and the qwen2-moe
+# path at --mesh 1x8 (tp = 8: 60 experts padded to 64), each on the weights
+# of its tp = 1 phase; the dry run over every cell in a subprocess with
+# DRYRUN_JOBS processes counting FLOPs, within DRYRUN_TIMEOUT seconds.
+LM_TP_MESH, MOE_TP_MESH = "1x16", "1x8"
+DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 300
 
 
 class SmokeFailure(RuntimeError):
@@ -624,8 +639,20 @@ def lm_serving_phase(dev, peaks, results: dict) -> dict:
     prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)),
                              dtype=torch.int32, device=dev)
     served = _serve_path("lm", model, prompt, LM_NEW, cache_len,
-                         hbm_ms=1e3 * (n_bytes + kv_bytes) / peaks["hbm"])
-    logits, t_prefill = served.pop("logits"), served["prefill_s"]
+                         hbm_ms=1e3 * (n_bytes + kv_bytes) / peaks["hbm"], keep=True)
+    logits, t_prefill = served["logits"], served["prefill_s"]
+
+    # 14b. Meshes and tp (ROADMAP item 13.6): the same weights and prompt at
+    # --mesh 1x16 (tp = 16, the 8 KV heads cached twice each) against this
+    # run, and the dry run's bytes at 1x1 against the card's tensors.
+    t = time.perf_counter()
+    card1 = _reckoned_vs_card("internlm2", "1x1", LM_BATCH, cache_len, model, served["cache"])
+    hold = _tp_serving_hold("internlm2", model, prompt, LM_TP_MESH, cache_len, served, 3e-2)
+    hold["seconds"] = time.perf_counter() - t
+    results.setdefault("mesh_tp", {})["internlm2"] = dict(hold, card_1x1=card1)
+    for key in ("logits", "cache", "tokens", "step_logits"):
+        del served[key]
+    torch.cuda.empty_cache()
 
     # 15. The same weights through the plain attention route
     # (use_flash="never"), and both routes against the same weights in f32
@@ -1110,14 +1137,16 @@ def _sub_model(model, n_layers: int, dtype=None, use_flash: str | None = None):
 
 
 def _serve_path(label: str, model, prompt, n_new: int, cache_len: int, warm_model=None,
-                hbm_ms: float | None = None) -> dict:
+                hbm_ms: float | None = None, tp: int = 1, keep: bool = False) -> dict:
     """The serving path through the entry points (``make_prefill_step``,
-    ``make_decode_step``) after a warm-up at its shapes (cuBLAS picks its
-    algorithms at the first call of each shape; through ``warm_model``, a
-    model of fewer layers of the same shapes, where the full prefill takes
-    seconds): prefill, then ``n_new - 1`` greedy steps, each counted and
-    timed; ``hbm_ms``, the time to read the weights and the cache once at
-    HBM rate, is printed beside a decode step's."""
+    ``make_decode_step``, at ``tp``) after a warm-up at its shapes (cuBLAS
+    picks its algorithms at the first call of each shape; through
+    ``warm_model``, a model of fewer layers of the same shapes, where the
+    full prefill takes seconds): prefill, then ``n_new - 1`` greedy steps,
+    each counted and timed; ``hbm_ms``, the time to read the weights and the
+    cache once at HBM rate, is printed beside a decode step's. With
+    ``keep`` the result also holds the tokens, each step's logits and the
+    final cache."""
     import torch
 
     from repro_torch.kernels import ops
@@ -1125,8 +1154,8 @@ def _serve_path(label: str, model, prompt, n_new: int, cache_len: int, warm_mode
 
     cfg = model.cfg
     b, s = prompt.shape
-    prefill = make_prefill_step(cfg, cache_len)
-    decode = make_decode_step(cfg)
+    prefill = make_prefill_step(cfg, cache_len, tp=tp)
+    decode = make_decode_step(cfg, tp=tp)
     warm_model = warm_model or model
     _, warm = prefill(warm_model, prompt)
     decode(warm_model, prompt[:, :1], warm)
@@ -1168,11 +1197,14 @@ def _serve_path(label: str, model, prompt, n_new: int, cache_len: int, warm_mode
     check(toks.shape == (b, n_new) and toks.dtype == torch.int32 and int(toks.min()) >= 0
           and int(toks.max()) < cfg.vocab, f"{label}: tokens out of range")
     check(cache["pos"] == cache_len - 1, f"{label}: cache position")
+    out = dict(logits=logits, prefill_s=t_prefill, decode_s=t_decode,
+               decode_ms=1e3 * t_decode / (n_new - 1),
+               launches={k: pre[k] + dec[k] for k in pre})
+    if keep:
+        out.update(tokens=toks, step_logits=step_logits, cache=cache)
     del cache, step_logits
     torch.cuda.empty_cache()
-    return dict(logits=logits, prefill_s=t_prefill, decode_s=t_decode,
-                decode_ms=1e3 * t_decode / (n_new - 1),
-                launches={k: pre[k] + dec[k] for k in pre})
+    return out
 
 
 def _f32_holds(label: str, m2, prompt, s2: int, decode: bool = True) -> dict:
@@ -1208,6 +1240,184 @@ def _f32_holds(label: str, m2, prompt, s2: int, decode: bool = True) -> dict:
               f"{label}: decode vs longer prefill differ by "
               f"{res['decode_vs_prefill_max_abs']:.3e} > 2e-3")
     return res
+
+
+def _card_bytes(model, cache: dict) -> tuple[int, int]:
+    """Summed ``nbytes`` of a model's parameters and of a decode cache."""
+    import torch
+
+    return (sum(p.numel() * p.element_size() for p in model.parameters()),
+            sum(t.numel() * t.element_size() for t in cache.values() if torch.is_tensor(t)))
+
+
+def _reckoned_vs_card(label: str, mesh_spec: str, batch: int, cache_len: int, model,
+                      cache: dict) -> dict:
+    """The dry run's reckoning (``launch.dryrun.lm_cell_bytes``) of this
+    serving shape on ``mesh_spec`` against the tensors on the card: the
+    parameter and cache bytes of the mesh's layout in all (what the one
+    card holds when it runs that layout) equal their summed ``nbytes``
+    exactly; the per-device bytes of the mesh are printed beside them."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch.dryrun import lm_cell_bytes
+    from repro_torch.launch.mesh import make_mesh
+
+    rec = lm_cell_bytes(model.cfg, ShapeSpec("smoke", cache_len, batch, "decode"),
+                        make_mesh(mesh_spec))
+    p_card, c_card = _card_bytes(model, cache)
+    tot = rec["totals"]
+    log(f"{label} --mesh {mesh_spec}: dry run reckons params {tot['params']:,} B and cache "
+        f"{tot['cache']:,} B in all ({rec['param_bytes']:,} + {rec['cache_bytes']:,} B per "
+        f"device of the mesh); the card holds {p_card:,} + {c_card:,} B")
+    check(tot["params"] == p_card and tot["cache"] == c_card,
+          f"{label} --mesh {mesh_spec}: reckoned bytes {tot['params']} / {tot['cache']} differ "
+          f"from the card's {p_card} / {c_card}")
+    return dict(params=p_card, cache=c_card, per_device=rec["param_bytes"] + rec["cache_bytes"])
+
+
+def _tp_serving_hold(label: str, model, prompt, mesh_spec: str, cache_len: int, base: dict,
+                     logits_rel: float) -> dict:
+    """The serving path at ``tp`` (``--mesh mesh_spec``) on ``model``, held
+    against the tp = 1 run ``base`` (``_serve_path(..., keep=True)``; its
+    cache is needed only where tp expands it): the same tokens, the prefill
+    and every step's logits within ``logits_rel`` in relative L2, and, where
+    the cache is expanded (r > 1), every copy of each KV head of the
+    prefilled slots bitwise the tp = 1 cache's. The
+    dry run's bytes against the card's, and its reckoned peak beside
+    ``max_memory_allocated`` over the run."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.attention import cache_expand_factor
+    from repro_torch.sharding.rules import tp_size
+
+    cfg = model.cfg
+    b, s = prompt.shape
+    tp = tp_size(make_mesh(mesh_spec))
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    run = _serve_path(f"{label} --mesh {mesh_spec} (tp={tp})", model, prompt, LM_NEW,
+                      cache_len, tp=tp, keep=True)
+    peak = torch.cuda.max_memory_allocated()
+    rel = lambda x, y: float(torch.linalg.norm((x - y).float()) / torch.linalg.norm(y.float()))
+    rels = [rel(run["logits"], base["logits"])] + [
+        rel(x, y) for x, y in zip(run["step_logits"], base["step_logits"])]
+    same_tokens = torch.equal(run["tokens"], base["tokens"])
+    bitwise = [torch.equal(run["logits"], base["logits"])] + [
+        torch.equal(x, y) for x, y in zip(run["step_logits"], base["step_logits"])]
+    r = cache_expand_factor(cfg, tp)
+    cache_ok = None if r == 1 else all(
+        torch.equal(run["cache"][key][:, :, :s, j::r], base["cache"][key][:, :, :s])
+        for key in ("k", "v") for j in range(r))
+    log(f"{label} tp={tp} vs tp=1: tokens equal {same_tokens}; logits rel L2 prefill "
+        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (limit {logits_rel:g}); bitwise equal "
+        f"logits {sum(bitwise)} of {len(bitwise)}; cache {tuple(run['cache']['k'].shape)} "
+        f"(r={r}), every copy of each KV head of the prefilled slots bitwise the tp=1 cache's: "
+        f"{'no copies' if r == 1 else cache_ok}; decode {run['decode_ms']:.2f} ms per step against "
+        f"{base['decode_ms']:.2f} at tp=1, prefill {run['prefill_s']:.3f} s against "
+        f"{base['prefill_s']:.3f}")
+    check(same_tokens, f"{label} tp={tp}: tokens differ from the tp=1 run")
+    check(max(rels) <= logits_rel, f"{label} tp={tp}: logits rel L2 {max(rels):.3e} from tp=1 "
+                                   f"> {logits_rel:g}")
+    check(cache_ok is not False,
+          f"{label} tp={tp}: the expanded cache is not each KV head repeated {r} times")
+    by = _reckoned_vs_card(label, mesh_spec, b, cache_len, model, run["cache"])
+    reckoned = by["params"] + by["cache"]
+    log(f"{label} tp={tp}: reckoned peak (params + cache, no activations) "
+        f"{reckoned / 1e9:.3f} GB, max_memory_allocated over the run {peak / 1e9:.3f} GB")
+    out = dict(tp=tp, mesh=mesh_spec, r=r, tokens_equal=same_tokens, logits_rel=rels,
+               bitwise_logits=sum(bitwise), cache_bitwise=cache_ok, decode_ms=run["decode_ms"],
+               decode_ms_tp1=base["decode_ms"], prefill_s=run["prefill_s"],
+               prefill_s_tp1=base["prefill_s"], reckoned_bytes=reckoned, max_allocated=peak,
+               launches=run["launches"], seconds=time.perf_counter() - t0)
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pad_experts_in_place(model, tp: int, generator) -> None:
+    """Pad every MoE layer of ``model`` (built at tp = 1) to
+    ``padded_experts(cfg, tp)`` experts, layer by layer: the first E keep
+    their weights, the new ones get draws at ``MoE.reset_parameters``'s
+    scales (router columns 0.02, experts d ** -0.5 and f ** -0.5), so that
+    at most one leaf exists twice at a time (the whole model twice would
+    be ~57 GB for qwen2-moe)."""
+    import torch
+    from torch import nn
+
+    from repro_torch.models.layers import dense_init_
+    from repro_torch.models.transformer import padded_experts
+
+    cfg = model.cfg
+    e, e_pad = cfg.n_experts, padded_experts(cfg, tp)
+    with torch.no_grad():
+        for layer in model.layers:
+            moe = layer.moe
+            d, f = moe.w_gate.shape[1:]
+            for name, dim, scale in (("router", 1, 0.02), ("w_gate", 0, d ** -0.5),
+                                     ("w_up", 0, d ** -0.5), ("w_down", 0, f ** -0.5)):
+                old = getattr(moe, name)
+                shape = list(old.shape)
+                shape[dim] = e_pad
+                new = torch.empty(shape, dtype=old.dtype, device=old.device)
+                new.narrow(dim, 0, e).copy_(old)
+                dense_init_(new.narrow(dim, e, e_pad - e), generator, scale=scale)
+                setattr(moe, name, nn.Parameter(new, requires_grad=old.requires_grad))
+                del old
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(results: dict, work: str) -> dict:
+    """``python -m repro_torch.launch.dryrun`` over every cell on both
+    production meshes and one card (``1x1``), in a subprocess: it must exit
+    0 with every applicable cell OK (32 LM cells and 2 SBV GP cells a mesh)
+    and the reference's skips, each with ``configs.applicable``'s reason. A
+    compact summary per arch: the largest per-device peak on each mesh and
+    whether every cell of the arch fits one 80 GB card there."""
+    from repro_torch.configs import ARCHS, SHAPES, applicable, get_config
+
+    out = os.path.join(work, "dryrun.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (str(ROOT / "src"), env.get("PYTHONPATH"))
+                                        if p)
+    meshes = ("pod", "multipod", "1x1")
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--jobs", str(DRYRUN_JOBS),
+           "--out", out] + sum((["--mesh", m] for m in meshes), [])
+    t = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=str(ROOT), capture_output=True, text=True,
+                         timeout=DRYRUN_TIMEOUT)
+    wall = time.perf_counter() - t
+    log(f"dry run: {' '.join(cmd[1:])}: exit {res.returncode} in {wall:.1f} s; "
+        f"{res.stdout.strip().splitlines()[-1] if res.stdout.strip() else ''}")
+    check(res.returncode == 0, f"dry run exited {res.returncode}: {res.stderr[-2000:]}")
+    with open(out) as f:
+        data = json.load(f)
+    applicable_cells = [(a, s_) for a in ARCHS for s_ in SHAPES
+                        if applicable(get_config(a), s_)[0]]
+    want_skips = {f"{a}|{s_}|-": applicable(get_config(a), s_)[1] for a in ARCHS for s_ in SHAPES
+                  if not applicable(get_config(a), s_)[0]}
+    ok = {k: v for k, v in data.items() if "error" not in v and "skipped" not in v}
+    skips = {k: v["skipped"] for k, v in data.items() if "skipped" in v}
+    errors = [k for k, v in data.items() if "error" in v]
+    n_want = len(meshes) * (len(applicable_cells) + 2)
+    log(f"dry run: {len(ok)} cells OK (expected {n_want}: {len(applicable_cells)} LM cells and 2 "
+        f"SBV GP cells on each of {len(meshes)} meshes), {len(skips)} skipped, errors {errors}")
+    check(not errors and len(ok) == n_want, f"dry run: {len(ok)} cells OK of {n_want}, errors "
+                                            f"{errors}")
+    check(skips == want_skips, "dry run: the skips differ from configs.applicable's")
+    summary = {}
+    for arch in list(ARCHS) + ["sbv-gp"]:
+        row = {}
+        for m in meshes:
+            cells = [v for v in ok.values() if v["arch"] == arch and v["mesh"] == m]
+            row[m] = dict(peak_gb=max(v["peak_memory"] for v in cells) / 1e9,
+                          fits=all(v["fits"] for v in cells),
+                          fits_shapes=[v["shape"] for v in cells if v["fits"]])
+        summary[arch] = row
+        log(f"dry run {arch}: largest reckoned peak per device " + "; ".join(
+            f"{m} {r_['peak_gb']:.2f} GB ({'all fit' if r_['fits'] else 'fit: ' + (','.join(r_['fits_shapes']) or 'none')})"
+            for m, r_ in row.items()))
+    results["dryrun"] = dict(wall_s=wall, cells=len(ok), skipped=len(skips), summary=summary)
+    return results["dryrun"]
 
 
 def gemma2_serving_phase(dev, peaks, results: dict) -> dict:
@@ -1428,7 +1638,11 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
     prompt = torch.as_tensor(np.random.default_rng(5).integers(0, cfg.vocab,
                                                                (LM_BATCH, LM_PROMPT)),
                              dtype=torch.int32, device=dev)
-    path = _serve_path("qwen2-moe", model, prompt, LM_NEW, cache_len)
+    path = _serve_path("qwen2-moe", model, prompt, LM_NEW, cache_len, keep=True)
+    t = time.perf_counter()
+    card1 = _reckoned_vs_card("qwen2-moe", "1x1", LM_BATCH, cache_len, model, path.pop("cache"))
+    t_card1 = time.perf_counter() - t
+    torch.cuda.empty_cache()
 
     # 58. The never route at full depth, layer by layer: each layer of both
     # routes takes the same input (the kernel route's hidden states). The
@@ -1504,6 +1718,7 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
         moe_ms = cuda_ms(lambda: layer.moe(hn))
         r = layer.moe.routing(hn)
         kept, chosen = int(r.keep.sum()), int(r.selected.sum())
+        routed_tp1 = (r.keep, r.expert, r.slot)
     log(f"qwen2-moe prefill layer at {LM_BATCH}x{LM_PROMPT}: {layer_ms:.3f} ms, of which the MoE "
         f"{moe_ms:.3f} ms ({100 * moe_ms / layer_ms:.1f} %); {r.expert.shape[0]} groups, "
         f"capacity {r.capacity}, kept {kept} of {chosen} assignments")
@@ -1550,12 +1765,45 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
     check(same and kept_c == kept_h, "qwen2-moe MoE layer: kept assignments differ")
     holds["moe_layer"] = dict(scaled_err=err, kept=kept_c, assignments=xb * xs * k_act,
                               min_gap=gap)
-    del on_card, on_cpu, out_c, r_c, model, path["logits"]
+    del on_card, on_cpu, out_c, r_c
     torch.cuda.empty_cache()
+    launches = path["launches"]
     results["qwen2_moe"] = dict(holds=holds, prefill_s=path["prefill_s"],
                                 decode_ms=path["decode_ms"], params=n_par, layer_ms=layer_ms,
                                 moe_ms=moe_ms)
-    return path["launches"]
+
+    # 60b. Meshes and tp (ROADMAP item 13.6): the same weights at --mesh 1x8
+    # (tp = 8), padded in place from 60 to 64 experts, the path against this
+    # phase's, and layer 0's routing at the path's shape: the kept (token,
+    # expert, slot) assignments equal to tp = 1's (the capacity counts only
+    # the real experts), the MoE's time with the four padded experts.
+    t = time.perf_counter()
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.sharding.rules import tp_size
+
+    _pad_experts_in_place(model, tp_size(make_mesh(MOE_TP_MESH)),
+                          torch.Generator(device=dev).manual_seed(SEED + 31))
+    hold = _tp_serving_hold("qwen2-moe", model, prompt, MOE_TP_MESH, cache_len, path,
+                            MOE_LOGITS_REL)
+    with torch.inference_mode():
+        layer = model.layers[0]
+        hn = rms_norm(embed_tokens(model, prompt), layer.ln2, cfg.norm_eps)
+        moe_tp_ms = cuda_ms(lambda: layer.moe(hn))
+        r = layer.moe.routing(hn)
+        kept_tp = int(r.keep.sum())
+        same = all(torch.equal(a_, b_) for a_, b_ in zip((r.keep, r.expert, r.slot), routed_tp1))
+    log(f"qwen2-moe --mesh {MOE_TP_MESH}: {layer.moe.n_experts} experts; layer 0 at "
+        f"{LM_BATCH}x{LM_PROMPT}: kept {kept_tp} of {chosen} assignments (tp=1: {kept}), the "
+        f"same (token, expert, slot) triples {same}; the MoE {moe_tp_ms:.3f} ms against "
+        f"{moe_ms:.3f} ms at tp=1 ({moe_tp_ms / moe_ms:.3f}x)")
+    check(same and kept_tp == kept, f"qwen2-moe --mesh {MOE_TP_MESH}: kept assignments differ "
+                                    f"from tp=1 ({kept_tp} against {kept})")
+    del hn, r, routed_tp1, model, path
+    torch.cuda.empty_cache()
+    results.setdefault("mesh_tp", {})["qwen2-moe"] = dict(
+        hold, card_1x1=card1, kept=kept_tp, kept_tp1=kept, routing_equal=same,
+        moe_ms=moe_tp_ms, moe_ms_tp1=moe_ms, seconds=time.perf_counter() - t + t_card1)
+    return launches
 
 
 def families_training_phase(dev, peaks, results: dict) -> dict:
@@ -5076,6 +5324,9 @@ def main() -> int:
         f"{fam_launches}")
     lm_launches, hd256 = flash_counts(results, lm_launches, g2_launches, moe_launches,
                                       fam_launches)
+    # The tp runs of the meshes phase (13.6) are hd-128 prefills on 'wgmma'.
+    for run in results["mesh_tp"].values():
+        lm_launches["flash_attention"] += run["launches"]["flash_attention"]
 
     # 63.-69. zamba2 serving, 70.-75. rwkv6 serving, 76.-77. their training
     # (ROADMAP items 13.4, 13.5); zamba2's shared block runs the hd-80 routes.
@@ -5096,6 +5347,22 @@ def main() -> int:
         f"{hd80['flash_attention_hd80']}, 'wgmma' backward {hd80['flash_attention_bwd_hd80']}")
     check(hd80["flash_attention_hd80"] > 0 and hd80["flash_attention_bwd_hd80"] > 0,
           "the hd-80 routes were not launched on the zamba2 paths")
+
+    # 78.-80. Meshes, tp and the dry run (ROADMAP item 13.6): the tp runs
+    # ran inside the internlm2 and qwen2-moe serving phases (14b, 60b), on
+    # their weights; the dry run over every cell here.
+    work = tempfile.mkdtemp(prefix="smoke-dryrun-")
+    try:
+        dryrun_phase(results, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mt = results["mesh_tp"]
+    log(f"phase meshes, tp and the dry run (13.6): "
+        f"{mt['internlm2']['seconds'] + mt['qwen2-moe']['seconds'] + results['dryrun']['wall_s']:.1f}"
+        f" s (internlm2 --mesh {LM_TP_MESH} {mt['internlm2']['seconds']:.1f} s, qwen2-moe --mesh "
+        f"{MOE_TP_MESH} {mt['qwen2-moe']['seconds']:.1f} s, dry run "
+        f"{results['dryrun']['wall_s']:.1f} s); flash_attention launches "
+        f"{sum(r_['launches']['flash_attention'] for r_ in mt.values())}")
 
     kernels = []
     for kname, src, replaces, count in (

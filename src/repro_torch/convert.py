@@ -80,16 +80,35 @@ def _reference_path(name: str) -> tuple[tuple, int | None]:
     return tuple(parts), None
 
 
-def lm_params_from_reference(tree, cfg, device="cpu", dtype=None) -> TransformerLM:
+def reference_leaves(model: TransformerLM) -> dict:
+    """``{"a/b/name": (stacked shape, dtype)}``: the reference's leaf of
+    each of ``model``'s parameters, at the shape of the stacked leaf (per-
+    layer parameters gain a leading L axis), in parameter order."""
+    out: dict = {}
+    for name, p in model.named_parameters():
+        path, layer = _reference_path(name)
+        key = "/".join(path)
+        if layer is None:
+            out[key] = (tuple(p.shape), p.dtype)
+        else:
+            n = out[key][0][0] if key in out else 0
+            out[key] = ((n + 1,) + tuple(p.shape), p.dtype)
+    return out
+
+
+def lm_params_from_reference(tree, cfg, device="cpu", dtype=None, tp: int = 1) -> TransformerLM:
     """A ``TransformerLM`` holding the reference's parameter pytree.
 
     ``tree`` is the reference's ``init_params`` output with numpy leaves.
     numpy has no bf16, so the caller passes bf16 leaves as
     ``np.asarray(leaf, np.float32)``: that widening is exact, and so is the
     cast back to ``torch.bfloat16`` here. The matrices land at ``dtype``
-    (default: the config's), the norms in f32, as in the reference. Every
-    leaf of ``tree`` must have a parameter and the same shape."""
-    model = TransformerLM(cfg, device=device, dtype=dtype)
+    (default: the config's), the norms in f32, as in the reference. ``tp``
+    is the reference's ``init_params(key, cfg, tp)``: its MoE trees carry
+    ``padded_experts(cfg, tp)`` experts (an (L, D, E) router, (L, E, ...)
+    expert leaves). Every leaf of ``tree`` must have a parameter and the
+    same shape."""
+    model = TransformerLM(cfg, device=device, dtype=dtype, tp=tp)
     names, params = zip(*model.named_parameters())
     with torch.no_grad():
         for name, param, a in zip(names, params, tensors_from_reference_tree(names, tree)):
@@ -100,9 +119,9 @@ def lm_params_from_reference(tree, cfg, device="cpu", dtype=None) -> Transformer
     return model
 
 
-def param_names(cfg) -> list[str]:
+def param_names(cfg, tp: int = 1) -> list[str]:
     """A ``TransformerLM``'s parameter names, in its parameter order."""
-    return [name for name, _ in TransformerLM(cfg, device="meta").named_parameters()]
+    return [name for name, _ in TransformerLM(cfg, device="meta", tp=tp).named_parameters()]
 
 
 def reference_tree(names, tensors) -> dict:
@@ -171,15 +190,15 @@ def train_state_to_reference(state, cfg) -> dict:
             "step": np.int32(state.step)}
 
 
-def train_state_from_reference(tree, cfg, device="cpu"):
+def train_state_from_reference(tree, cfg, device="cpu", tp: int = 1):
     """A ``TrainState`` from the reference's state in numpy (the layout of
     ``train_state_to_reference``): params at the config's dtype (norms f32),
     Adam moments in float32, through ``lm_params_from_reference``."""
     from repro_torch.training.train_step import TrainState
 
     leaves = lambda t, dtype=None: tuple(
-        p.detach() for p in lm_params_from_reference(t, cfg, device=device,
-                                                     dtype=dtype).parameters())
+        p.detach() for p in lm_params_from_reference(t, cfg, device=device, dtype=dtype,
+                                                     tp=tp).parameters())
     return TrainState(params=leaves(tree["params"]),
                       opt=AdamState(step=int(tree["opt"]["step"]),
                                     mu=leaves(tree["opt"]["mu"], torch.float32),

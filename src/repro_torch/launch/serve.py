@@ -16,8 +16,13 @@ prints. Runs on the current CUDA device unless ``--device`` names another
 without ``--device`` it raises).
 
 LM mode: weights are drawn from ``torch.Generator`` seed 0 on the device,
-the prompt from ``np.random.default_rng(3)``, as there. The port serves on
-one device, so ``--mesh`` takes only ``1x1``.
+the prompt from ``np.random.default_rng(3)``, as there. ``--mesh DxM`` (or
+PxDxM) runs the reference's layout on the one device it is given, at tp =
+M: the MoE's experts padded to a multiple of M and the decode cache's KV
+heads expanded to divide it, the only two things a mesh changes in the
+reference's numbers. A ``[mesh]`` line prints tp, the padded experts, the
+cache factor r and the bytes each device of that mesh would hold under the
+sharding rules; the tensors are not split over cards.
 
 GP mode: a ``GPServer`` builds the training index once and serves a
 stream of asynchronous requests; the micro-batcher (or, with
@@ -514,7 +519,10 @@ def main(argv=None):
         return serve_gp(argv[1:])
 
     from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.specs import mesh_line, meta_cache
     from repro_torch.models.model import init_params, prefill_step, serve_step
+    from repro_torch.sharding.rules import tp_size
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -526,9 +534,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
-    if args.mesh != "1x1":
-        ap.error(f"--mesh {args.mesh}: the port serves on one device, only 1x1 runs "
-                 "(the LM meshes are ROADMAP queue 1 item 13.6)")
+    try:
+        mesh = make_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    tp = tp_size(mesh)
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -536,7 +546,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     cache_len = args.prompt_len + args.max_new
 
-    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device)
+    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device, tp=tp)
+    print(mesh_line(cfg, mesh, model, meta_cache(cfg, args.batch, cache_len, tp, model.dtype)))
 
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(
@@ -546,7 +557,7 @@ def main(argv=None):
     with torch.inference_mode():
         _sync(device)
         t0 = time.time()
-        logits, cache = prefill_step(model, prompt, cache_len)
+        logits, cache = prefill_step(model, prompt, cache_len, tp=tp)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         _sync(device)
         print(f"[serve] prefill {args.batch}x{args.prompt_len}: {time.time()-t0:.2f}s")
@@ -554,7 +565,7 @@ def main(argv=None):
         out = [tok]
         t0 = time.time()
         for _ in range(args.max_new - 1):
-            logits, cache = serve_step(model, tok, cache)
+            logits, cache = serve_step(model, tok, cache, tp=tp)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
             out.append(tok)
         toks = torch.cat(out, dim=1)

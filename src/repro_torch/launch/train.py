@@ -6,8 +6,12 @@ restart on one device. The counterpart of ``repro.launch.train``:
 
 It takes the reference's flags and prints its lines. ``--device`` (default
 ``cuda``) names the device; without a CUDA device it raises unless given
-``--device cpu``: it never falls back to the CPU. The port trains on one
-device, so ``--mesh`` takes only ``1x1``.
+``--device cpu``: it never falls back to the CPU. ``--mesh DxM`` (or PxDxM)
+trains the reference's layout on the one device at tp = M (an MoE's experts
+padded to a multiple of M, the only thing a mesh changes in the reference's
+training numbers); a ``[mesh]`` line prints tp, the padded experts and what
+each device of that mesh would hold under the sharding rules (params,
+grads and Adam moments). The tensors are not split over cards.
 
 The weights are drawn from a ``torch.Generator`` seeded 0 on the device, at
 the reference's distributions (``models.model.init_params``); the draws are
@@ -38,8 +42,11 @@ from repro_torch.ckpt.checkpoint import latest_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.convert import param_names, reference_tree, tensors_from_reference_tree
 from repro_torch.data.tokens import TokenStream
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.specs import mesh_line
 from repro_torch.models.model import init_params
 from repro_torch.optim import AdamState
+from repro_torch.sharding.rules import tp_size
 from repro_torch.training.train_step import TrainState, make_train_step, train_state_init
 
 
@@ -87,9 +94,8 @@ def main(argv=None, log: list | None = None) -> TrainState:
                     help="torch device (default cuda; without a GPU pass --device cpu)")
     args = ap.parse_args(argv)
 
-    if args.mesh != "1x1":
-        raise NotImplementedError(f"--mesh {args.mesh}: the port trains on one device; "
-                                  "meshes are ROADMAP queue 1 item 13.6")
+    mesh = make_mesh(args.mesh)
+    tp = tp_size(mesh)
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
@@ -103,9 +109,11 @@ def main(argv=None, log: list | None = None) -> TrainState:
     elif over:
         cfg = dataclasses.replace(cfg, **over)
 
-    state = train_state_init(init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                                         device=dev))
-    names = param_names(cfg)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, tp=tp)
+    print(mesh_line(cfg, mesh, model, train=True))
+    state = train_state_init(model)
+    del model
+    names = param_names(cfg, tp)
     stream = TokenStream(cfg.vocab, args.batch, args.seq, seed=17)
     start_step = 0
     mgr = None
@@ -119,7 +127,7 @@ def main(argv=None, log: list | None = None) -> TrainState:
                 start_step = int(manifest["step"])
                 print(f"[train] resumed from {path} at step {start_step}")
 
-    step_fn = make_train_step(cfg, lr=args.lr, grad_accum=args.grad_accum)
+    step_fn = make_train_step(cfg, tp=tp, lr=args.lr, grad_accum=args.grad_accum)
     snap = {"state": state, "step": start_step}
     if mgr:
         # preemption-safe: SIGTERM triggers a final checkpoint

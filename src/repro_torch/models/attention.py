@@ -85,9 +85,10 @@ def _attend_block(q, k, v, qpos, kpos, window: int, attn_softcap: float, n_rep: 
 def cache_expand_factor(cfg, tp: int) -> int:
     """Duplication factor r of the decode KV cache (1 = no expansion): the
     smallest r dividing n_rep with (Hkv * r) % tp == 0 when Hkv does not
-    divide the model axis of size ``tp``. The port is single-device (tp = 1,
-    so r = 1); the sharded cache that uses r > 1 comes with the sharding
-    work."""
+    divide the model axis of size ``tp``, so that the cache's heads shard
+    over that axis (r = 2 for every 8-KV-head architecture at tp = 16; 1
+    where no such r exists). The grouped decode einsums read the repetition
+    from the cache's head count."""
     if tp <= 1 or cfg.n_kv_heads % tp == 0:
         return 1
     n_rep = cfg.n_heads // cfg.n_kv_heads
@@ -155,12 +156,17 @@ class Attention(nn.Module):
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                window: int = 0) -> torch.Tensor:
         """One-token decode: x (B, 1, D) at position ``pos``; cache
-        (B, S_max, Hkv, hd). Writes this token's K/V at ``pos`` in place; returns (B, 1, D)."""
+        (B, S_max, Hc, hd), Hc = Hkv or Hkv r (the expanded cache of
+        ``cache_expand_factor``, each KV head repeated r times in a row).
+        Writes this token's K/V at ``pos`` in place; returns (B, 1, D)."""
         cfg = self.cfg
         b = x.shape[0]
         hd = cfg.head_dim
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q, k, v = self._qkv(x, posb)
+        if cache_k.shape[2] != cfg.n_kv_heads:  # (partially) expanded cache
+            r = cache_k.shape[2] // cfg.n_kv_heads
+            k, v = _expand_kv(k, r), _expand_kv(v, r)
         cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
 

@@ -30,15 +30,18 @@ class TransformerLM(nn.Module):
     ``ln_f`` (D,) in f32, and ``lm_head`` (D, V) unless the config ties the
     embeddings (then the head is ``embed.T``). Parameters are allocated
     uninitialised; ``init_params`` draws them. The matrices take ``dtype``,
-    by default the config's."""
+    by default the config's. ``tp`` pads an MoE's experts to a multiple of
+    it (``transformer.padded_experts``), as the reference's ``init_params(
+    key, cfg, tp)`` does; no other parameter depends on it."""
 
-    def __init__(self, cfg, *, device=None, dtype=None):
+    def __init__(self, cfg, *, device=None, dtype=None, tp: int = 1):
         super().__init__()
         self.cfg = cfg
         dtype = dtype or model_dtype(cfg)
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, dtype=dtype, device=device))
-        self.layers = make_layers(cfg, dtype=dtype, device=device)
-        self.shared_attn = AttnBlock(cfg, dtype=dtype, device=device) if cfg.attn_every else None
+        self.layers = make_layers(cfg, tp=tp, dtype=dtype, device=device)
+        self.shared_attn = (AttnBlock(cfg, tp=tp, dtype=dtype, device=device)
+                            if cfg.attn_every else None)
         self.ln_f = nn.Parameter(torch.zeros(cfg.d_model, dtype=torch.float32, device=device))
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, dtype=dtype,
@@ -74,12 +77,13 @@ class TransformerLM(nn.Module):
                 self.lm_head.copy_(draw(self.lm_head) * 0.02)
 
 
-def init_params(cfg, generator: torch.Generator, device=None) -> TransformerLM:
-    """A ``TransformerLM`` with weights drawn from ``generator`` (which must
-    live on ``device``) at the reference's distributions. The draws are the
-    port's own: the same seed does not give the reference's weights (carry
-    those across with ``repro_torch.convert.lm_params_from_reference``)."""
-    model = TransformerLM(cfg, device=device)
+def init_params(cfg, generator: torch.Generator, device=None, tp: int = 1) -> TransformerLM:
+    """A ``TransformerLM`` (experts padded for ``tp``) with weights drawn
+    from ``generator`` (which must live on ``device``) at the reference's
+    distributions. The draws are the port's own: the same seed does not
+    give the reference's weights (carry those across with
+    ``repro_torch.convert.lm_params_from_reference``)."""
+    model = TransformerLM(cfg, device=device, tp=tp)
     model.reset_parameters(generator)
     return model
 
@@ -109,7 +113,7 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     the chunk means are summed in f32 in order and divided by their count,
     as the reference's scan does. MoE stacks add ``aux_weight`` times the
     router's load-balancing loss summed over layers, divided by the layer
-    count."""
+    count. ``tp`` must match the model's padded experts."""
     cfg = model.cfg
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
@@ -131,23 +135,25 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     return loss
 
 
-def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int):
-    """Prompt forward: tokens (B, S) -> (last-token logits (B, V) f32, cache)."""
+def prefill_step(model: TransformerLM, tokens: torch.Tensor, cache_len: int, tp: int = 1):
+    """Prompt forward: tokens (B, S) -> (last-token logits (B, V) f32, cache);
+    the cache's KV heads expanded for ``tp`` (``transformer.prefill``)."""
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     x = embed_tokens(model, tokens)
-    hidden, cache = prefill(model.layers, x, model.cfg, positions, cache_len, model.shared_attn)
+    hidden, cache = prefill(model.layers, x, model.cfg, positions, cache_len, model.shared_attn,
+                            tp)
     hidden = rms_norm(hidden[:, -1:], model.ln_f, model.cfg.norm_eps)
     return logits_fn(model, hidden)[:, 0], cache
 
 
-def serve_step(model: TransformerLM, tokens: torch.Tensor, cache: dict):
+def serve_step(model: TransformerLM, tokens: torch.Tensor, cache: dict, tp: int = 1):
     """One decode step: tokens (B, 1) -> (logits (B, V) f32, cache)."""
     x = embed_tokens(model, tokens)
-    hidden, cache = decode_step(model.layers, x, model.cfg, cache, model.shared_attn)
+    hidden, cache = decode_step(model.layers, x, model.cfg, cache, model.shared_attn, tp)
     hidden = rms_norm(hidden, model.ln_f, model.cfg.norm_eps)
     return logits_fn(model, hidden)[:, 0], cache
 
 
-def make_empty_cache(model: TransformerLM, batch: int, cache_len: int) -> dict:
-    return init_cache(model.cfg, batch, cache_len, model.dtype, model.device)
+def make_empty_cache(model: TransformerLM, batch: int, cache_len: int, tp: int = 1) -> dict:
+    return init_cache(model.cfg, batch, cache_len, model.dtype, model.device, tp)

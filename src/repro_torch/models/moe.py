@@ -9,11 +9,13 @@ reference's kept (token, expert, slot) triples but dispatches by index: the
 kept tokens are copied into an (E, G * C, D) buffer at row ``g * C +
 slot`` of their expert (the reference's ``einsum("gtec,gtd->egcd")``
 layout, empty slots zero), the experts run as three batched matmuls, and
-each token gathers its experts' rows back, weighted by its gates
-(``index_add_`` in f32), instead of two one-hot einsums. Every shape is
+each token gathers its experts' rows back, weighted by its gates and
+summed over its k choices in f32 in a fixed order (the same rounding on the
+card on every run), instead of two one-hot einsums. Every shape is
 fixed by (B, S), so nothing waits for the device. Padded experts
-(``n_experts_padded`` > ``n_experts``) get router logits of -1e30 and are
-never chosen.
+(``n_experts_padded`` > ``n_experts``, a mesh's model axis) get router
+logits of -1e30 and are never chosen; they still run in the batched expert
+products, on empty slots, as the reference's einsums run them.
 """
 from __future__ import annotations
 
@@ -125,13 +127,18 @@ class MoE(nn.Module):
 
     def routing(self, x: torch.Tensor) -> Routing:
         """x (B, S, D) -> the routing of its token groups; router logits in
-        x's dtype, then f32."""
+        x's dtype, then f32. Only the real experts' logits are computed: the
+        padded ones are -1e30 whatever their column holds (``route``), so a
+        padded router gives the real experts the logits of the unpadded one
+        bit for bit (the product's kernel may differ with the column count)."""
         b, s, d = x.shape
         gs = group_size(b * s)
         xt = x.reshape(-1, gs, d)
-        logits = (xt @ self.router.to(x.dtype)).float()
-        return route(logits, self.cfg.n_experts, self.cfg.n_experts_active,
-                     self.cfg.capacity_factor)
+        e_real = self.cfg.n_experts
+        logits = (xt @ self.router[:, :e_real].to(x.dtype)).float()
+        if self.n_experts > e_real:
+            logits = F.pad(logits, (0, self.n_experts - e_real), value=-1e30)
+        return route(logits, e_real, self.cfg.n_experts_active, self.cfg.capacity_factor)
 
     def forward(self, x: torch.Tensor):
         """x (B, S, D) -> ``(out (B, S, D), aux)`` (``moe_forward``)."""
@@ -152,9 +159,10 @@ class MoE(nn.Module):
         h = F.silu(torch.bmm(xe, self.w_gate)) * torch.bmm(xe, self.w_up)
         ye = torch.bmm(h, self.w_down).reshape(spare, d)                  # (E G C, D)
         ye = torch.cat([ye, ye.new_zeros(1, d)])
+        # (token, choice) rows are token-major, so each token's k weighted
+        # rows sum in a fixed order (index_add's CUDA atomics would not).
         contrib = ye[rows].float() * r.gate.reshape(-1, 1).to(x.dtype).float()
-        out = torch.zeros(b * s, d, dtype=torch.float32, device=x.device)
-        out = out.index_add(0, token, contrib).to(x.dtype).reshape(b, s, d)
+        out = contrib.view(b * s, k, d).sum(1).to(x.dtype).reshape(b, s, d)
         aux = switch_aux(r, self.cfg.n_experts, k)
         if self.cfg.shared_d_ff:
             out = out + self.shared(x)

@@ -15,7 +15,8 @@ r exp(c), k exp(-c) form, which overflows for strong decay, is not used.
 As in ``ssm.py``, every chunk's state-free terms are evaluated at once and
 only the carry ``S = contrib + exp(c_last) S`` loops over chunks. The
 reference's ``REPRO_RWKV_CHUNK`` switch and its sharding constraints are
-not carried over (meshes are ROADMAP queue 1 item 13.6).
+not carried over: the port runs a model on one device, with no ambient mesh
+(``sharding/constraints.py``), and ``tp`` changes nothing here.
 """
 from __future__ import annotations
 

@@ -16,6 +16,12 @@ kernel as a Python int. The decode caches keep the reference's stacked
 layouts and dtypes (``init_cache``); ``pos`` is a Python int. Decode writes
 new K/V into the attention caches in place and returns new recurrent
 states.
+
+``tp`` (the size of a mesh's 'model' axis) changes two things, as in the
+reference: the MoE's experts are padded to a multiple of it
+(``padded_experts``; the padded ones are never routed to), and the decode
+KV cache holds each KV head ``cache_expand_factor(cfg, tp)`` times, so that
+its heads divide it. The port computes on one device whatever ``tp`` is.
 """
 from __future__ import annotations
 
@@ -23,7 +29,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import Attention
+from .attention import Attention, _expand_kv, cache_expand_factor
 from .layers import MLP, rms_norm
 from .moe import MoE
 from .rwkv6 import RWKV6, rwkv6_channel_mix, rwkv6_time_mix, rwkv6_time_mix_decode
@@ -40,14 +46,14 @@ class AttnBlock(nn.Module):
     ``mlp``, and ``ln1_post`` / ``ln2_post`` on the two branch outputs
     (``cfg.sandwich_norm``, gemma2)."""
 
-    def __init__(self, cfg, *, dtype=torch.float32, device=None):
+    def __init__(self, cfg, *, tp: int = 1, dtype=torch.float32, device=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = _norm(cfg.d_model, device)
         self.attn = Attention(cfg, dtype=dtype, device=device)
         self.ln2 = _norm(cfg.d_model, device)
         if cfg.n_experts:
-            self.moe = MoE(cfg, dtype=dtype, device=device)
+            self.moe = MoE(cfg, padded_experts(cfg, tp), dtype=dtype, device=device)
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype=dtype, device=device)
         if cfg.sandwich_norm:
@@ -146,18 +152,38 @@ class RwkvBlock(nn.Module):
         return x + h, wkv, last1, last2
 
 
-def make_layers(cfg, *, dtype=torch.float32, device=None) -> nn.ModuleList:
-    """The ``n_layers`` blocks of ``cfg.block_kind``. Raises ``ValueError``
-    for a stack the reference does not build: another ``block_kind``, or a
-    hybrid whose layers do not split into whole groups of ``attn_every``."""
+def make_layers(cfg, *, tp: int = 1, dtype=torch.float32, device=None) -> nn.ModuleList:
+    """The ``n_layers`` blocks of ``cfg.block_kind`` (an MoE block's experts
+    padded for ``tp``). Raises ``ValueError`` for a stack the reference does
+    not build: another ``block_kind``, or a hybrid whose layers do not split
+    into whole groups of ``attn_every``."""
     blocks = {"attn": AttnBlock, "mamba2": MambaBlock, "rwkv6": RwkvBlock}
     if cfg.block_kind not in blocks:
         raise ValueError(f"{cfg.name}: block_kind {cfg.block_kind!r} not in {tuple(blocks)}")
     if cfg.attn_every and cfg.n_layers % cfg.attn_every:
         raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups of "
                          f"attn_every = {cfg.attn_every}")
-    block = blocks[cfg.block_kind]
-    return nn.ModuleList(block(cfg, dtype=dtype, device=device) for _ in range(cfg.n_layers))
+    kw = dict(dtype=dtype, device=device, **({"tp": tp} if cfg.block_kind == "attn" else {}))
+    return nn.ModuleList(blocks[cfg.block_kind](cfg, **kw) for _ in range(cfg.n_layers))
+
+
+def padded_experts(cfg, tp: int = 1) -> int:
+    """The expert count padded up to a multiple of the model axis ``tp``."""
+    if not cfg.n_experts:
+        return 0
+    return ((cfg.n_experts + tp - 1) // tp) * tp
+
+
+def _check_tp(layers: nn.ModuleList, cfg, tp: int) -> None:
+    """``tp`` must be a positive int, and an MoE stack's layers must carry
+    ``padded_experts(cfg, tp)`` experts."""
+    if not (isinstance(tp, int) and tp >= 1):
+        raise ValueError(f"tp must be a positive int, got {tp!r}")
+    if cfg.n_experts and cfg.block_kind == "attn":
+        e = layers[0].moe.n_experts
+        if e != padded_experts(cfg, tp):
+            raise ValueError(f"{cfg.name}: the layers carry {e} experts, tp={tp} pads "
+                             f"{cfg.n_experts} to {padded_experts(cfg, tp)}")
 
 
 def layer_windows(cfg) -> list[int]:
@@ -194,10 +220,9 @@ def forward_train(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.
     activations instead of keeping L layers of them, so the attention
     forward runs twice per layer and step. The hybrid checkpoints each
     group (its mamba2 layers and the shared block) as one, as the reference
-    checkpoints ``group_body``."""
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported yet "
-                                  "(ROADMAP queue 1 item 13.6)")
+    checkpoints ``group_body``. ``tp`` must match the MoE's padded
+    experts; the padded ones are never routed to."""
+    _check_tp(layers, cfg, tp)
     ckpt = ((lambda f, *a: checkpoint(f, *a, use_reentrant=False, preserve_rng_state=False))
             if cfg.remat else (lambda f, *a: f(*a)))
     if cfg.block_kind == "attn":
@@ -216,12 +241,16 @@ def forward_train(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.
 
 
 def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor,
-            cache_len: int, shared_attn: AttnBlock | None = None):
+            cache_len: int, shared_attn: AttnBlock | None = None, tp: int = 1):
     """Forward over the prompt, building the decode cache.
 
     Returns ``(hidden (B, S, D), cache)`` with ``pos`` = S; attention K/V
-    are written into length-``cache_len`` buffers."""
+    are written into length-``cache_len`` buffers of ``Hkv * r`` heads, r =
+    ``cache_expand_factor(cfg, tp)``, each KV head repeated r times in a row
+    (the reference's ``_expand_kv``)."""
+    _check_tp(layers, cfg, tp)
     b, s, _ = x.shape
+    r = cache_expand_factor(cfg, tp)
     kv_layers = (cfg.n_layers if cfg.block_kind == "attn"
                  else cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
     if kv_layers and cache_len < s:
@@ -234,14 +263,14 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
         wkv, last1, last2 = (torch.stack(t) for t in zip(*states))
         return x, {"wkv": wkv, "last1": last1, "last2": last2, "pos": s}
     if kv_layers:
-        shape = (kv_layers, b, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        shape = (kv_layers, b, cache_len, cfg.n_kv_heads * r, cfg.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
     if cfg.block_kind == "attn":
         for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
             x, k, v, _ = layer(x, positions, w)
-            ck[i, :, :s] = k
-            cv[i, :, :s] = v
+            ck[i, :, :s] = _expand_kv(k, r)
+            cv[i, :, :s] = _expand_kv(v, r)
         return x, {"k": ck, "v": cv, "pos": s}
     states = []
     for i, layer in enumerate(layers):
@@ -250,8 +279,8 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             g = i // cfg.attn_every
             x, k, v, _ = shared_attn(x, positions, 0)
-            ck[g, :, :s] = k
-            cv[g, :, :s] = v
+            ck[g, :, :s] = _expand_kv(k, r)
+            cv[g, :, :s] = _expand_kv(v, r)
     ssd, conv = (torch.stack(t) for t in zip(*states))
     if not cfg.attn_every:
         return x, {"ssd": ssd, "conv": conv, "pos": s}
@@ -260,10 +289,12 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
 
 
 def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
-                shared_attn: AttnBlock | None = None):
+                shared_attn: AttnBlock | None = None, tp: int = 1):
     """One-token decode, x (B, 1, D). Returns ``(hidden (B, 1, D), cache)``;
     the attention K/V buffers are updated in place, the recurrent states
-    come back as new tensors, and ``pos`` advances."""
+    come back as new tensors, and ``pos`` advances. The attention reads its
+    KV repetition from the cache's head count (``Attention.decode``)."""
+    _check_tp(layers, cfg, tp)
     pos = int(cache["pos"])
     if "k" in cache and not 0 <= pos < cache["k"].shape[2]:
         raise ValueError(f"decode: position {pos} outside the cache of length "
@@ -296,15 +327,17 @@ def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
                "pos": pos + 1}
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
+def init_cache(cfg, batch: int, cache_len: int, dtype, device, tp: int = 1) -> dict:
     """Empty decode cache (for decode without a prefill), ``pos`` at the
-    last slot as in the reference: attention K/V (L, B, cache_len, Hkv, hd);
+    last slot as in the reference: attention K/V (L, B, cache_len, Hkv r,
+    hd), r = ``cache_expand_factor(cfg, tp)``;
     rwkv6 ``wkv`` (L, B, H, hd, hd) f32, ``last1`` / ``last2`` (L, B, 1,
     D); mamba2 ``ssd`` (L, B, H, P, N) f32 and ``conv`` (L, B, K - 1,
     d_inner), grouped as (G, attn_every, ...) in the hybrid, whose shared
-    block's K/V are (G, B, cache_len, Hkv, hd)."""
+    block's K/V are (G, B, cache_len, Hkv r, hd)."""
     zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
-    kv = lambda n: (n, batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+    kv = lambda n: (n, batch, cache_len, cfg.n_kv_heads * cache_expand_factor(cfg, tp),
+                    cfg.head_dim)
     pos = cache_len - 1
     n = cfg.n_layers
     if cfg.block_kind == "attn":

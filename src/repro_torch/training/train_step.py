@@ -58,10 +58,16 @@ def _compress_int8(grads, err):
     return tuple(out), tuple(new_err)
 
 
-def _bind(cfg, params) -> TransformerLM:
-    """A ``TransformerLM`` whose parameters are ``params`` (no copy)."""
-    model = TransformerLM(cfg, device="meta")
-    names = [name for name, _ in model.named_parameters()]
+def _bind(cfg, params, tp: int = 1) -> TransformerLM:
+    """A ``TransformerLM`` (experts padded for ``tp``) whose parameters are
+    ``params`` (no copy)."""
+    model = TransformerLM(cfg, device="meta", tp=tp)
+    names = []
+    for (name, skel), p in zip(model.named_parameters(), params):
+        if skel.shape != p.shape:
+            raise ValueError(f"{name}: shape {tuple(p.shape)}, the model at tp={tp} has "
+                             f"{tuple(skel.shape)} (an MoE's experts are padded for tp)")
+        names.append(name)
     model.load_state_dict(dict(zip(names, params)), assign=True)
     return model
 
@@ -79,10 +85,10 @@ def make_train_step(cfg, tp: int = 1, lr: float = 3e-4, grad_accum: int = 1,
     tokens / labels: (global_batch, seq) int (numpy or tensors), moved to
     the params' device. With ``grad_accum > 1`` microbatch i is rows
     [i * micro, (i + 1) * micro). ``metrics``: ``loss`` and ``grad_norm``
-    (the float32 norm of the applied gradients), float32 scalar tensors."""
-    if tp != 1:
-        raise NotImplementedError(f"tp={tp}: tensor parallelism is not ported yet "
-                                  "(ROADMAP queue 1 item 13.6)")
+    (the float32 norm of the applied gradients), float32 scalar tensors.
+    ``tp`` is the model axis: the params carry ``padded_experts(cfg, tp)``
+    experts in an MoE stack (the reference's ``init_params(key, cfg, tp)``);
+    nothing else of the step depends on it."""
 
     def step(state: TrainState, tokens, labels, compress_err=None):
         device = state.params[0].device
@@ -91,7 +97,7 @@ def make_train_step(cfg, tp: int = 1, lr: float = 3e-4, grad_accum: int = 1,
         if b % grad_accum:
             raise ValueError(f"batch {b} is not a multiple of grad_accum {grad_accum}")
         micro = b // grad_accum
-        model = _bind(cfg, state.params)
+        model = _bind(cfg, state.params, tp)
         leaves = tuple(model.parameters())
 
         if grad_accum == 1:

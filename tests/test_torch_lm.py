@@ -492,11 +492,18 @@ def test_cli_reduced_on_cpu(capsys):
     assert "[serve] prefill 2x32" in out and "decoded 7 steps x 2 seqs" in out
 
 
-def test_cli_refuses_without_device_when_no_cuda(monkeypatch):
+def test_cli_refuses_without_device_when_no_cuda(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["--reduced", "--batch", "1", "--prompt-len", "4", "--max-new", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.main(["gp"])
+    # --mesh 2x2 serves at tp = 2 on the given device and prints its header;
+    # a mesh that does not parse is a usage error.
+    toks = tserve.main(["--reduced", "--mesh", "2x2", "--device", "cpu", "--batch", "1",
+                        "--prompt-len", "4", "--max-new", "2"])
+    assert toks.shape == (1, 2)
+    out = capsys.readouterr().out
+    assert "[mesh] 2x2 (data=2, model=2) on one device: tp=2" in out and "cache" in out
     with pytest.raises(SystemExit):
-        tserve.main(["--reduced", "--mesh", "2x2", "--device", "cpu"])
+        tserve.main(["--reduced", "--mesh", "2xa", "--device", "cpu"])

@@ -259,9 +259,21 @@ def test_compress_int8_with_feedback_is_bitwise_the_reference():
 
 
 def test_tensor_parallel_step_refuses():
+    """tp > 1 runs: a dense stack's step at tp = 2 is its step at tp = 1
+    (tp pads only an MoE's experts). The step refuses only a state whose
+    experts were not padded for its tp (5 experts at tp = 2, which pads to
+    6)."""
     _, tcfg = _cfgs(**F32)
-    with pytest.raises(NotImplementedError, match="13.6"):
-        make_train_step(tcfg, tp=2)
+    tok, lab = _batch(tcfg.vocab, b=2, s=32)
+    params = init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    _, m1 = make_train_step(tcfg, lr=1e-3)(train_state_init(params), tok, lab)
+    _, m2 = make_train_step(tcfg, tp=2, lr=1e-3)(train_state_init(params), tok, lab)
+    assert float(m1["loss"]) == float(m2["loss"])
+    mcfg = tconfigs.get_config("qwen2-moe-a2.7b").reduced(n_experts=5, n_layers=1,
+                                                            dtype="float32")
+    moe = init_params(mcfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="experts"):
+        make_train_step(mcfg, tp=2)(train_state_init(moe), tok, lab)
 
 
 # The reference's own invariants (tests/test_training.py), mirrored on the
@@ -579,5 +591,9 @@ def test_cli_trains_on_cpu_and_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttrain.main(["--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="13.6"):
-        ttrain.main(["--reduced", "--device", "cpu", "--mesh", "2x2"])
+    # --mesh 2x2 trains at tp = 2 on the one device and prints its header.
+    state = ttrain.main(["--reduced", "--device", "cpu", "--mesh", "2x2", "--steps", "1",
+                         "--batch", "2", "--seq", "32"])
+    out = capsys.readouterr().out
+    assert state.step == 1 and "[mesh] 2x2 (data=2, model=2) on one device: tp=2" in out
+    assert "per device of the mesh (reckoned from the specs): params" in out
