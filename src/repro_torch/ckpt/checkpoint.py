@@ -17,7 +17,9 @@ each package reads the other's checkpoints:
   host copies and keeps going; at most one write in flight), keep-last-k
   cleanup and a SIGTERM handler for a final save on preemption;
 * JSON-serialisable extras (a data iterator's position, say) ride in the
-  manifest.
+  manifest;
+* a sharded training run (``launch.train --sharded``) gathers its state
+  and rank 0 writes it here whole, so its checkpoints are these.
 
 Leaves may be ``torch.Tensor`` (any device), numpy arrays or Python
 scalars. ``restore_train_state(path, template, device=)`` rebuilds the

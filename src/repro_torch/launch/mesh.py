@@ -10,10 +10,14 @@ it is one process over a tuple of ``torch.device``s, and
 
 The LM meshes (``make_production_mesh``, ``make_test_mesh``, ``make_mesh``)
 are device-free: an ``LMMesh`` carries the axis names and sizes that the
-sharding rules (``repro_torch.sharding``) read, and nothing else. The port
-runs an LM on the one device it is given; a mesh's ``model`` axis sets the
-``tp`` the model is built and run at (the padded experts and the expanded
-decode cache), and the rules reckon what each device of that mesh would hold.
+sharding rules (``repro_torch.sharding``) read, and maps ranks to mesh
+coordinates. Without ``--sharded`` the port runs an LM on the one device it
+is given: a mesh's ``model`` axis sets the ``tp`` the model is built and run
+at (the padded experts and the expanded decode cache), and the rules reckon
+what each device of that mesh would hold. With ``--sharded`` each of the
+mesh's ``size`` rank processes holds its own shards
+(``repro_torch.sharding.placement``) and the ranks talk through
+``repro_torch.sharding.collectives``.
 """
 from __future__ import annotations
 
@@ -47,6 +51,38 @@ class LMMesh:
 
     def __str__(self) -> str:
         return "x".join(str(n) for n in self.sizes)
+
+    def coords(self, rank: int) -> tuple:
+        """Rank -> its index along each axis, row-major over ``axis_names``
+        (the last axis varies fastest): the order in which ``jax.make_mesh``
+        lays out the devices of the reference's ``make_test_mesh``."""
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} outside a mesh of {self.size}")
+        out = []
+        for n in reversed(self.sizes):
+            rank, i = divmod(rank, n)
+            out.append(i)
+        return tuple(reversed(out))
+
+    def rank(self, coords) -> int:
+        """The inverse of ``coords``."""
+        r = 0
+        for i, n in zip(coords, self.sizes):
+            if not 0 <= i < n:
+                raise ValueError(f"coordinates {tuple(coords)} outside the mesh {self}")
+            r = r * n + i
+        return r
+
+    def axis_groups(self, axis: str) -> list:
+        """The rank groups of ``axis``: for every setting of the other
+        coordinates, the ranks along ``axis`` in coordinate order (every rank
+        lies in exactly one group)."""
+        a = self.axis_names.index(axis)
+        groups = {}
+        for r in range(self.size):
+            c = self.coords(r)
+            groups.setdefault(c[:a] + c[a + 1:], []).append(r)
+        return [tuple(g) for g in groups.values()]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> LMMesh:

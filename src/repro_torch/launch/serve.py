@@ -22,7 +22,14 @@ M: the MoE's experts padded to a multiple of M and the decode cache's KV
 heads expanded to divide it, the only two things a mesh changes in the
 reference's numbers. A ``[mesh]`` line prints tp, the padded experts, the
 cache factor r and the bytes each device of that mesh would hold under the
-sharding rules; the tensors are not split over cards.
+sharding rules. ``--mesh DxM --sharded`` splits the weights and the cache
+instead: D x M rank processes (started here through
+``multihost.spawn_ranks``, or joined from the ``REPRO_TORCH_DIST_*``
+environment) each hold their shards (``sharding.placement``), prefill
+their rows of the prompt and decode on their block of the cache; the greedy
+token comes from the logits gathered over 'model' and is the same on every
+rank. Each rank's ``[mesh]`` line prints its shards' bytes beside
+``launch.dryrun``'s reckoning. Only dense attention stacks shard.
 
 GP mode: a ``GPServer`` builds the training index once and serves a
 stream of asynchronous requests; the micro-batcher (or, with
@@ -533,12 +540,25 @@ def main(argv=None):
     ap.add_argument("--mesh", default="1x1")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the current CUDA device)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="split the weights and the cache over the mesh's rank processes")
+    ap.add_argument("--timeout", type=float, default=600.0,
+                    help="--sharded: seconds for the rendezvous and the ranks' run")
     args = ap.parse_args(argv)
     try:
         mesh = make_mesh(args.mesh)
     except ValueError as e:
         ap.error(str(e))
     tp = tp_size(mesh)
+    comm = None
+    if args.sharded:
+        from repro_torch.launch.train import launch_ranks
+        from repro_torch.sharding.collectives import MeshComm
+
+        comm = MeshComm.from_env(mesh)
+        if comm is None:
+            launch_ranks("repro_torch.launch.serve", argv, mesh, args.timeout)
+            return None
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -547,12 +567,18 @@ def main(argv=None):
     cache_len = args.prompt_len + args.max_new
 
     model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device, tp=tp)
-    print(mesh_line(cfg, mesh, model, meta_cache(cfg, args.batch, cache_len, tp, model.dtype)))
+    if comm is None:
+        print(mesh_line(cfg, mesh, model, meta_cache(cfg, args.batch, cache_len, tp, model.dtype)))
 
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)), dtype=torch.int32
     ).to(device)
+    if comm is not None:
+        from repro_torch.sharding.placement import shard_batch, shard_model
+
+        model = shard_model(model, mesh, comm.rank, comm)
+        prompt = shard_batch(prompt, mesh, comm.rank)
 
     with torch.inference_mode():
         _sync(device)
@@ -561,6 +587,15 @@ def main(argv=None):
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         _sync(device)
         print(f"[serve] prefill {args.batch}x{args.prompt_len}: {time.time()-t0:.2f}s")
+        if comm is not None:
+            from repro_torch.configs import ShapeSpec
+            from repro_torch.launch.train import sharded_mesh_line
+
+            nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+            measured = {"params": nbytes(model.parameters()),
+                        "cache": nbytes(v for v in cache.values() if torch.is_tensor(v))}
+            print(sharded_mesh_line(cfg, mesh, comm.rank, measured,
+                                    ShapeSpec("cli", cache_len, args.batch, "decode")))
 
         out = [tok]
         t0 = time.time()
@@ -575,6 +610,9 @@ def main(argv=None):
     print(f"[serve] decoded {args.max_new-1} steps x {args.batch} seqs: "
           f"{dt:.2f}s ({rate:.1f} tok/s)")
     print("[serve] sample tokens:", toks[0, :16].cpu().numpy())
+    if comm is not None:
+        print(f"[serve] rank {comm.rank} collectives: {comm.summary()}")
+        comm.shutdown()
     return toks
 
 

@@ -21,6 +21,20 @@ into the cache in place (the reference returns an updated copy). Without a
 mesh the reference's sharding constraints are no-ops, so they are left out.
 No step builds a device tensor from a Python number (masks take the
 sentinel as a scalar), so nothing waits for the device between launches.
+
+Bound to a shard context (``Attention.shard``, ``layers`` explains the
+layout), a rank computes its own query heads, ``n_heads / tp`` of them in a
+row, and the KV heads those read (``_local``): where ``n_kv_heads`` divides
+the model axis these are its own ``wk`` / ``wv`` columns; where it does not
+(the expanded cache of ``cache_expand_factor``) it gathers the K and V
+weights over 'model' and takes the columns of its KV heads, whose
+gradients the gather's backward sums back over the ranks that share them.
+Prefill and training call the same flash route on those heads; decode
+reads the rank's cache heads (``cache_heads``), and ``wo`` is row-parallel.
+``cache_specs`` splits the cache's sequence instead of its heads where the
+expanded cache's heads do not divide the model axis; no dense configuration
+of the repo reaches that at the meshes run (2 x 2, 1 x 4: every
+``n_kv_heads * r`` divides them), so a sharded cache of that layout raises.
 """
 from __future__ import annotations
 
@@ -29,7 +43,7 @@ from torch import nn
 
 from repro_torch.kernels.flash_attention import FlashAttention, flash_attention
 
-from .layers import apply_rope, dense_init_, linear_weight, softcap
+from .layers import apply_rope, dense_init_, linear_weight, row_parallel, softcap
 
 _Q_CHUNK = 1024
 _NEG = -1e30
@@ -98,6 +112,20 @@ def cache_expand_factor(cfg, tp: int) -> int:
     return 1
 
 
+def cache_heads_local(cfg, r: int, tp: int) -> int:
+    """The cache heads (of ``n_kv_heads * r``) one rank of a model axis of
+    ``tp`` holds. Raises where they do not divide it: ``cache_specs`` then
+    splits the sequence over 'model', which no configuration of the repo
+    reaches at the meshes its sharded runs use (2 x 2 and 1 x 4)."""
+    hc = cfg.n_kv_heads * r
+    if hc % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: {hc} cache heads do not divide the model axis of {tp}, so "
+            f"cache_specs splits the sequence; sequence-split decode (an all-reduce of each "
+            f"row's max and sum over 'model') is not written")
+    return hc // tp
+
+
 def _flash_enabled(cfg) -> bool:
     if cfg.use_flash not in ("auto", "always", "never"):
         raise ValueError(f"use_flash must be auto, always or never, got {cfg.use_flash!r}")
@@ -106,6 +134,8 @@ def _flash_enabled(cfg) -> bool:
 
 class Attention(nn.Module):
     """``wq`` (d, H hd), ``wk``/``wv`` (d, Hkv hd), ``wo`` (H hd, d)."""
+
+    shard = None
 
     def __init__(self, cfg, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -121,13 +151,61 @@ class Attention(nn.Module):
             dense_init_(w, generator)
         dense_init_(self.wo, generator, scale=self.wo.shape[0] ** -0.5)
 
+    def _local(self) -> tuple[int, int, int, int]:
+        """``(q0, hq, kv0, nkv)``: this rank's query heads [q0, q0 + hq)
+        and the KV heads [kv0, kv0 + nkv) they read (all of them whole)."""
+        cfg, sh = self.cfg, self.shard
+        if sh is None:
+            return 0, cfg.n_heads, 0, cfg.n_kv_heads
+        hq = cfg.n_heads // sh.tp
+        q0 = sh.tp_index * hq
+        n_rep = cfg.n_heads // cfg.n_kv_heads
+        kv0 = q0 // n_rep
+        return q0, hq, kv0, (q0 + hq - 1) // n_rep + 1 - kv0
+
+    def _kv_weight(self, name: str) -> torch.Tensor:
+        """The ``wk`` / ``wv`` columns of this rank's KV heads."""
+        sh, spec, cfg = self.shard, self.specs[name], self.cfg
+        w = sh.fsdp(getattr(self, name), spec)
+        if spec[1] is not None:
+            if cfg.n_kv_heads % sh.tp == 0:
+                return w                    # its own columns are its KV heads
+            w = sh.gather_model(w, 1)
+        _, _, kv0, nkv = self._local()
+        return w[:, kv0 * cfg.head_dim:(kv0 + nkv) * cfg.head_dim]
+
     def _qkv(self, x: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
         hd = cfg.head_dim
-        q = apply_rope(_split_heads(x @ self.wq, cfg.n_heads, hd), positions, cfg.rope_theta)
-        k = apply_rope(_split_heads(x @ self.wk, cfg.n_kv_heads, hd), positions, cfg.rope_theta)
-        v = _split_heads(x @ self.wv, cfg.n_kv_heads, hd)
+        sh = self.shard
+        if sh is None:
+            wq, wk, wv = self.wq, self.wk, self.wv
+        else:
+            x = sh.to_model(x)
+            wq = sh.fsdp(self.wq, self.specs["wq"])
+            wk, wv = self._kv_weight("wk"), self._kv_weight("wv")
+        _, hq, _, nkv = self._local()
+        q = apply_rope(_split_heads(x @ wq, hq, hd), positions, cfg.rope_theta)
+        k = apply_rope(_split_heads(x @ wk, nkv, hd), positions, cfg.rope_theta)
+        v = _split_heads(x @ wv, nkv, hd)
         return q, k, v
+
+    def _out(self, o: torch.Tensor) -> torch.Tensor:
+        """(B, S, hq hd) -> (B, S, D) through ``wo`` (row-parallel when sharded)."""
+        if self.shard is None:
+            return o @ self.wo
+        return row_parallel(o, self.shard.fsdp(self.wo, self.specs["wo"]), self.shard)
+
+    def cache_heads(self, k: torch.Tensor, r: int) -> torch.Tensor:
+        """This rank's KV heads (B, S, nkv, hd) -> the decode cache's heads it
+        holds: each KV head repeated r times in a row (``_expand_kv``), and
+        of those the rank's block under ``cache_specs``."""
+        if self.shard is None:
+            return _expand_kv(k, r)
+        hc = cache_heads_local(self.cfg, r, self.shard.tp)
+        c0 = self.shard.tp_index * hc
+        lo = c0 - self._local()[2] * r
+        return _expand_kv(k, r)[:, :, lo:lo + hc]
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, window: int = 0):
         """Full-sequence attention (prefill and training).
@@ -138,6 +216,7 @@ class Attention(nn.Module):
         cfg = self.cfg
         b, s, _ = x.shape
         q, k, v = self._qkv(x, positions)
+        n_rep = q.shape[2] // k.shape[2]
         if _flash_enabled(cfg):
             qkv = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
             if torch.is_grad_enabled() and any(t.requires_grad for t in qkv):
@@ -146,27 +225,28 @@ class Attention(nn.Module):
                 o = flash_attention(*qkv, causal=True, window=window, softcap=cfg.attn_softcap)
             out = o.transpose(1, 2)
         else:
-            n_rep = cfg.n_heads // cfg.n_kv_heads
             out = torch.cat([
                 _attend_block(q[:, c:c + _Q_CHUNK], k, v, positions[:, c:c + _Q_CHUNK],
                               positions, window, cfg.attn_softcap, n_rep, x.dtype)
                 for c in range(0, s, _Q_CHUNK)], dim=1)
-        return out.reshape(b, s, -1) @ self.wo, k, v
+        return self._out(out.reshape(b, s, -1)), k, v
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
                window: int = 0) -> torch.Tensor:
         """One-token decode: x (B, 1, D) at position ``pos``; cache
         (B, S_max, Hc, hd), Hc = Hkv or Hkv r (the expanded cache of
         ``cache_expand_factor``, each KV head repeated r times in a row).
-        Writes this token's K/V at ``pos`` in place; returns (B, 1, D)."""
+        Writes this token's K/V at ``pos`` in place; returns (B, 1, D).
+        Sharded, the cache holds this rank's ``Hc / tp`` heads."""
         cfg = self.cfg
         b = x.shape[0]
         hd = cfg.head_dim
         posb = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
         q, k, v = self._qkv(x, posb)
-        if cache_k.shape[2] != cfg.n_kv_heads:  # (partially) expanded cache
-            r = cache_k.shape[2] // cfg.n_kv_heads
-            k, v = _expand_kv(k, r), _expand_kv(v, r)
+        tp = 1 if self.shard is None else self.shard.tp
+        if cache_k.shape[2] * tp != cfg.n_kv_heads:  # (partially) expanded cache, or a shard
+            r = cache_k.shape[2] * tp // cfg.n_kv_heads
+            k, v = self.cache_heads(k, r), self.cache_heads(v, r)
         cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
 
@@ -178,5 +258,5 @@ class Attention(nn.Module):
             allow &= kpos > pos - window
         scores = scores.masked_fill(~allow, _NEG)
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        out = _gqa_out_grouped(probs, cache_v, cfg.n_heads)
-        return out.reshape(b, 1, -1) @ self.wo
+        out = _gqa_out_grouped(probs, cache_v, q.shape[2])
+        return self._out(out.reshape(b, 1, -1))

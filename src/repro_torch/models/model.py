@@ -5,6 +5,17 @@ prefill and decode steps. The counterpart of ``repro.models.model``.
 chunks of ``_LOSS_CHUNK`` tokens, each under ``torch.utils.checkpoint``, so
 the (B, S, V) logits never exist at once (at internlm2's 92,544-token vocab
 and 4 x 2048 tokens they would take 3 GB in f32).
+
+A model bound to a shard context (``sharding.placement.shard_model``) holds
+the vocabulary split over 'model' (``embed`` is ``P(model, fsdp)``, the
+head ``P(fsdp, model)``; tied embeddings read the embed's shard):
+``embed_tokens`` looks up the rows of its vocabulary block, zeros the
+others and all-reduces over 'model'; the loss is the vocab-parallel cross
+entropy (each row's max and sum of exponents all-reduced over 'model', the
+label's logit picked by the rank that holds it); ``logits_fn`` all-gathers
+the logits over 'model'. ``lm_loss`` then takes this rank's rows and
+returns the mean over the global batch (summed over the data axes), so its
+gradient is the whole step's.
 """
 from __future__ import annotations
 
@@ -34,6 +45,8 @@ class TransformerLM(nn.Module):
     it (``transformer.padded_experts``), as the reference's ``init_params(
     key, cfg, tp)`` does; no other parameter depends on it."""
 
+    shard = None
+
     def __init__(self, cfg, *, device=None, dtype=None, tp: int = 1):
         super().__init__()
         self.cfg = cfg
@@ -56,7 +69,21 @@ class TransformerLM(nn.Module):
         return self.embed.device
 
     def head_matrix(self) -> torch.Tensor:
-        return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        """(D, V): the head, or ``embed.T`` with tied embeddings; sharded,
+        gathered over the data axes: (D, V / tp), this rank's vocabulary."""
+        sh = self.shard
+        if sh is None:
+            return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+        if self.cfg.tie_embeddings:
+            return sh.fsdp(self.embed, sh.specs["embed"]).T
+        return sh.fsdp(self.lm_head, sh.specs["lm_head"])
+
+    def vocab_block(self) -> tuple[int, int]:
+        """(first token, count) of this rank's vocabulary block."""
+        if self.shard is None:
+            return 0, self.cfg.vocab
+        n = self.cfg.vocab // self.shard.tp
+        return self.shard.tp_index * n, n
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The reference's distributions: ``normal * 0.02`` for the embedding
@@ -89,7 +116,15 @@ def init_params(cfg, generator: torch.Generator, device=None, tp: int = 1) -> Tr
 
 
 def embed_tokens(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
-    x = model.embed[tokens.long()]
+    sh = model.shard
+    if sh is None:
+        x = model.embed[tokens.long()]
+    else:
+        v0, n = model.vocab_block()
+        local = tokens.long() - v0
+        inside = ((local >= 0) & (local < n))[..., None]
+        rows = sh.fsdp(model.embed, sh.specs["embed"])[local.clamp(0, n - 1)]
+        x = sh.sum_model(torch.where(inside, rows, 0))  # one rank adds its row: exact
     if model.cfg.emb_scale:
         # The reference casts sqrt(d_model) to the activation dtype first.
         x = x * float(torch.tensor(model.cfg.d_model ** 0.5, dtype=x.dtype))
@@ -97,13 +132,34 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def logits_fn(model: TransformerLM, hidden: torch.Tensor) -> torch.Tensor:
-    """``hidden @ head`` in the model dtype, then f32 and the final softcap."""
-    return softcap((hidden @ model.head_matrix()).float(), model.cfg.logit_softcap)
+    """``hidden @ head`` in the model dtype, then f32 and the final softcap
+    (sharded: each rank's vocabulary block, all-gathered over 'model')."""
+    sh = model.shard
+    if sh is None:
+        return softcap((hidden @ model.head_matrix()).float(), model.cfg.logit_softcap)
+    local = softcap((sh.to_model(hidden) @ model.head_matrix()).float(), model.cfg.logit_softcap)
+    return sh.gather_model(local, -1)
 
 
 def _chunk_loss(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
                 cap: float) -> torch.Tensor:
     return cross_entropy(softcap((h @ head).float(), cap), labels)
+
+
+def _chunk_loss_sharded(h: torch.Tensor, head: torch.Tensor, labels: torch.Tensor, cap: float,
+                        shard, v0: int) -> torch.Tensor:
+    """Vocab-parallel cross entropy of this rank's rows: the mean over them
+    of logsumexp - the label's logit, with ``head`` this rank's (D, n)
+    vocabulary block from token ``v0``."""
+    logits = softcap((shard.to_model(h) @ head).float(), cap)
+    n = logits.shape[-1]
+    m = shard.max_model(logits.amax(-1))
+    lse = m + torch.log(shard.sum_model(torch.exp(logits - m[..., None]).sum(-1)))
+    local = labels.long() - v0
+    inside = (local >= 0) & (local < n)
+    pick = torch.gather(logits, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = shard.sum_model(torch.where(inside, pick, 0.0))
+    return torch.mean(lse - gold)
 
 
 def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp: int = 1,
@@ -113,8 +169,12 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     the chunk means are summed in f32 in order and divided by their count,
     as the reference's scan does. MoE stacks add ``aux_weight`` times the
     router's load-balancing loss summed over layers, divided by the layer
-    count. ``tp`` must match the model's padded experts."""
+    count. ``tp`` must match the model's padded experts. Sharded, tokens
+    and labels are this rank's rows (``placement.shard_batch``; the global
+    batch divides over the data axes) and the loss is the global batch's
+    mean on every rank."""
     cfg = model.cfg
+    sh = model.shard
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device).expand(b, s)
     x = embed_tokens(model, tokens)
@@ -124,12 +184,19 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     chunk = min(_LOSS_CHUNK, s)
     if s % chunk:
         raise ValueError(f"lm_loss: sequence length {s} is not a multiple of {chunk}")
+    fn, extra = ((_chunk_loss, ()) if sh is None
+                 else (_chunk_loss_sharded, (sh, model.vocab_block()[0])))
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for c in range(0, s, chunk):
-        total = total + checkpoint(_chunk_loss, hidden[:, c:c + chunk], head,
-                                   labels[:, c:c + chunk], cfg.logit_softcap,
+        total = total + checkpoint(fn, hidden[:, c:c + chunk], head, labels[:, c:c + chunk],
+                                   cfg.logit_softcap, *extra,
                                    use_reentrant=False, preserve_rng_state=False)
     loss = total / (s // chunk)
+    if sh is not None:
+        n_data = 1
+        for axis in sh.dp:
+            n_data *= sh.mesh.shape[axis]
+        loss = sh.sum_data(loss / n_data)
     if cfg.n_experts:
         loss = loss + aux_weight * aux / cfg.n_layers
     return loss
@@ -156,4 +223,6 @@ def serve_step(model: TransformerLM, tokens: torch.Tensor, cache: dict, tp: int 
 
 
 def make_empty_cache(model: TransformerLM, batch: int, cache_len: int, tp: int = 1) -> dict:
-    return init_cache(model.cfg, batch, cache_len, model.dtype, model.device, tp)
+    """An empty cache for a ``batch`` (global) of ``cache_len`` slots; a
+    sharded model's holds its rank's block."""
+    return init_cache(model.cfg, batch, cache_len, model.dtype, model.device, tp, model.shard)

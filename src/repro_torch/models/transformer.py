@@ -21,7 +21,13 @@ states.
 reference: the MoE's experts are padded to a multiple of it
 (``padded_experts``; the padded ones are never routed to), and the decode
 KV cache holds each KV head ``cache_expand_factor(cfg, tp)`` times, so that
-its heads divide it. The port computes on one device whatever ``tp`` is.
+its heads divide it. A whole model computes on one device whatever ``tp``
+is; a model bound to a shard context (``sharding.placement.shard_model``)
+runs its blocks on this rank's heads and hidden features, keeps the norms
+and the residual stream replicated over 'model' and its rows split over the
+data axes, and holds this rank's block of the decode cache (``cache_specs``:
+batch over the data axes, cache heads over 'model'). Only dense attention
+blocks shard (``placement.check_shardable``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .attention import Attention, _expand_kv, cache_expand_factor
+from repro_torch.sharding.rules import cache_specs, local_shape
+
+from .attention import Attention, cache_expand_factor, cache_heads_local
 from .layers import MLP, rms_norm
 from .moe import MoE
 from .rwkv6 import RWKV6, rwkv6_channel_mix, rwkv6_time_mix, rwkv6_time_mix_decode
@@ -263,14 +271,17 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
         wkv, last1, last2 = (torch.stack(t) for t in zip(*states))
         return x, {"wkv": wkv, "last1": last1, "last2": last2, "pos": s}
     if kv_layers:
-        shape = (kv_layers, b, cache_len, cfg.n_kv_heads * r, cfg.head_dim)
+        attn = (layers[0] if cfg.block_kind == "attn" else shared_attn).attn
+        hc = (cfg.n_kv_heads * r if attn.shard is None
+              else cache_heads_local(cfg, r, attn.shard.tp))
+        shape = (kv_layers, b, cache_len, hc, cfg.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
     if cfg.block_kind == "attn":
         for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
             x, k, v, _ = layer(x, positions, w)
-            ck[i, :, :s] = _expand_kv(k, r)
-            cv[i, :, :s] = _expand_kv(v, r)
+            ck[i, :, :s] = layer.attn.cache_heads(k, r)
+            cv[i, :, :s] = layer.attn.cache_heads(v, r)
         return x, {"k": ck, "v": cv, "pos": s}
     states = []
     for i, layer in enumerate(layers):
@@ -279,8 +290,8 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             g = i // cfg.attn_every
             x, k, v, _ = shared_attn(x, positions, 0)
-            ck[g, :, :s] = _expand_kv(k, r)
-            cv[g, :, :s] = _expand_kv(v, r)
+            ck[g, :, :s] = shared_attn.attn.cache_heads(k, r)
+            cv[g, :, :s] = shared_attn.attn.cache_heads(v, r)
     ssd, conv = (torch.stack(t) for t in zip(*states))
     if not cfg.attn_every:
         return x, {"ssd": ssd, "conv": conv, "pos": s}
@@ -327,14 +338,25 @@ def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
                "pos": pos + 1}
 
 
-def init_cache(cfg, batch: int, cache_len: int, dtype, device, tp: int = 1) -> dict:
+def init_cache(cfg, batch: int, cache_len: int, dtype, device, tp: int = 1,
+               shard=None) -> dict:
     """Empty decode cache (for decode without a prefill), ``pos`` at the
     last slot as in the reference: attention K/V (L, B, cache_len, Hkv r,
     hd), r = ``cache_expand_factor(cfg, tp)``;
     rwkv6 ``wkv`` (L, B, H, hd, hd) f32, ``last1`` / ``last2`` (L, B, 1,
     D); mamba2 ``ssd`` (L, B, H, P, N) f32 and ``conv`` (L, B, K - 1,
     d_inner), grouped as (G, attn_every, ...) in the hybrid, whose shared
-    block's K/V are (G, B, cache_len, Hkv r, hd)."""
+    block's K/V are (G, B, cache_len, Hkv r, hd). With a ``shard``
+    context: this rank's block of each leaf under ``cache_specs`` (``batch``
+    is the global batch)."""
+    if shard is not None:
+        whole = init_cache(cfg, batch, cache_len, dtype, "meta", tp)
+        specs = cache_specs(whole, shard.mesh)
+        if "k" in whole:
+            cache_heads_local(cfg, cache_expand_factor(cfg, tp), shard.tp)
+        return {k: (torch.zeros(local_shape(v.shape, specs[k], shard.mesh), dtype=v.dtype,
+                                device=device) if torch.is_tensor(v) else v)
+                for k, v in whole.items()}
     zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     kv = lambda n: (n, batch, cache_len, cfg.n_kv_heads * cache_expand_factor(cfg, tp),
                     cfg.head_dim)

@@ -167,6 +167,11 @@ def shard_count(spec: tuple, mesh) -> int:
     return n
 
 
+def local_shape(shape, spec: tuple, mesh) -> tuple:
+    """The shape of one device's piece of a leaf of ``shape`` under ``spec``."""
+    return tuple(int(n) // _axsize(mesh, entry) for n, entry in zip(shape, spec))
+
+
 def device_bytes(shape, itemsize: int, spec: tuple, mesh) -> int:
     """Bytes one device holds of a leaf of ``shape`` under ``spec`` (every
     axis a spec names divides its dimension, so the pieces are equal)."""

@@ -1,7 +1,12 @@
 """Serving steps: prefill (prompt -> cache) and greedy decode, one token at a
 time. The counterpart of ``repro.training.serve``; every step runs under
 ``torch.inference_mode``. ``tp`` is the model axis the reference's steps
-take: the model's padded experts and the decode cache's head expansion."""
+take: the model's padded experts and the decode cache's head expansion.
+
+A sharded model (``sharding.placement.shard_model``) runs through the same
+steps: each rank passes its rows of the prompt (``shard_batch``) and its
+block of the cache; the logits come back gathered over 'model', so the
+greedy token is the same on every rank of a row."""
 from __future__ import annotations
 
 import torch

@@ -1963,3 +1963,82 @@ def test_reduced_family_prefill_on_card_matches_cpu(dev, arch, dtype):
         assert rel(a.cpu(), ref) <= 1.25 * rel(b, ref), (rel(a.cpu(), ref), rel(b, ref))
     else:
         assert rel(a.cpu(), b) <= 3e-2
+
+
+# -- the LM split over rank processes on the card (ROADMAP item 13.6) ---------
+
+_SHARDED_RANK = """
+import sys, numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import init_params, lm_loss, prefill_step
+from repro_torch.sharding.collectives import MeshComm
+from repro_torch.sharding.placement import gather_whole, shard_batch, shard_model
+from repro_torch.training.train_step import _sharded_grads
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh = make_mesh(sys.argv[1])
+comm = MeshComm.from_env(mesh)
+dev = torch.device("cuda")
+cfg = get_config("internlm2-1.8b").reduced(dtype="float32", n_layers=2, head_dim=64,
+                                           n_heads=8, n_kv_heads=2)
+whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                    tp=mesh.shape["model"])
+rng = np.random.default_rng(1)
+tok, lab = (torch.as_tensor(rng.integers(0, cfg.vocab, (4, 128)), device=dev) for _ in range(2))
+loss_w = lm_loss(whole, tok, lab)
+grads_w = torch.autograd.grad(loss_w, tuple(whole.parameters()))
+model = shard_model(whole, mesh, comm.rank, comm)
+loss = lm_loss(model, shard_batch(tok, mesh, comm.rank), shard_batch(lab, mesh, comm.rank))
+specs = [model.shard.specs[n] for n, _ in model.named_parameters()]
+grads = _sharded_grads(comm, specs, torch.autograd.grad(loss, tuple(model.parameters())))
+err = max(float((gather_whole(g, s, comm) - w).abs().max() / w.abs().max())
+          for g, s, w in zip(grads, specs, grads_w))
+with torch.no_grad():
+    lw, _ = prefill_step(whole, tok, 130, tp=mesh.shape["model"])
+    ls, _ = prefill_step(model, shard_batch(tok, mesh, comm.rank), 130, tp=mesh.shape["model"])
+rows = shard_batch(torch.arange(4, device=dev)[:, None], mesh, comm.rank)[:, 0]
+assert grads[0].is_cuda and ls.is_cuda
+print("RESULT", float(loss), float(loss_w), err, float((ls - lw[rows]).abs().max()))
+comm.shutdown()
+"""
+
+
+def test_row_parallel_f32_product_on_card(dev):
+    """``layers.matmul_f32`` on the card (``torch.mm(out_dtype=float32)``
+    of bf16 operands) against the widened f32 product, and its gradients
+    against autograd through the bf16 ``x @ w`` (bf16 tolerances)."""
+    from repro_torch.models.layers import matmul_f32
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(3, 256, 512, generator=g, device=dev).bfloat16().requires_grad_(True)
+    w = (torch.randn(512, 384, generator=g, device=dev) / 512 ** 0.5).bfloat16()
+    w.requires_grad_(True)
+    up = torch.randn(3, 256, 384, generator=g, device=dev).bfloat16()
+    out = matmul_f32(x, w)
+    wide = x.detach().float() @ w.detach().float()
+    assert out.dtype == torch.float32
+    assert float((out - wide).norm() / wide.norm()) <= 1e-5
+    gx, gw = torch.autograd.grad(out, (x, w), up.float())
+    rx, rw = torch.autograd.grad(x @ w, (x, w), up)
+    torch.testing.assert_close(gx, rx)
+    torch.testing.assert_close(gw, rw)
+
+
+@pytest.mark.parametrize("mesh_spec", ["2x2", "1x4"])
+def test_sharded_lm_on_card_matches_the_whole_model(dev, mesh_spec, tmp_path):
+    """Four rank processes on the card (gloo, collectives staged through
+    pinned host memory): a reduced internlm2 in f32 at 2 x 2 and 1 x 4 (8
+    query and 2 KV heads: at 1 x 4 the expanded cache and gathered K / V
+    weights), the sharded loss, gathered gradient and prefill logits
+    against the whole model on the same card at the CPU tests' tolerances."""
+    from repro_torch.multihost import spawn_ranks
+
+    script = tmp_path / "rank.py"
+    script.write_text(_SHARDED_RANK)
+    results = spawn_ranks([sys.executable, str(script), mesh_spec], 4, timeout_s=300)
+    for r, (code, text) in enumerate(results):
+        assert code == 0, f"rank {r} exited with {code}:\n{text}"
+        loss, loss_w, err, logit_err = map(float, text.split("RESULT", 1)[1].split()[:4])
+        assert abs(loss - loss_w) <= 1e-5 * abs(loss_w), (r, loss, loss_w)
+        assert err <= 1e-4, (r, err)
+        assert logit_err <= 1e-4, (r, logit_err)
