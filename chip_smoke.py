@@ -114,18 +114,29 @@ path once through the user entry points:
   the dry run's reckoned parameter and cache bytes against the tensors on
   the card, and ``python -m repro_torch.launch.dryrun`` over every cell of
   both production meshes and one card in a subprocess;
-* the dense LM split over rank processes (item 13.6): this script started
-  four times (``--lm-rank``) on the card, the ranks joined in a gloo group
-  whose collectives are staged through pinned host memory, first serving
-  internlm2-1.8b at ``--mesh 1x4`` (the serving phase's weights and
-  prompt, 8 decode steps teacher-forced on its tokens), then training it at
-  ``--mesh 2x2`` (the training phase's first two batches), at full width
-  and depth; each rank's flash forward and backward held at its local-head
-  shapes, its shard bytes against the dry run's; tokens (but for one tie
-  of the whole run's logits), logits, losses and the first step's gathered
-  gradient against the whole-tensor runs (the gradient arbitrated by the
-  same weights' f32 gradient, a planted fault read against the same
-  limit); the row-parallel products' GEMM times at the ranks' shapes.
+* the dense LM and the MoE split over rank processes (item 13.6), after
+  the MoE's training phase: this script started four times
+  (``--lm-rank``) on the card, the ranks joined in one gloo group whose
+  collectives are staged through pinned host memory, each rank drawing
+  only its shards of the seed-0 weights; first serving internlm2-1.8b at
+  ``--mesh 1x4`` (the serving phase's weights and prompt, 8 decode steps
+  teacher-forced on its tokens) at full width and depth and training it at
+  ``--mesh 2x2`` at 8 layers (the training phase's first two batches,
+  against a whole run at that depth), then
+  serving qwen2-moe-a2.7b at ``--mesh 1x4`` at full width and depth (15
+  experts a rank; the qwen2-moe serving phase's weights, prompt and
+  tokens) and training it at ``--mesh 2x2`` at 4 layers (the whole
+  qwen2-moe training run's weights and first two batches); each rank's
+  flash forward and backward held at its local-head shapes, its shard
+  bytes against the dry run's; tokens (but for one tie of the whole run's
+  logits), logits, losses and the first step's gathered gradient against
+  the whole-tensor runs (the gradient arbitrated by the same weights' f32
+  gradient, a planted fault read against the same limit); the MoE's bf16
+  logits arbitrated by the same weights' never route (a planted fault
+  beyond), its first 2 layers' configuration served in f32 elementwise
+  against the whole f32 model, its kept (token, expert) assignments per
+  layer against the whole run's; the row-parallel products' GEMM times at
+  the ranks' shapes.
 
 Launch counts are set to 0 just before each path and read just after it.
 It checks that every kernel of each path launched, that the outputs are
@@ -275,7 +286,26 @@ DRYRUN_JOBS, DRYRUN_TIMEOUT = 6, 300
 # that run's tokens for SHARD_DECODE steps, then trained at SHARD_TRAIN_MESH
 # on the training phase's first batches (4 x 2048) for SHARD_TRAIN_STEPS
 # steps at full depth; each rank's limit in seconds.
+# The sharded MoE, in the same four rank processes after the dense work:
+# qwen2-moe-a2.7b served at SHARD_SERVE_MESH at full width and depth (60 / 4
+# = 15 experts a rank; the qwen2-moe serving phase's weights, prompt and
+# tokens) and trained at SHARD_TRAIN_MESH at MOE_TRAIN_LAYERS (the whole
+# qwen2-moe training run's weights and first SHARD_TRAIN_STEPS batches): its
+# four ranks' reckoned peaks at the Adam update, 16.0 GB each, leave ~20 GB
+# of the card's 85 GB.
+# Its bf16 logits at full depth are held by their rows' mean relative L2
+# to SHARD_MOE_RATIO times the same weights' never route's (routing flips
+# set both; chip_smoke._moe_bf16_hold), and its first MOE_F32_LAYERS
+# layers' configuration is served in f32 at MOE_HOLD_SHAPE, elementwise
+# against the whole f32 model.
 SHARD_SERVE_MESH, SHARD_TRAIN_MESH, SHARD_DECODE, SHARD_TRAIN_STEPS = "1x4", "2x2", 8, 2
+SHARD_MOE_RATIO, MOE_F32_LAYERS = 2.0, 2
+# The dense 2 x 2 training runs at SHARD_DENSE_TRAIN_LAYERS of internlm2's
+# 24 layers, against a whole run at that depth made in the phase: cut when
+# the MoE joined the phase, so that a run on a slow host stays inside its
+# 1200 s (one took 1215.3 s with it at full depth on an NVIDIA H100 80GB
+# HBM3 at 700 W, its host-bound GP phases 240 s slower than another's).
+SHARD_DENSE_TRAIN_LAYERS = 8
 SHARD_TIMEOUT = 600
 # The greedy tokens equal the whole run's but for at most SHARD_MAX_TIES
 # flips, each where the whole run's two logits lie within one bf16 step
@@ -1083,63 +1113,76 @@ def _local_flash_holds(dev, b: int, h: int, hkv: int, s: int, hd: int, backward:
     return out
 
 
-def lm_rank(work: str) -> int:
-    """One rank of the sharded LM phase (``python3 chip_smoke.py --lm-rank
-    DIR``, started by ``multihost.spawn_ranks``): internlm2-1.8b at full
-    width and depth on the card, first served at SHARD_SERVE_MESH (the
-    serving phase's seed-0 weights and prompt; decode teacher-forced on the
-    whole run's tokens from ``DIR/tokens.npy``), then trained at
-    SHARD_TRAIN_MESH (the first step's gradient shards to
-    ``DIR/grads.rank<r>.pt``, then SHARD_TRAIN_STEPS steps of
-    ``make_train_step(comm=)``); the flash kernels held at this rank's
-    local-head shapes; launches, seconds, collective counters and shard
-    bytes (beside ``launch.dryrun``'s reckoning) to ``DIR/rank<r>.json``,
-    and rank 0's gathered logits to ``DIR/logits.npz``. The main process's
-    device comes in ``DIR/args.json``."""
-    sys.path.insert(0, str(ROOT / "src"))
+def _routing_recorder(n_calls: int):
+    """A context in which ``MoE.routing`` keeps, for its first ``n_calls``
+    calls, the (tokens, experts) bool matrix of the kept assignments (on
+    the device; the caller moves them)."""
     import torch
 
-    from repro_torch.configs import ShapeSpec, get_config
-    from repro_torch.data.tokens import TokenStream
+    from repro_torch.models.moe import MoE
+
+    seen = []
+    orig = MoE.routing
+
+    def routing(self, *a, **kw):
+        r = orig(self, *a, **kw)
+        if len(seen) < n_calls:
+            g, gs, k = r.expert.shape
+            kept = torch.zeros(g * gs, r.probs.shape[-1], dtype=torch.bool, device=r.keep.device)
+            seen.append(kept.scatter_(1, r.expert.reshape(-1, k), r.keep.reshape(-1, k)))
+        return r
+
+    @contextlib.contextmanager
+    def ctx():
+        MoE.routing = routing
+        try:
+            yield seen
+        finally:
+            MoE.routing = orig
+
+    return ctx()
+
+
+def _rank_serve(world, dev, cfg, prompt_seed: int, work: str, tag: str,
+                shape=(LM_BATCH, LM_PROMPT), flash: bool = True) -> dict:
+    """One rank's serving at SHARD_SERVE_MESH: its shards of the seed-0
+    weights (``init_shards``), its rows of the ``prompt_seed`` prompt (the
+    first ``shape`` of the LM_BATCH x LM_PROMPT one) prefilled, SHARD_DECODE
+    steps decoded teacher-forced on the whole run's tokens
+    (``DIR/<tag>_tokens.npy``); rank 0's gathered logits to
+    ``DIR/<tag>_logits.npz``; then, with ``flash``, the flash forward at its
+    local heads."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
     from repro_torch.kernels import ops
     from repro_torch.launch.dryrun import lm_cell_bytes
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.model import init_params, lm_loss
-    from repro_torch.multihost import MultihostContext
     from repro_torch.sharding.collectives import MeshComm
-    from repro_torch.sharding.placement import (bind_shards, shard_batch, shard_model,
-                                                shard_tensors)
+    from repro_torch.sharding.placement import bind_shards, init_shards, shard_batch
     from repro_torch.training.serve import make_decode_step, make_prefill_step
-    from repro_torch.training.train_step import make_train_step, train_state_init
 
-    with open(os.path.join(work, "args.json")) as f:
-        args = json.load(f)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    world = MultihostContext.from_env()
     r = world.rank
-    dev = torch.device(args["device"])
-    cfg = get_config(LM_ARCH)
     cuda = dev.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
-    peak = lambda: torch.cuda.max_memory_allocated(dev) if cuda else 0
     nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
-    out = {"rank": r}
-
-    # Serving at SHARD_SERVE_MESH.
     mesh = make_mesh(SHARD_SERVE_MESH)
     comm = MeshComm(mesh, r, world)
     tp = mesh.shape["model"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
-    model = shard_model(init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
-                                    device=dev), mesh, r, comm)
-    torch.cuda.empty_cache()
+    model = bind_shards(cfg, init_shards(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh,
+                                         r, dev), mesh, r, comm)
+    sync()
     t_init = time.perf_counter() - t
-    cache_len = LM_PROMPT + LM_NEW
-    prompt = torch.as_tensor(np.random.default_rng(3).integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT)),
-                             dtype=torch.int32, device=dev)
+    cache_len = shape[1] + LM_NEW
+    prompt = torch.as_tensor(np.random.default_rng(prompt_seed).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))[:shape[0], :shape[1]], dtype=torch.int32,
+        device=dev)
     prompt = shard_batch(prompt, mesh, r)
-    forced = shard_batch(torch.as_tensor(np.load(os.path.join(work, "tokens.npy")), device=dev),
-                         mesh, r)
+    forced = shard_batch(torch.as_tensor(np.load(os.path.join(work, f"{tag}_tokens.npy")),
+                                         device=dev), mesh, r)
     prefill, decode = make_prefill_step(cfg, cache_len, tp=tp), make_decode_step(cfg, tp=tp)
     _, warm = prefill(model, prompt[:, :256])   # cuBLAS picks its algorithms per shape
     decode(model, prompt[:, :1], warm)
@@ -1162,33 +1205,60 @@ def lm_rank(work: str) -> int:
     sync()
     t_decode = time.perf_counter() - t
     dec, dec_comm = ops.launch_counts(), comm.summary()
-    rec = lm_cell_bytes(cfg, ShapeSpec("smoke", cache_len, LM_BATCH, "decode"), mesh)
-    out["serve"] = dict(
+    rec = lm_cell_bytes(cfg, ShapeSpec("smoke", cache_len, shape[0], "decode"), mesh)
+    out = dict(
         mesh=SHARD_SERVE_MESH, init_s=t_init, prefill_s=t_prefill, decode_s=t_decode,
         decode_ms=1e3 * t_decode / SHARD_DECODE, prefill_launches=pre, decode_launches=dec,
         prefill_collectives=pre_comm, decode_collectives=dec_comm,
         params=nbytes(model.parameters()), params_reckoned=rec["param_bytes"],
         cache=nbytes(v for v in cache.values() if torch.is_tensor(v)),
         cache_reckoned=rec["cache_bytes"], cache_shape=list(cache["k"].shape),
-        tokens=[torch.argmax(x, dim=-1).tolist() for x in [logits] + steps], peak=peak())
+        experts=model.layers[0].moe.w_gate.shape[0] if cfg.n_experts else 0,
+        tokens=[torch.argmax(x, dim=-1).tolist() for x in [logits] + steps],
+        peak=torch.cuda.max_memory_allocated(dev) if cuda else 0)
     if r == 0:
-        np.savez(os.path.join(work, "logits.npz"), prefill=logits.float().cpu().numpy(),
+        np.savez(os.path.join(work, f"{tag}_logits.npz"), prefill=logits.float().cpu().numpy(),
                  steps=torch.stack(steps).float().cpu().numpy())
     del model, cache, logits, steps
-    torch.cuda.empty_cache()
-    out["serve"]["flash"] = _local_flash_holds(dev, prompt.shape[0], cfg.n_heads // tp,
-                                               cfg.n_kv_heads // tp, LM_PROMPT, cfg.head_dim,
-                                               False, SEED + 20 + r)
+    if cuda:
+        torch.cuda.empty_cache()
+    if flash:
+        out["flash"] = _local_flash_holds(dev, prompt.shape[0], cfg.n_heads // tp,
+                                          cfg.n_kv_heads // tp, LM_PROMPT, cfg.head_dim, False,
+                                          SEED + 20 + r)
     comm.barrier()
+    return out
 
-    # Training at SHARD_TRAIN_MESH.
+
+def _rank_train(world, dev, cfg, work: str, tag: str) -> dict:
+    """One rank's training at SHARD_TRAIN_MESH: its shards of the seed-0
+    weights and their Adam moments, SHARD_TRAIN_STEPS steps of
+    ``make_train_step(comm=)`` on the first batches of ``TokenStream(seed=
+    17)``; the first step's gradient shards to ``DIR/<tag>_grads.rank<r>.pt``
+    (an MoE's kept (token, expert) assignments of that step's forward, per
+    layer, to ``DIR/<tag>_kept.rank<r>.pt``); then the flash forward and
+    backward at its local heads."""
+    import torch
+
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import lm_cell_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import lm_loss
+    from repro_torch.sharding.collectives import MeshComm
+    from repro_torch.sharding.placement import bind_shards, init_shards, shard_batch
+    from repro_torch.training.train_step import make_train_step, train_state_init
+
+    r = world.rank
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     mesh = make_mesh(SHARD_TRAIN_MESH)
     comm = MeshComm(mesh, r, world)
     tp = mesh.shape["model"]
-    whole = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    state = train_state_init(shard_tensors(whole, list(whole.parameters()), mesh, r))
-    del whole
-    torch.cuda.empty_cache()
+    state = train_state_init(init_shards(cfg, torch.Generator(device=dev).manual_seed(SEED), mesh,
+                                         r, dev))
     stream = TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17)
     step = make_train_step(cfg, lr=TRAIN_LR, comm=comm)
     sync()
@@ -1199,41 +1269,94 @@ def lm_rank(work: str) -> int:
     log_, first = [], None
     for i in range(SHARD_TRAIN_STEPS):
         batch = stream.next()
-        t = time.perf_counter()
-        state, m = step(state, *batch)
-        sync()
-        log_.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                         seconds=time.perf_counter() - t))
+        with _routing_recorder(cfg.n_layers if cfg.n_experts and i == 0 else 0) as kept:
+            t = time.perf_counter()
+            state, m = step(state, *batch)
+            sync()
+            log_.append(dict(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                             seconds=time.perf_counter() - t))
         if i == 0:
             # The first step's gradient shards, read back from Adam's first
             # moment (mu = (1 - b1) g from zeros; f32, so within an ulp of
             # g) and held against the whole run's; outside the timed step.
             first = batch
             torch.save([(mu / (1.0 - 0.9)).to(p.dtype).cpu()
-                         for mu, p in zip(state.opt.mu, state.params)],
-                        os.path.join(work, f"grads.rank{r}.pt"))
+                        for mu, p in zip(state.opt.mu, state.params)],
+                       os.path.join(work, f"{tag}_grads.rank{r}.pt"))
+            if kept and mesh.coords(r)[1] == 0:
+                torch.save([k.cpu() for k in kept], os.path.join(work, f"{tag}_kept.rank{r}.pt"))
     counts, coll = ops.launch_counts(), comm.summary()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
     # The first batch's loss after the run, against its loss at the first step.
     bound = bind_shards(cfg, state.params, mesh, r, comm)
     with torch.no_grad():
-        out["first_batch_after"] = float(lm_loss(bound, *(
-            shard_batch(torch.as_tensor(a, device=dev), mesh, r) for a in first)))
+        after = float(lm_loss(bound, *(shard_batch(torch.as_tensor(a, device=dev), mesh, r)
+                                       for a in first)))
     del bound
     rec = lm_cell_bytes(cfg, ShapeSpec("smoke", TRAIN_SEQ, TRAIN_BATCH, "train"), mesh)
     p_bytes = nbytes(state.params)
-    out["train"] = dict(
-        mesh=SHARD_TRAIN_MESH, log=log_, launches=counts, collectives=coll,
-        params=p_bytes, params_reckoned=rec["param_bytes"],
+    out = dict(
+        mesh=SHARD_TRAIN_MESH, layers=cfg.n_layers, log=log_, launches=counts, collectives=coll,
+        first_batch_after=after, params=p_bytes, params_reckoned=rec["param_bytes"],
         state=2 * p_bytes + nbytes(state.opt.mu) + nbytes(state.opt.nu),
-        state_reckoned=rec["adam_state_bytes"], peak=peak())
+        state_reckoned=rec["adam_state_bytes"], peak=peak,
+        peak_reckoned=rec["adam_update_bytes"])
     del state, step
-    torch.cuda.empty_cache()
-    out["train"]["flash"] = _local_flash_holds(dev, TRAIN_BATCH // mesh.shape["data"],
-                                               cfg.n_heads // tp, cfg.n_kv_heads // tp,
-                                               TRAIN_SEQ, cfg.head_dim, True, SEED + 30 + r)
-    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
-        json.dump(out, f)
+    if cuda:
+        torch.cuda.empty_cache()
+    out["flash"] = _local_flash_holds(dev, TRAIN_BATCH // mesh.shape["data"], cfg.n_heads // tp,
+                                      cfg.n_kv_heads // tp, TRAIN_SEQ, cfg.head_dim, True,
+                                      SEED + 30 + r)
     comm.barrier()
+    return out
+
+
+def lm_rank(work: str) -> int:
+    """One rank of the sharded LM phase (``python3 chip_smoke.py --lm-rank
+    DIR``, started by ``multihost.spawn_ranks``), on the card named in
+    ``DIR/args.json``: internlm2-1.8b at full width and depth served at
+    SHARD_SERVE_MESH (the serving phase's weights and prompt) and trained at
+    SHARD_TRAIN_MESH at SHARD_DENSE_TRAIN_LAYERS (``_rank_serve``,
+    ``_rank_train``), then qwen2-moe-a2.7b
+    served at full width and depth at SHARD_SERVE_MESH (the qwen2-moe serving
+    phase's weights and prompt; E / tp experts a rank), its first
+    MOE_F32_LAYERS layers' configuration served in f32 at MOE_HOLD_SHAPE,
+    and trained at
+    MOE_TRAIN_LAYERS at SHARD_TRAIN_MESH (the whole qwen2-moe training run's
+    weights and batches), in one process group; launches, seconds,
+    collective counters, peaks and shard bytes (beside ``launch.dryrun``'s
+    reckoning) to ``DIR/rank<r>.json``."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.multihost import MultihostContext
+
+    with open(os.path.join(work, "args.json")) as f:
+        args = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    world = MultihostContext.from_env()
+    dev = torch.device(args["device"])
+    out = {"rank": world.rank}
+    t = time.perf_counter()
+    lm_cfg = get_config(LM_ARCH)
+    out["serve"] = _rank_serve(world, dev, lm_cfg, 3, work, "lm")
+    out["train"] = _rank_train(
+        world, dev, dataclasses.replace(lm_cfg, n_layers=SHARD_DENSE_TRAIN_LAYERS), work, "lm")
+    out["lm_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    moe_cfg = get_config(MOE_ARCH)
+    out["moe_serve"] = _rank_serve(world, dev, moe_cfg, 5, work, "moe")
+    out["moe_f32"] = _rank_serve(world, dev, dataclasses.replace(
+        moe_cfg, n_layers=MOE_F32_LAYERS, dtype="float32"), 5, work, "moe32", MOE_HOLD_SHAPE,
+        flash=False)
+    out["moe_train"] = _rank_train(
+        world, dev, dataclasses.replace(moe_cfg, n_layers=MOE_TRAIN_LAYERS), work, "moe")
+    out["moe_s"] = time.perf_counter() - t
+    with open(os.path.join(work, f"rank{world.rank}.json"), "w") as f:
+        json.dump(out, f)
     world.shutdown()
     return 0
 
@@ -1288,89 +1411,26 @@ def _row_parallel_gemms(dev, cfg, prefill_collectives: dict) -> dict:
     return out
 
 
-def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
-    """internlm2-1.8b split over four rank processes on the card (ROADMAP
-    item 13.6; ``lm_rank``): served at SHARD_SERVE_MESH and trained at
-    SHARD_TRAIN_MESH, held against the whole-tensor runs of the serving and
-    training phases: the same greedy tokens but for SHARD_MAX_TIES ties of
-    the whole run's logits, the prefill and decode logits per row within
-    3e-2 in relative L2, each step's loss within 1e-2 (relative) of the
-    whole run's, losses finite and the first batch's falling, and each
-    gathered leaf of the first step's gradient no farther from the same
-    weights' f32 gradient than SHARD_GRAD_RATIO times the whole model's
-    (a planted fault, the gradient without its reduction over 'data', read
-    against the same limit); every rank's shard bytes equal to the dry
-    run's reckoning, its flash kernels held at its local-head shapes, and
-    the path's launches on every rank. Returns the ranks' flash launches on
-    the path (summed)."""
+def _sharded_serving_holds(label: str, cfg, whole: dict, sv: list, work: str, tag: str,
+                           whole_times: str, hold) -> dict:
+    """The ranks' serving at SHARD_SERVE_MESH (``sv``: each rank's record)
+    against the whole run (``whole``: its tokens and logits): the same
+    greedy tokens but for SHARD_MAX_TIES ties of the whole run's logits,
+    the prefill and decode logits per row within 3e-2 in relative L2 (an
+    MoE: ``_moe_bf16_hold`` instead), every rank's shard bytes equal to the
+    dry run's, an MoE's E / tp experts a rank, its flash forward held at its
+    local heads, and the path's launches. Failures go to ``hold``."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.tokens import TokenStream
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.model import init_params, lm_loss
-    from repro_torch.multihost import spawn_ranks
-    from repro_torch.sharding.placement import assemble, parameter_specs
-
-    failed = []
-
-    def hold(cond: bool, msg: str) -> None:
-        if not cond:
-            failed.append(msg)
-            log(f"lm sharded: FAILED {msg}")
-
-    t0 = time.perf_counter()
-    cfg = get_config(LM_ARCH)
-    whole = results["lm_whole"]
-    np.save(os.path.join(work, "tokens.npy"), whole["tokens"].numpy())
-    with open(os.path.join(work, "args.json"), "w") as f:
-        json.dump({"device": str(dev)}, f)
-    # The whole model's gradient at the first batch, at the ranks' weights,
-    # and the same weights' gradient in f32: the arbiter of the two bf16 ones.
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
-    tok, lab = (torch.as_tensor(a, device=dev) for a in
-                TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17).next())
-    grad_at = lambda m, x, y: [g.detach() for g in torch.autograd.grad(lm_loss(m, x, y),
-                                                                       tuple(m.parameters()))]
-    grads_w = grad_at(model, tok, lab)
-    m32 = _sub_model(model, cfg.n_layers, dtype=torch.float32)
-    grads_32 = grad_at(m32, tok, lab)
-    del m32
-    tmesh = make_mesh(SHARD_TRAIN_MESH)
-    names_specs = list(parameter_specs(model, tmesh).items())
-    rel = lambda x, y: float(torch.linalg.norm(x.float() - y) / torch.linalg.norm(y))
-    w32 = {n: rel(w, f) for (n, _), w, f in zip(names_specs, grads_w, grads_32)}
-    # A planted fault, read against the same limit: the gradient of data
-    # rank 0's rows alone (the mean loss over them), as a step that took its
-    # own rows' mean and dropped its reduction over 'data' would leave.
-    n_dp = tmesh.shape["data"]
-    rows = TRAIN_BATCH // n_dp
-    fault = grad_at(model, tok[:rows], lab[:rows])
-    fault_ratio = {n: rel(g, f) / w32[n] for (n, _), g, f in zip(names_specs, fault, grads_32)}
-    del model, fault, tok, lab
-    torch.cuda.empty_cache()
-
-    t = time.perf_counter()
-    ranks = spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-rank", work],
-                        make_mesh(SHARD_SERVE_MESH).size, SHARD_TIMEOUT)
-    t_ranks = time.perf_counter() - t
-    for r, (code, text) in enumerate(ranks):
-        if code != 0:
-            log(f"lm sharded rank {r} exited with {code}; its last output:\n{text[-4000:]}")
-        check(code == 0, f"lm sharded: rank {r} exited with {code}")
-    recs = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(len(ranks))]
-    card = results.get("card", "not measured")
-
-    # Serving: tokens and logits against the whole run.
-    with np.load(os.path.join(work, "logits.npz")) as z:
+    with np.load(os.path.join(work, f"{tag}_logits.npz")) as z:
         pre, steps = torch.as_tensor(z["prefill"]), torch.as_tensor(z["steps"])
     want = [whole["logits"]] + whole["step_logits"][:SHARD_DECODE]
     got = [pre] + list(steps)
     row = lambda x, y: float(((x - y).float().norm(dim=-1) / y.float().norm(dim=-1)).max())
     rels = [row(x, y) for x, y in zip(got, want)]
     wtok = whole["tokens"]
-    same = all(rec["serve"]["tokens"] == recs[0]["serve"]["tokens"] for rec in recs)
-    toks = torch.as_tensor(recs[0]["serve"]["tokens"]).to(wtok.dtype)   # (1 + steps, B)
+    same = all(x["tokens"] == sv[0]["tokens"] for x in sv)
+    toks = torch.as_tensor(sv[0]["tokens"]).to(wtok.dtype)   # (1 + steps, B)
     tokens_equal = bool(torch.equal(toks.T, wtok[:, :SHARD_DECODE + 1]))
     # Where the greedy token differs, the whole run's margin between its
     # token and the sharded run's, beside one bf16 step (ulp) at that
@@ -1386,50 +1446,177 @@ def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
                                   margin=float(y[b, tw] - y[b, ts]),
                                   bf16_step=math.ldexp(1.0, math.frexp(top)[1] - 8),
                                   row_max_diff=float((x[b] - y[b]).abs().max())))
-    sv = [rec["serve"] for rec in recs]
-    log(f"lm sharded serving --mesh {SHARD_SERVE_MESH} ({len(ranks)} ranks on the card, {card}): "
-        f"prefill {LM_BATCH}x{LM_PROMPT} {[round(x['prefill_s'], 3) for x in sv]} s per rank, "
-        f"decode {SHARD_DECODE} teacher-forced steps {[round(x['decode_ms'], 2) for x in sv]} ms "
-        f"per step (whole run: prefill {results['mesh_tp']['internlm2']['prefill_s_tp1']:.3f} s, "
-        f"decode {results['mesh_tp']['internlm2']['decode_ms_tp1']:.2f} ms); tokens equal to the "
-        f"whole run's {tokens_equal} (the same on every rank {same}); logits row rel L2 prefill "
-        f"{rels[0]:.3e}, decode max {max(rels[1:]):.3e} (limit 3e-2); cache "
+    log(f"{label} serving --mesh {SHARD_SERVE_MESH} ({len(sv)} ranks on the card): prefill "
+        f"{LM_BATCH}x{LM_PROMPT} {[round(x['prefill_s'], 3) for x in sv]} s per rank, decode "
+        f"{SHARD_DECODE} teacher-forced steps {[round(x['decode_ms'], 2) for x in sv]} ms per "
+        f"step ({whole_times}); shards drawn in {[round(x['init_s'], 2) for x in sv]} s; tokens "
+        f"equal to the whole run's {tokens_equal} (the same on every rank {same}); logits row "
+        f"rel L2 prefill {rels[0]:.3e}, decode max {max(rels[1:]):.3e}"
+        f"{'' if cfg.n_experts else ' (limit 3e-2)'}; cache "
         f"{sv[0]['cache_shape']} per rank; peak device memory per rank "
         f"{[round(x['peak'] / 1e9, 2) for x in sv]} GB")
     for r, x in enumerate(sv):
-        log(f"lm sharded serving rank {r}: prefill collectives "
-            f"{_coll_line(x['prefill_collectives'])}; decode collectives "
-            f"{_coll_line(x['decode_collectives'])}; launches prefill "
+        log(f"{label} serving rank {r}: prefill collectives {_coll_line(x['prefill_collectives'])}"
+            f"; decode collectives {_coll_line(x['decode_collectives'])}; launches prefill "
             f"{x['prefill_launches']['flash_attention']}, decode "
             f"{x['decode_launches']['flash_attention']}; params {x['params']:,} B (dry run "
-            f"{x['params_reckoned']:,}), cache {x['cache']:,} B (dry run {x['cache_reckoned']:,}); "
-            f"flash at the local heads {x['flash']['shape']} ({x['flash']['route']}): max_abs_err "
-            f"{x['flash']['max_abs_err']:.3e}, row rel L2 {x['flash']['row']:.3e}")
+            f"{x['params_reckoned']:,}), cache {x['cache']:,} B (dry run {x['cache_reckoned']:,})"
+            + (f"; {x['experts']} experts a layer" if cfg.n_experts else "")
+            + f"; flash at the local heads {x['flash']['shape']} ({x['flash']['route']}): "
+              f"max_abs_err {x['flash']['max_abs_err']:.3e}, row rel L2 {x['flash']['row']:.3e}")
         hold(x["prefill_launches"]["flash_attention"] == cfg.n_layers
-              and x["decode_launches"]["flash_attention"] == 0,
-              f"lm sharded serving rank {r}: flash launches {x['prefill_launches']} / "
-              f"{x['decode_launches']}, expected {cfg.n_layers} in the prefill, 0 in decode")
+             and x["decode_launches"]["flash_attention"] == 0,
+             f"{label} serving rank {r}: flash launches {x['prefill_launches']} / "
+             f"{x['decode_launches']}, expected {cfg.n_layers} in the prefill, 0 in decode")
         hold(x["params"] == x["params_reckoned"] and x["cache"] == x["cache_reckoned"],
-              f"lm sharded serving rank {r}: shard bytes {x['params']} / {x['cache']} differ from "
-              f"the dry run's {x['params_reckoned']} / {x['cache_reckoned']}")
+             f"{label} serving rank {r}: shard bytes {x['params']} / {x['cache']} differ from "
+             f"the dry run's {x['params_reckoned']} / {x['cache_reckoned']}")
         hold(x["flash"]["ok"] and x["flash"]["route"] == "wgmma",
-              f"lm sharded serving rank {r}: flash at the local heads {x['flash']}")
+             f"{label} serving rank {r}: flash at the local heads {x['flash']}")
+        if cfg.n_experts:
+            tp = int(SHARD_SERVE_MESH.split("x")[1])
+            hold(x["experts"] * tp == cfg.n_experts,
+                 f"{label} serving rank {r}: {x['experts']} experts a layer, not "
+                 f"{cfg.n_experts} / {tp}")
+    hold(same, f"{label} serving: the ranks' tokens differ")
+    if cfg.n_experts:
+        rows = [((x - y).float().norm(dim=-1) / y.float().norm(dim=-1)).tolist()
+                for x, y in zip(got, want)]
+        out = _moe_bf16_hold(label, rows, flips, whole["yardstick"], hold)
+        return dict(out, logits_rel=rels, tokens_equal=tokens_equal, flips=flips)
     ties = len(flips) <= SHARD_MAX_TIES and all(f["margin"] <= f["bf16_step"] for f in flips)
-    log(f"lm sharded serving: tokens differing from the whole run's: {flips or 'none'} (allowed: "
+    log(f"{label} serving: tokens differing from the whole run's: {flips or 'none'} (allowed: "
         f"at most {SHARD_MAX_TIES}, each at a tie of the whole run's logits within one bf16 step)")
-    hold(same and (tokens_equal or ties),
-         f"lm sharded serving: tokens {toks.T.tolist()} against the whole run's "
+    hold(tokens_equal or ties,
+         f"{label} serving: tokens {toks.T.tolist()} against the whole run's "
          f"{wtok[:, :SHARD_DECODE + 1].tolist()}, not at most {SHARD_MAX_TIES} ties: {flips}")
-    hold(max(rels) <= 3e-2, f"lm sharded serving: logits row rel L2 {max(rels):.3e} > 3e-2")
+    hold(max(rels) <= 3e-2, f"{label} serving: logits row rel L2 {max(rels):.3e} > 3e-2")
+    return dict(logits_rel=rels, tokens_equal=tokens_equal, flips=flips)
 
-    # Training: losses, the first step against the whole run, the gradient.
-    tr = [rec["train"] for rec in recs]
+
+def _moe_bf16_hold(label: str, rows: list, flips: list, yard: dict, hold) -> dict:
+    """The MoE's bf16 serving hold at full depth. A token whose router input
+    moves by a rounding may pick another expert, so two correct bf16 runs
+    of qwen2-moe lie far apart at full depth (the serving phase's never
+    route: 7.7e-2 in the prefill's logits), and the dense path's limits
+    (3e-2 a row, one tie) do not apply. The sharded run's logits rows
+    (``rows``: per position, per row, relative L2 from the whole run's)
+    are held by their mean to SHARD_MOE_RATIO times the never route's
+    (``yard``, from ``moe_serving_phase``: the same weights, prompt and
+    forced tokens), and a planted fault (one rank's 15 experts giving no
+    output) must lie beyond that limit; the flipped greedy tokens are
+    printed beside the never route's."""
+    mean = lambda rs: statistics.fmean(v for r in rs for v in r)
+    got, never, fault = mean(rows), mean(yard["never"]["rels"]), mean(yard["fault"]["rels"])
+    limit = SHARD_MOE_RATIO * never
+    log(f"{label} serving (bf16, full depth): logits rows' relative L2 from the whole run's, "
+        f"mean over the prefill and {SHARD_DECODE} decode steps {got:.3e} (max "
+        f"{max(max(r) for r in rows):.3e}); the never route's {never:.3e} (max "
+        f"{max(max(r) for r in yard['never']['rels']):.3e}), the planted fault's {fault:.3e}; "
+        f"limit {SHARD_MOE_RATIO:g} x the never route's = {limit:.3e}; greedy tokens differing "
+        f"from the whole run's: {len(flips)} (the never route's {yard['never']['flips']}, the "
+        f"fault's {yard['fault']['flips']}, of {len(rows) * len(rows[0])}); per position "
+        f"(max over rows) {[round(max(r), 4) for r in rows]}, the never route's "
+        f"{[round(max(r), 4) for r in yard['never']['rels']]}")
+    hold(got <= limit, f"{label} serving: logits rows lie {got:.3e} from the whole run's on "
+                       f"average, more than {SHARD_MOE_RATIO:g} x the never route's {never:.3e}")
+    hold(fault > limit, f"{label} serving: the planted fault ({fault:.3e}) passes the bf16 "
+                        f"hold's limit {limit:.3e}")
+    return dict(rows_mean=got, never_mean=never, fault_mean=fault, never_flips=yard["never"]
+                ["flips"], fault_flips=yard["fault"]["flips"])
+
+
+def _moe_f32_hold(dev, label: str, cfg, whole: dict, work: str, hold) -> dict:
+    """The MoE's serving arithmetic at full width without the routing's
+    bf16 sensitivity: ``cfg`` (qwen2-moe at MOE_F32_LAYERS layers in f32,
+    seed-0 weights) served whole here and by the ranks at SHARD_SERVE_MESH
+    (``DIR/moe32_logits.npz``), both on the first MOE_HOLD_SHAPE of the
+    bf16 path's prompt and decoded teacher-forced on its tokens: the logits
+    elementwise at rtol = atol = 1e-4 (the f32 routes' limit,
+    ``_f32_holds``) and the greedy tokens equal."""
+    import torch
+
+    from repro_torch.models.model import init_params, prefill_step, serve_step
+
+    b, s = MOE_HOLD_SHAPE
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    prompt = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab, (LM_BATCH, LM_PROMPT))[:b, :s], dtype=torch.int32, device=dev)
+    forced = whole["tokens"][:b].to(dev)
+    with torch.inference_mode():
+        logits, cache = prefill_step(model, prompt, s + LM_NEW)
+        want = [logits]
+        for i in range(SHARD_DECODE):
+            logits, cache = serve_step(model, forced[:, i:i + 1], cache)
+            want.append(logits)
+    del model, cache
+    torch.cuda.empty_cache()
+    with np.load(os.path.join(work, "moe32_logits.npz")) as z:
+        got = [torch.as_tensor(z["prefill"])] + list(torch.as_tensor(z["steps"]))
+    err = max(float((x - y.cpu()).abs().max()) for x, y in zip(got, want))
+    close = all(torch.allclose(x, y.cpu(), rtol=1e-4, atol=1e-4) for x, y in zip(got, want))
+    same = all(torch.equal(x.argmax(-1), y.cpu().argmax(-1)) for x, y in zip(got, want))
+    log(f"{label} serving (f32, {cfg.n_layers} layers at full width, {b}x{s} + {SHARD_DECODE} "
+        f"teacher-forced steps) against the whole f32 model: logits max_abs_err {err:.3e} "
+        f"(limit 1e-4 + 1e-4 |x|), greedy tokens equal {same}")
+    hold(close and same, f"{label} serving f32: logits {err:.3e} from the whole model's, or "
+                         f"greedy tokens differ ({same})")
+    return dict(f32_max_abs=err, f32_tokens_equal=same)
+
+
+def _sharded_training_holds(dev, label: str, cfg, w_losses: list, whole_step_s: float,
+                            tr: list, work: str, tag: str, hold) -> dict:
+    """The ranks' training at SHARD_TRAIN_MESH (``tr``: each rank's record)
+    against the whole run of ``cfg`` (its losses ``w_losses``): each step's
+    loss within 1e-2 (relative), losses finite and the first batch's
+    falling, and each gathered leaf of the first step's gradient no farther
+    from the same weights' f32 gradient than SHARD_GRAD_RATIO times the
+    whole model's (a planted fault, the gradient without its reduction over
+    'data', read against the same limit); every rank's shard bytes equal to
+    the dry run's, its flash kernels held at its local-head shapes and the
+    path's launches. For an MoE, how many kept (token, expert) assignments
+    of each layer in the first step's forward differ from the whole run's.
+    The references are made here, after the ranks have freed the card."""
+    import torch
+
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import init_params, lm_loss
+    from repro_torch.sharding.placement import assemble, parameter_specs
+
+    tmesh = make_mesh(SHARD_TRAIN_MESH)
+    n_ranks = tmesh.size
+    # The whole model's gradient at the first batch, at the ranks' weights
+    # (its MoE routing kept), and the same weights' gradient in f32: the
+    # arbiter of the two bf16 ones.
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    tok, lab = (torch.as_tensor(a, device=dev) for a in
+                TokenStream(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=17).next())
+    grad_at = lambda m, x, y: [g.detach() for g in torch.autograd.grad(lm_loss(m, x, y),
+                                                                       tuple(m.parameters()))]
+    with _routing_recorder(cfg.n_layers if cfg.n_experts else 0) as kept_whole:
+        grads_w = grad_at(model, tok, lab)
+    kept_whole = [k.cpu() for k in kept_whole]
+    m32 = _sub_model(model, cfg.n_layers, dtype=torch.float32)
+    grads_32 = grad_at(m32, tok, lab)
+    del m32
+    names_specs = list(parameter_specs(model, tmesh).items())
+    rel = lambda x, y: float(torch.linalg.norm(x.float() - y) / torch.linalg.norm(y))
+    w32 = {n: rel(w, f) for (n, _), w, f in zip(names_specs, grads_w, grads_32)}
+    # A planted fault, read against the same limit: the gradient of data
+    # rank 0's rows alone (the mean loss over them), as a step that took its
+    # own rows' mean and dropped its reduction over 'data' would leave.
+    rows = TRAIN_BATCH // tmesh.shape["data"]
+    fault = grad_at(model, tok[:rows], lab[:rows])
+    fault_ratio = {n: rel(g, f) / w32[n] for (n, _), g, f in zip(names_specs, fault, grads_32)}
+    del model, fault, tok, lab
+    torch.cuda.empty_cache()
+
     losses = [e["loss"] for e in tr[0]["log"]]
-    w_losses = results["lm_training"]["grad_accum 1"]["losses"][:SHARD_TRAIN_STEPS]
+    w_losses = w_losses[:SHARD_TRAIN_STEPS]
     loss_rels = [abs(x - y) / abs(y) for x, y in zip(losses, w_losses)]
-    loss_rel = loss_rels[0]
-    after = recs[0]["first_batch_after"]
-    shards = [torch.load(os.path.join(work, f"grads.rank{r}.pt")) for r in range(len(ranks))]
+    after = tr[0]["first_batch_after"]
+    shards = [torch.load(os.path.join(work, f"{tag}_grads.rank{r}.pt")) for r in range(n_ranks)]
     g_rel, g32 = {}, {}
     for i, (name, spec) in enumerate(names_specs):
         g = assemble([s[i] for s in shards], spec, tmesh).to(dev).float()
@@ -1440,27 +1627,45 @@ def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
     ratio = {n: g32[n] / w32[n] for n in g32}
     far = max(ratio, key=ratio.get)
     some = list(g_rel)[:3] + list(g_rel)[-12:]
-    log(f"lm sharded training: against the same weights' f32 gradient, the sharded run's leaves "
+    log(f"{label} training: against the same weights' f32 gradient, the sharded run's leaves "
         f"lie at rel L2 median {statistics.median(g32.values()):.3e}, max {max(g32.values()):.3e}"
         f"; the whole run's at median {statistics.median(w32.values()):.3e}, max "
         f"{max(w32.values()):.3e}; the largest ratio {ratio[far]:.3f} ({far}: {g32[far]:.3e} "
         f"against {w32[far]:.3e}); by leaf (sharded vs whole, sharded vs f32, whole vs f32): "
         + ", ".join(f"{n} {g_rel[n]:.2e}/{g32[n]:.2e}/{w32[n]:.2e}" for n in some))
+    kept_diff = None
+    if cfg.n_experts:
+        # Data rank d's ranks of model index 0 kept the routing of its rows,
+        # tokens [d T, (d + 1) T) of the whole batch's (b, s) order.
+        kept_diff, kept_n = [0] * cfg.n_layers, [0] * cfg.n_layers
+        for r in range(n_ranks):
+            d, m = tmesh.coords(r)
+            if m:
+                continue
+            for layer, k in enumerate(torch.load(os.path.join(work, f"{tag}_kept.rank{r}.pt"))):
+                w = kept_whole[layer][d * k.shape[0]:(d + 1) * k.shape[0]]
+                kept_diff[layer] += int((k != w).sum())
+                kept_n[layer] += int(w.sum())
+        log(f"{label} training: kept (token, expert) assignments of the first step's forward "
+            f"differing from the whole run's, per layer: {kept_diff} of {kept_n} (a near-tie at "
+            f"the router's argmax flips one where the row-parallel sums round the hidden states "
+            f"otherwise; each flip counts twice: the assignment lost and the one gained)")
     n_tok = TRAIN_BATCH * TRAIN_SEQ
     step_s = [[round(e["seconds"], 3) for e in x["log"]] for x in tr]
-    log(f"lm sharded training --mesh {SHARD_TRAIN_MESH} ({card}): {SHARD_TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens, seconds per step per rank {step_s} (whole run "
-        f"{results['lm_training']['grad_accum 1']['step_s']:.3f} s); losses {losses} against the "
-        f"whole run's {w_losses} (relative {[f'{x:.2e}' for x in loss_rels]}, limit 1e-2); the "
-        f"first batch's loss {losses[0]:.6f} at the first step, {after:.6f} after the run; grad "
-        f"norms {[e['grad_norm'] for e in tr[0]['log']]}; the first step's gathered gradient rel "
-        f"L2 against the whole run's: max {g_rel[worst]:.3e} ({worst}), median "
+    log(f"{label} training --mesh {SHARD_TRAIN_MESH} ({cfg.n_layers} layers): "
+        f"{SHARD_TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_SEQ} tokens, seconds per step per "
+        f"rank {step_s} (whole run {whole_step_s:.3f} s); losses {losses} against the whole "
+        f"run's {w_losses} (relative {[f'{x:.2e}' for x in loss_rels]}, limit 1e-2); the first "
+        f"batch's loss {losses[0]:.6f} at the first step, {after:.6f} after the run; grad norms "
+        f"{[e['grad_norm'] for e in tr[0]['log']]}; the first step's gathered gradient rel L2 "
+        f"against the whole run's: max {g_rel[worst]:.3e} ({worst}), median "
         f"{statistics.median(g_rel.values()):.3e} over {len(g_rel)} leaves; peak device memory "
-        f"per rank {[round(x['peak'] / 1e9, 2) for x in tr]} GB")
+        f"per rank {[round(x['peak'] / 1e9, 2) for x in tr]} GB (reckoned at the Adam update "
+        f"{tr[0]['peak_reckoned'] / 1e9:.2f} GB)")
     n_attn = cfg.n_layers
     for r, x in enumerate(tr):
         c = x["launches"]
-        log(f"lm sharded training rank {r}: collectives over {SHARD_TRAIN_STEPS} steps "
+        log(f"{label} training rank {r}: collectives over {SHARD_TRAIN_STEPS} steps "
             f"{_coll_line(x['collectives'])}; launches flash_attention {c['flash_attention']}, "
             f"flash_attention_bwd {c['flash_attention_bwd']}; params {x['params']:,} B (dry run "
             f"{x['params_reckoned']:,}), params, grads and moments {x['state']:,} B (dry run "
@@ -1468,40 +1673,129 @@ def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
             f"({x['flash']['route']} / {x['flash']['bwd_route']}): forward max_abs_err "
             f"{x['flash']['max_abs_err']:.3e}, backward {x['flash']['bwd_max_abs_err']:.3e}")
         hold(c["flash_attention"] == SHARD_TRAIN_STEPS * 2 * n_attn
-              and c["flash_attention_bwd"] == SHARD_TRAIN_STEPS * n_attn,
-              f"lm sharded training rank {r}: launches {c}, expected "
-              f"{SHARD_TRAIN_STEPS * 2 * n_attn} forward and {SHARD_TRAIN_STEPS * n_attn} backward")
+             and c["flash_attention_bwd"] == SHARD_TRAIN_STEPS * n_attn,
+             f"{label} training rank {r}: launches {c}, expected "
+             f"{SHARD_TRAIN_STEPS * 2 * n_attn} forward and {SHARD_TRAIN_STEPS * n_attn} backward")
         hold(x["params"] == x["params_reckoned"] and x["state"] == x["state_reckoned"],
-              f"lm sharded training rank {r}: shard bytes {x['params']} / {x['state']} differ "
-              f"from the dry run's {x['params_reckoned']} / {x['state_reckoned']}")
+             f"{label} training rank {r}: shard bytes {x['params']} / {x['state']} differ "
+             f"from the dry run's {x['params_reckoned']} / {x['state_reckoned']}")
         hold(x["flash"]["ok"] and x["flash"]["bwd_ok"] and x["flash"]["bwd_route"] == "wgmma",
-              f"lm sharded training rank {r}: flash at the local heads {x['flash']}")
-        hold([e["loss"] for e in x["log"]] == losses, f"lm sharded training rank {r}: its "
-                                                         f"losses differ from rank 0's")
+             f"{label} training rank {r}: flash at the local heads {x['flash']}")
+        hold([e["loss"] for e in x["log"]] == losses, f"{label} training rank {r}: its "
+                                                        f"losses differ from rank 0's")
     hold(all(math.isfinite(v) for e in tr[0]["log"] for v in (e["loss"], e["grad_norm"]))
-         and after < losses[0], f"lm sharded training: losses {losses} not finite, or the "
+         and after < losses[0], f"{label} training: losses {losses} not finite, or the "
                                 f"first batch's loss did not fall ({losses[0]} -> {after})")
-    hold(max(loss_rels) <= 1e-2, f"lm sharded training: losses {losses} are {loss_rels} from "
+    hold(max(loss_rels) <= 1e-2, f"{label} training: losses {losses} are {loss_rels} from "
                                  f"the whole run's {w_losses}")
-    # Two bf16 gradients of a 24-layer stack lie ~2.4e-2 apart in relative L2
+    # Two bf16 gradients of a deep stack lie ~2.4e-2 apart in relative L2
     # however they are summed, and as far from the same weights' f32
     # gradient: each leaf of the sharded run's is held to lie no farther from
     # the f32 gradient than SHARD_GRAD_RATIO times the whole run's does, and
     # the planted fault must lie beyond that limit on every leaf.
     soft = min(fault_ratio, key=fault_ratio.get)
-    log(f"lm sharded training: the planted fault (no reduction over 'data': the gradient of data "
+    log(f"{label} training: the planted fault (no reduction over 'data': the gradient of data "
         f"rank 0's {rows} rows) against the f32 gradient, by the same ratio: smallest "
         f"{fault_ratio[soft]:.3f} ({soft}), median {statistics.median(fault_ratio.values()):.3f}, "
         f"largest {max(fault_ratio.values()):.3f} (limit {SHARD_GRAD_RATIO}; the sharded run's "
         f"largest {ratio[far]:.3f})")
     hold(ratio[far] <= SHARD_GRAD_RATIO,
-         f"lm sharded training: gradient {far} lies {g32[far]:.3e} from the f32 gradient, the "
+         f"{label} training: gradient {far} lies {g32[far]:.3e} from the f32 gradient, the "
          f"whole run's {w32[far]:.3e} (ratio {ratio[far]:.3f} > {SHARD_GRAD_RATIO})")
     hold(fault_ratio[soft] > SHARD_GRAD_RATIO,
-         f"lm sharded training: the planted fault passes the gradient check on {soft} (ratio "
+         f"{label} training: the planted fault passes the gradient check on {soft} (ratio "
          f"{fault_ratio[soft]:.3f} <= {SHARD_GRAD_RATIO})")
+    return dict(loss_rel=loss_rels, first_batch_after=after, grad_rel_max=g_rel[worst],
+                grad_f32_ratio_max=ratio[far], fault_ratio_min=fault_ratio[soft],
+                kept_diff=kept_diff)
+
+
+def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
+    """internlm2-1.8b and qwen2-moe-a2.7b split over four rank processes on
+    the card (ROADMAP item 13.6; ``lm_rank``): each served at
+    SHARD_SERVE_MESH and trained at SHARD_TRAIN_MESH (internlm2 at
+    SHARD_DENSE_TRAIN_LAYERS, qwen2-moe at MOE_TRAIN_LAYERS, its experts over
+    'model'), held against the whole-tensor runs of the serving and training
+    phases (internlm2's training against a whole run at its depth made here;
+    ``_sharded_serving_holds``, ``_sharded_training_holds``); then the
+    dense path's row-parallel products timed at one rank's shapes. Returns
+    the ranks' flash launches on the paths (summed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.multihost import spawn_ranks
+
+    failed = []
+
+    def hold(cond: bool, msg: str) -> None:
+        if not cond:
+            failed.append(msg)
+            log(f"lm sharded: FAILED {msg}")
+
+    t0 = time.perf_counter()
+    for tag, key in (("lm", "lm_whole"), ("moe", "moe_whole")):
+        np.save(os.path.join(work, f"{tag}_tokens.npy"), results[key]["tokens"].numpy())
+    np.save(os.path.join(work, "moe32_tokens.npy"),
+            results["moe_whole"]["tokens"][:MOE_HOLD_SHAPE[0]].numpy())
+    with open(os.path.join(work, "args.json"), "w") as f:
+        json.dump({"device": str(dev)}, f)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    ranks = spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-rank", work],
+                        make_mesh(SHARD_SERVE_MESH).size, SHARD_TIMEOUT)
+    t_ranks = time.perf_counter() - t
+    for r, (code, text) in enumerate(ranks):
+        if code != 0:
+            log(f"lm sharded rank {r} exited with {code}; its last output:\n{text[-4000:]}")
+        check(code == 0, f"lm sharded: rank {r} exited with {code}")
+    recs = [json.load(open(os.path.join(work, f"rank{r}.json"))) for r in range(len(ranks))]
+    card = results.get("card", "not measured")
+    log(f"lm sharded ({len(ranks)} ranks on the card, {card}): the ranks' dense work "
+        f"{[round(x['lm_s'], 1) for x in recs]} s, MoE work {[round(x['moe_s'], 1) for x in recs]}"
+        f" s, {t_ranks:.1f} s in all")
+    lm_cfg, moe_cfg = get_config(LM_ARCH), get_config(MOE_ARCH)
+    mt, qm = results["mesh_tp"]["internlm2"], results["qwen2_moe"]
+    serve = _sharded_serving_holds(
+        "lm sharded", lm_cfg, results["lm_whole"], [x["serve"] for x in recs], work, "lm",
+        f"whole run: prefill {mt['prefill_s_tp1']:.3f} s, decode {mt['decode_ms_tp1']:.2f} ms",
+        hold)
+    moe_serve = _sharded_serving_holds(
+        "moe sharded", moe_cfg, results["moe_whole"], [x["moe_serve"] for x in recs], work,
+        "moe", f"whole run: prefill {qm['prefill_s']:.3f} s, decode {qm['decode_ms']:.2f} ms",
+        hold)
+    moe_serve.update(_moe_f32_hold(
+        dev, "moe sharded", dataclasses.replace(moe_cfg, n_layers=MOE_F32_LAYERS,
+                                                dtype="float32"), results["moe_whole"], work,
+        hold))
+    # The whole run of the dense training at SHARD_DENSE_TRAIN_LAYERS, as the
+    # training phase runs it (launch.train.main, seed-0 weights, TokenStream
+    # seed 17), for the ranks' losses.
+    from repro_torch.launch import train as ttrain
+
+    lm_train_cfg = dataclasses.replace(lm_cfg, n_layers=SHARD_DENSE_TRAIN_LAYERS)
+    argv = ["--arch", LM_ARCH, "--override", f"n_layers={SHARD_DENSE_TRAIN_LAYERS}", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--lr", str(TRAIN_LR), "--device",
+            str(dev), "--steps", str(SHARD_TRAIN_STEPS)]
+    state, whole_tr, _ = _train_run(
+        dev, f"{LM_ARCH} ({SHARD_DENSE_TRAIN_LAYERS} layers, the sharded run's whole twin)",
+        lambda: _main_run(ttrain, argv), SHARD_TRAIN_STEPS, 1, SHARD_DENSE_TRAIN_LAYERS,
+        TRAIN_BATCH * TRAIN_SEQ)
+    del state
+    torch.cuda.empty_cache()
+    tr = [x["train"] for x in recs]
+    train = _sharded_training_holds(dev, "lm sharded", lm_train_cfg, whole_tr["losses"],
+                                    whole_tr["step_s"], tr, work, "lm", hold)
+    moe_tr = [x["moe_train"] for x in recs]
+    fam = results["families_training"][MOE_ARCH]
+    moe_train = _sharded_training_holds(
+        dev, "moe sharded", dataclasses.replace(moe_cfg, n_layers=MOE_TRAIN_LAYERS),
+        fam["losses"], fam["step_s"], moe_tr, work, "moe", hold)
     # The row-parallel products and their partials' bytes (one rank's shapes).
-    gemm = _row_parallel_gemms(dev, cfg, sv[0]["prefill_collectives"])
+    sv = [x["serve"] for x in recs]
+    gemm = _row_parallel_gemms(dev, lm_cfg, sv[0]["prefill_collectives"])
     ar = gemm.pop("prefill all_reduce")
     log(f"lm sharded row-parallel GEMMs ({card}; ms with the f32 accumulator as output, the "
         f"operands widened to f32, a bf16 output): " + "; ".join(
@@ -1509,22 +1803,25 @@ def lm_sharded_phase(dev, peaks, results: dict, work: str) -> dict:
             f"{v['ms_bf16_out']:.3f} (rel L2 against the widened {v['rel']:.2e})"
             for k, v in gemm.items())
         + f"; a prefill's 'model' all-reduces on rank 0 with f32 partials "
-          f"{ar['bytes_f32'] / 1e6:.1f} MB in {ar['seconds']:.3f} s, with bf16 partials {ar['bytes_bf16'] / 1e6:.1f} MB "
-          f"({ar['seconds_bf16_at_rate']:.3f} s at the same rate)")
+          f"{ar['bytes_f32'] / 1e6:.1f} MB in {ar['seconds']:.3f} s, with bf16 partials "
+          f"{ar['bytes_bf16'] / 1e6:.1f} MB ({ar['seconds_bf16_at_rate']:.3f} s at the same "
+          f"rate)")
     for k, v in gemm.items():
         hold(v["rel"] <= 1e-5, f"lm sharded: row-parallel GEMM {k}: the f32 accumulator lies "
                                f"{v['rel']:.2e} from the widened product (limit 1e-5)")
     check(not failed, "lm sharded: " + " | ".join(failed))
+    msv = [x["moe_serve"] for x in recs]
     counts = {"flash_attention": sum(x["prefill_launches"]["flash_attention"]
-                                     + x["decode_launches"]["flash_attention"] for x in sv)
-              + sum(x["launches"]["flash_attention"] for x in tr),
-              "flash_attention_bwd": sum(x["launches"]["flash_attention_bwd"] for x in tr)}
+                                     + x["decode_launches"]["flash_attention"] for x in sv + msv)
+              + sum(x["launches"]["flash_attention"] for x in tr + moe_tr),
+              "flash_attention_bwd": sum(x["launches"]["flash_attention_bwd"]
+                                         for x in tr + moe_tr)}
     results["lm_sharded"] = dict(card=card, ranks_s=t_ranks, seconds=time.perf_counter() - t0,
-                                 serve=sv, train=tr, logits_rel=rels, tokens_equal=tokens_equal,
-                                 flips=flips, loss_rel=loss_rels, first_batch_after=after,
-                                 grad_rel_max=g_rel[worst], grad_f32_ratio_max=ratio[far],
-                                 fault_ratio_min=fault_ratio[soft], row_parallel=gemm,
-                                 prefill_all_reduce=ar, launches=counts)
+                                 serve=sv, train=tr, moe_serve=msv, moe_train=moe_tr,
+                                 row_parallel=gemm, prefill_all_reduce=ar, launches=counts,
+                                 **serve, **train,
+                                 moe={**{f"serve_{k}": v for k, v in moe_serve.items()},
+                                      **moe_train})
     return counts
 
 
@@ -1753,6 +2050,28 @@ def _f32_holds(label: str, m2, prompt, s2: int, decode: bool = True) -> dict:
               f"{label}: decode vs longer prefill differ by "
               f"{res['decode_vs_prefill_max_abs']:.3e} > 2e-3")
     return res
+
+
+def _forced_rows(model, prompt, path: dict, cache_len: int) -> dict:
+    """``model`` prefilled on ``prompt`` and decoded SHARD_DECODE steps
+    teacher-forced on the serving path's tokens (``path``, with ``keep``):
+    each logits row's relative L2 from the path's, position by position
+    (the prefill first), and the greedy tokens that differ."""
+    import torch
+
+    from repro_torch.models.model import prefill_step, serve_step
+
+    with torch.inference_mode():
+        logits, cache = prefill_step(model, prompt, cache_len)
+        got = [logits]
+        for i in range(SHARD_DECODE):
+            logits, cache = serve_step(model, path["tokens"][:, i:i + 1], cache)
+            got.append(logits)
+    want = [path["logits"]] + path["step_logits"][:SHARD_DECODE]
+    rels = [((x - y).float().norm(dim=-1) / y.float().norm(dim=-1)).tolist()
+            for x, y in zip(got, want)]
+    flips = sum(int((x.argmax(-1) != y.argmax(-1)).sum()) for x, y in zip(got, want))
+    return dict(rels=rels, flips=flips)
 
 
 def _card_bytes(model, cache: dict) -> tuple[int, int]:
@@ -2174,6 +2493,23 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
         logits_never, _ = prefill_step(never, prompt, cache_len)
         e2e = rel(path["logits"], logits_never)
         del logits_never
+    # The yardstick of the sharded phase's bf16 hold (lm_sharded_phase): the
+    # never route (a second bf16 computation of the same weights) and a
+    # planted fault (the kernel route with experts 0-14, one rank's at 1x4,
+    # giving no output), each prefilled and decoded teacher-forced on this
+    # run's tokens, their logits' rows against this run's.
+    yard = {"never": _forced_rows(never, prompt, path, cache_len)}
+    saved = [layer.moe.w_down[:cfg.n_experts // 4].clone() for layer in model.layers]
+    with torch.no_grad():
+        for layer in model.layers:
+            layer.moe.w_down[:cfg.n_experts // 4] = 0
+    yard["fault"] = _forced_rows(model, prompt, path, cache_len)
+    with torch.no_grad():
+        for layer, w in zip(model.layers, saved):
+            layer.moe.w_down[:cfg.n_experts // 4] = w
+    del saved
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
         x = embed_tokens(model, prompt)
         positions = torch.arange(LM_PROMPT, dtype=torch.int32, device=dev).expand(LM_BATCH,
                                                                                   LM_PROMPT)
@@ -2284,6 +2620,10 @@ def moe_serving_phase(dev, peaks, results: dict) -> dict:
     results["qwen2_moe"] = dict(holds=holds, prefill_s=path["prefill_s"],
                                 decode_ms=path["decode_ms"], params=n_par, layer_ms=layer_ms,
                                 moe_ms=moe_ms)
+    # The sharded phase holds its ranks against this run's tokens and logits.
+    results["moe_whole"] = dict(tokens=path["tokens"].cpu(), logits=path["logits"].cpu(),
+                                step_logits=[x.cpu() for x in path["step_logits"]],
+                                cache_len=cache_len, yardstick=yard)
 
     # 60b. Meshes and tp (ROADMAP item 13.6): the same weights at --mesh 1x8
     # (tp = 8), padded in place from 60 to 64 experts, the path against this
@@ -5893,22 +6233,6 @@ def main() -> int:
     lm_launches = {**lm_launches, **{k: lm_launches.get(k, 0) + v
                                       for k, v in train_launches.items()}}
 
-    # 52b. The dense LM split over four rank processes (ROADMAP item 13.6):
-    # served at 1x4 and trained at 2x2, held against the two phases above.
-    work = tempfile.mkdtemp(prefix="smoke-sharded-")
-    try:
-        t = time.perf_counter()
-        sharded_launches = lm_sharded_phase(dev, peaks, results, work)
-        log(f"phase lm sharded: {time.perf_counter() - t:.1f} s (ranks "
-            f"{results['lm_sharded']['ranks_s']:.1f} s); the ranks' flash launches on the path "
-            f"{sharded_launches}")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    for k, v in sharded_launches.items():
-        lm_launches[k] = lm_launches.get(k, 0) + v
-    results["flash_attention"]["rank_launches"] = sharded_launches["flash_attention"]
-    results["flash_attention_bwd"]["rank_launches"] = sharded_launches["flash_attention_bwd"]
-
     # 53.-56. gemma2 serving, 57.-60. qwen2-moe serving, 61.-62. their
     # training (ROADMAP items 13.2, 13.3), each path's launches counted.
     t = time.perf_counter()
@@ -5926,6 +6250,23 @@ def main() -> int:
     # The tp runs of the meshes phase (13.6) are hd-128 prefills on 'wgmma'.
     for run in results["mesh_tp"].values():
         lm_launches["flash_attention"] += run["launches"]["flash_attention"]
+
+    # 62b. The dense LM and the MoE split over four rank processes (ROADMAP
+    # item 13.6): internlm2 and qwen2-moe served at 1x4 and trained at 2x2,
+    # held against the serving and training phases above (hd 128, 'wgmma').
+    work = tempfile.mkdtemp(prefix="smoke-sharded-")
+    try:
+        t = time.perf_counter()
+        sharded_launches = lm_sharded_phase(dev, peaks, results, work)
+        log(f"phase lm sharded: {time.perf_counter() - t:.1f} s (ranks "
+            f"{results['lm_sharded']['ranks_s']:.1f} s); the ranks' flash launches on the paths "
+            f"{sharded_launches}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for k, v in sharded_launches.items():
+        lm_launches[k] = lm_launches.get(k, 0) + v
+    results["flash_attention"]["rank_launches"] = sharded_launches["flash_attention"]
+    results["flash_attention_bwd"]["rank_launches"] = sharded_launches["flash_attention_bwd"]
 
     # 63.-69. zamba2 serving, 70.-75. rwkv6 serving, 76.-77. their training
     # (ROADMAP items 13.4, 13.5); zamba2's shared block runs the hd-80 routes.

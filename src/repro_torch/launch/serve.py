@@ -28,8 +28,10 @@ instead: D x M rank processes (started here through
 environment) each hold their shards (``sharding.placement``), prefill
 their rows of the prompt and decode on their block of the cache; the greedy
 token comes from the logits gathered over 'model' and is the same on every
-rank. Each rank's ``[mesh]`` line prints its shards' bytes beside
-``launch.dryrun``'s reckoning. Only dense attention stacks shard.
+rank. Each rank draws only its shards of the seed-0 weights
+(``sharding.placement.init_shards``). Each rank's ``[mesh]`` line prints
+its shards' bytes beside ``launch.dryrun``'s reckoning. Dense and MoE
+attention stacks shard (an MoE's experts over 'model').
 
 GP mode: a ``GPServer`` builds the training index once and serves a
 stream of asynchronous requests; the micro-batcher (or, with
@@ -566,18 +568,23 @@ def main(argv=None):
         cfg = cfg.reduced()
     cache_len = args.prompt_len + args.max_new
 
-    model = init_params(cfg, torch.Generator(device=device).manual_seed(0), device=device, tp=tp)
+    gen = torch.Generator(device=device).manual_seed(0)
     if comm is None:
+        model = init_params(cfg, gen, device=device, tp=tp)
         print(mesh_line(cfg, mesh, model, meta_cache(cfg, args.batch, cache_len, tp, model.dtype)))
+    else:
+        from repro_torch.sharding.placement import bind_shards, init_shards
+
+        model = bind_shards(cfg, init_shards(cfg, gen, mesh, comm.rank, device), mesh, comm.rank,
+                            comm)
 
     rng = np.random.default_rng(3)
     prompt = torch.as_tensor(
         rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)), dtype=torch.int32
     ).to(device)
     if comm is not None:
-        from repro_torch.sharding.placement import shard_batch, shard_model
+        from repro_torch.sharding.placement import shard_batch
 
-        model = shard_model(model, mesh, comm.rank, comm)
         prompt = shard_batch(prompt, mesh, comm.rank)
 
     with torch.inference_mode():

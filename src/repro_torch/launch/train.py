@@ -16,13 +16,15 @@ grads and Adam moments).
 ``--mesh DxM --sharded`` splits the state instead: this program starts
 D x M rank processes (``multihost.spawn_ranks``; ``--timeout`` bounds the
 rendezvous and the run), or joins as one of them when the
-``REPRO_TORCH_DIST_*`` environment names its rank. Each rank draws the
-same seed-0 weights, keeps its shards of the params and the Adam moments
-on ``--device`` (``sharding.placement``) and runs ``make_train_step(...,
-comm=)`` on its rows of each global batch; ranks on one CUDA device share
-it. Each rank's ``[mesh]`` line prints the bytes of its shards beside
-``launch.dryrun``'s reckoning for that mesh. A dense attention stack
-shards; an MoE or a recurrent stack raises ``NotImplementedError``. Rank 0
+``REPRO_TORCH_DIST_*`` environment names its rank. Each rank draws its
+shards of the same seed-0 weights (``sharding.placement.init_shards``: one
+layer whole at a time, never the whole model), keeps them and their Adam
+moments on ``--device`` and runs ``make_train_step(..., comm=)`` on its
+rows of each global batch; ranks on one CUDA device share it. Each rank's
+``[mesh]`` line prints the bytes of its shards beside ``launch.dryrun``'s
+reckoning for that mesh. A dense or MoE attention stack shards (an MoE's
+experts over 'model'; its dispatch groups must not straddle the data
+split); a recurrent stack raises ``NotImplementedError``. Rank 0
 writes checkpoints of the gathered state in the format below, so a sharded
 run's checkpoint resumes in a whole run, the reference or another mesh; a
 resume cuts the loaded whole state into shards. (No SIGTERM save in a
@@ -86,10 +88,10 @@ def restore_state(path: str, state: TrainState, names, device) -> tuple[TrainSta
     return TrainState(params=leaves(tree["params"]), opt=opt, step=int(tree["step"])), manifest
 
 
-def whole_template(cfg) -> TrainState:
+def whole_template(cfg, tp: int = 1) -> TrainState:
     """A ``TrainState`` of whole leaves on ``meta`` (the checkpoint's
-    structure and dtypes, no storage)."""
-    params = tuple(p.detach() for p in TransformerLM(cfg, device="meta").parameters())
+    structure and dtypes, an MoE's experts padded for ``tp``; no storage)."""
+    params = tuple(p.detach() for p in TransformerLM(cfg, device="meta", tp=tp).parameters())
     f32 = tuple(torch.empty(p.shape, dtype=torch.float32, device="meta") for p in params)
     return TrainState(params=params, opt=AdamState(step=0, mu=f32, nu=f32), step=0)
 
@@ -99,7 +101,7 @@ def shard_state(state: TrainState, cfg, mesh, rank: int, device) -> TrainState:
     params' specs), on ``device``."""
     from repro_torch.sharding.placement import shard_tensors
 
-    skel = TransformerLM(cfg, device="meta")
+    skel = TransformerLM(cfg, device="meta", tp=tp_size(mesh))
     cut = lambda ts: tuple(t.to(device) for t in shard_tensors(skel, ts, mesh, rank))
     return TrainState(params=cut(state.params),
                       opt=AdamState(step=state.opt.step, mu=cut(state.opt.mu),
@@ -111,7 +113,8 @@ def gather_state(state: TrainState, cfg, comm) -> TrainState:
     """The whole state from every rank's shards, on every rank (collective)."""
     from repro_torch.sharding.placement import gather_whole, parameter_specs
 
-    specs = list(parameter_specs(TransformerLM(cfg, device="meta"), comm.mesh).values())
+    specs = list(parameter_specs(TransformerLM(cfg, device="meta", tp=tp_size(comm.mesh)),
+                                 comm.mesh).values())
     whole = lambda ts: tuple(gather_whole(t, spec, comm) for t, spec in zip(ts, specs))
     return TrainState(params=whole(state.params),
                       opt=AdamState(step=state.opt.step, mu=whole(state.opt.mu),
@@ -201,16 +204,16 @@ def main(argv=None, log: list | None = None) -> TrainState | None:
     elif over:
         cfg = dataclasses.replace(cfg, **over)
 
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, tp=tp)
+    gen = torch.Generator(device=dev).manual_seed(0)
     if comm is None:
+        model = init_params(cfg, gen, device=dev, tp=tp)
         print(mesh_line(cfg, mesh, model, train=True))
         state = train_state_init(model)
+        del model
     else:
-        from repro_torch.sharding.placement import shard_tensors
+        from repro_torch.sharding.placement import init_shards
 
-        # Moments of the shards only: the whole model's f32 moments on every
-        # rank would take 8 B a parameter per rank of the card.
-        state = train_state_init(shard_tensors(model, list(model.parameters()), mesh, comm.rank))
+        state = train_state_init(init_shards(cfg, gen, mesh, comm.rank, dev))
         nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
         p_bytes = nbytes(state.params)
         measured = {"params": p_bytes,
@@ -219,7 +222,6 @@ def main(argv=None, log: list | None = None) -> TrainState | None:
 
         print(sharded_mesh_line(cfg, mesh, comm.rank, measured,
                                 ShapeSpec("cli", args.seq, args.batch, "train")))
-    del model
     names = param_names(cfg, tp)
     stream = TokenStream(cfg.vocab, args.batch, args.seq, seed=17)
     start_step = 0
@@ -235,7 +237,7 @@ def main(argv=None, log: list | None = None) -> TrainState | None:
                 if comm is None:
                     state, manifest = restore_state(path, state, names, dev)
                 else:
-                    state, manifest = restore_state(path, whole_template(cfg), names, "cpu")
+                    state, manifest = restore_state(path, whole_template(cfg, tp), names, "cpu")
                     state = shard_state(state, cfg, mesh, comm.rank, dev)
                 stream.load_state_dict(manifest["extras"]["stream"])
                 start_step = int(manifest["step"])

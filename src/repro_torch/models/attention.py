@@ -249,6 +249,13 @@ class Attention(nn.Module):
             k, v = self.cache_heads(k, r), self.cache_heads(v, r)
         cache_k[:, pos:pos + 1] = k.to(cache_k.dtype)
         cache_v[:, pos:pos + 1] = v.to(cache_v.dtype)
+        if self.shard is None and cache_k.shape[2] != cfg.n_kv_heads:
+            # A whole model's expanded cache holds each KV head r times in a
+            # row: read the first copy of each, so that the grouped products
+            # are (Hkv, n_rep) whatever r is, the same sums (and the same
+            # rounding) as on the cache of tp = 1.
+            r = cache_k.shape[2] // cfg.n_kv_heads
+            cache_k, cache_v = cache_k[:, :, ::r], cache_v[:, :, ::r]
 
         scores = _gqa_scores_grouped(q, cache_k).float() * (hd ** -0.5)
         scores = softcap(scores, cfg.attn_softcap)                 # (B, Hq, 1, S_max)

@@ -146,13 +146,19 @@ class MLP(nn.Module):
             if self.kind == "swiglu":
                 return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
             return torch.square(F.relu(x @ self.w_up)) @ self.w_down
-        x = sh.to_model(x)
+        return sh.sum_model(self.partial(sh.to_model(x)), out_dtype=x.dtype)
+
+    def partial(self, x: torch.Tensor) -> torch.Tensor:
+        """Sharded: this rank's f32 partial of the output (its hidden
+        features through its ``w_down`` rows, ``matmul_f32``), before the
+        sum over 'model'; ``x`` has passed ``to_model``."""
+        sh = self.shard
         w = lambda name: sh.fsdp(getattr(self, name), self.specs[name])
         if self.kind == "swiglu":
             h = F.silu(x @ w("w_gate")) * (x @ w("w_up"))
         else:
             h = torch.square(F.relu(x @ w("w_up")))
-        return row_parallel(h, w("w_down"), sh)
+        return matmul_f32(h, w("w_down"))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

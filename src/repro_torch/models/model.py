@@ -15,7 +15,9 @@ entropy (each row's max and sum of exponents all-reduced over 'model', the
 label's logit picked by the rank that holds it); ``logits_fn`` all-gathers
 the logits over 'model'. ``lm_loss`` then takes this rank's rows and
 returns the mean over the global batch (summed over the data axes), so its
-gradient is the whole step's.
+gradient is the whole step's; an MoE's load-balancing term is already the
+global batch's (``moe.switch_aux`` sums its fractions over the data axes)
+and is added once.
 """
 from __future__ import annotations
 
@@ -92,16 +94,38 @@ class TransformerLM(nn.Module):
         MoE's, mamba2's and rwkv6's as ``models.moe.MoE``, ``models.ssm.
         Mamba2`` and ``models.rwkv6.RWKV6`` draw them, zero norms."""
         with torch.no_grad():
-            draw = lambda w: torch.randn(w.shape, generator=generator, dtype=torch.float32,
-                                         device=w.device)
-            self.embed.copy_(draw(self.embed) * 0.02)
-            for layer in self.layers:
-                layer.reset_parameters(generator)
-            if self.shared_attn is not None:
-                self.shared_attn.reset_parameters(generator)
-            self.ln_f.zero_()
-            if not self.cfg.tie_embeddings:
-                self.lm_head.copy_(draw(self.lm_head) * 0.02)
+            for _, fill in self.init_units():
+                fill(generator)
+
+    def init_units(self) -> list:
+        """``reset_parameters``' draws in order, as ``(parameter names,
+        fill(generator))`` pairs: the embedding, each layer, the shared
+        block, the final norm, the head. Each ``fill`` draws its unit's
+        parameters in place (under ``torch.no_grad``), reading them when
+        called (so a unit may be made on a device alone:
+        ``sharding.placement.init_shards``)."""
+
+        def draw_into(name: str, scale: float):
+            def fill(generator):
+                w = getattr(self, name)
+                w.copy_(torch.randn(w.shape, generator=generator, dtype=torch.float32,
+                                    device=w.device) * scale)
+            return fill
+
+        def zero_into(name: str):
+            return lambda generator: nn.init.zeros_(getattr(self, name))
+
+        prefixed = lambda mod, prefix: [f"{prefix}.{n}" for n, _ in mod.named_parameters()]
+        units = [(["embed"], draw_into("embed", 0.02))]
+        units += [(prefixed(layer, f"layers.{i}"), layer.reset_parameters)
+                  for i, layer in enumerate(self.layers)]
+        if self.shared_attn is not None:
+            units.append((prefixed(self.shared_attn, "shared_attn"),
+                          self.shared_attn.reset_parameters))
+        units.append((["ln_f"], zero_into("ln_f")))
+        if not self.cfg.tie_embeddings:
+            units.append((["lm_head"], draw_into("lm_head", 0.02)))
+        return units
 
 
 def init_params(cfg, generator: torch.Generator, device=None, tp: int = 1) -> TransformerLM:

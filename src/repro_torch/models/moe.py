@@ -16,6 +16,34 @@ fixed by (B, S), so nothing waits for the device. Padded experts
 (``n_experts_padded`` > ``n_experts``, a mesh's model axis) get router
 logits of -1e30 and are never chosen; they still run in the batched expert
 products, on empty slots, as the reference's einsums run them.
+
+Bound to a shard context (``sharding.placement``), the experts are split
+over 'model' (EP: rank i of a model group owns experts [i E_p / tp, (i +
+1) E_p / tp), their D dimension split over the data axes) and the tokens
+are whole over 'model' (the Megatron layout of the residual stream), so the
+dispatch stays local: every rank of a model group routes the same tokens
+with the same f32 router (gathered over the data axes, whole over
+'model'), copies only the kept (token, choice) rows of its own experts
+into its (E_p / tp, G * C, D) buffer, runs its experts, and forms its
+partial combine, a fixed-order f32 sum over its own choices. That partial
+and the shared expert's row-parallel partial are summed over 'model' in one
+f32 rank-order all-reduce: the reference's g -> e einsum, an all-to-all
+only where tokens are split over 'model', is that sum here. Three things
+keep the gradient whole:
+
+* the router reads x as it is, and only the dispatch and the shared expert
+  read ``to_model(x)``, whose backward sums their partial dx over 'model':
+  the router's dx, alike on every rank of a group, is counted once;
+* the gates enter the combine through ``to_model``: a rank's combine reads
+  the gates of its own experts' choices only, so their gradient is summed
+  over 'model' before it reaches the router;
+* the load-balancing loss sums its token and probability fractions over
+  the data axes before their product (the product of means is not the
+  mean of the products).
+
+The group size comes from the global token count (``group_size`` of the
+local count times the data axes' size), so capacity and drops are the
+whole run's; a dispatch group that would straddle the data split raises.
 """
 from __future__ import annotations
 
@@ -83,10 +111,17 @@ def route(logits: torch.Tensor, e_real: int, k: int, capacity_factor: float) -> 
     return Routing(expert, slot, keep, gate, probs, selected, capacity)
 
 
-def switch_aux(r: Routing, e_real: int, k: int) -> torch.Tensor:
-    """The Switch load-balancing loss from the pre-drop selection."""
-    frac_tokens = torch.mean(r.selected.float(), dim=(0, 1))
-    frac_probs = torch.mean(r.probs, dim=(0, 1))
+def switch_aux(r: Routing, e_real: int, k: int, shard=None) -> torch.Tensor:
+    """The Switch load-balancing loss from the pre-drop selection. With a
+    shard context the fractions are the global batch's: the per-expert
+    counts and probability sums are summed over the data axes first."""
+    if shard is None or shard.n_data == 1:
+        frac_tokens = torch.mean(r.selected.float(), dim=(0, 1))
+        frac_probs = torch.mean(r.probs, dim=(0, 1))
+    else:
+        sums = shard.sum_data(torch.stack([r.selected.float().sum(dim=(0, 1)),
+                                           r.probs.sum(dim=(0, 1))]), tag="moe_aux")
+        frac_tokens, frac_probs = sums / (r.probs.shape[0] * r.probs.shape[1] * shard.n_data)
     return e_real * torch.sum(frac_tokens * frac_probs) / k
 
 
@@ -95,7 +130,10 @@ class MoE(nn.Module):
     ``w_down`` (E, f, d) in the model dtype, and a SwiGLU ``shared`` MLP
     when ``cfg.shared_d_ff``. E is ``n_experts_padded`` (default
     ``cfg.n_experts``), as the reference pads the experts to its model
-    axis; tokens route only to the first ``cfg.n_experts``."""
+    axis; tokens route only to the first ``cfg.n_experts``. Bound to a
+    shard context the expert leaves hold this rank's E / tp experts."""
+
+    shard = None
 
     def __init__(self, cfg, n_experts_padded: int | None = None, *, dtype=torch.float32,
                  device=None):
@@ -125,45 +163,85 @@ class MoE(nn.Module):
         if self.cfg.shared_d_ff:
             self.shared.reset_parameters(generator)
 
-    def routing(self, x: torch.Tensor) -> Routing:
-        """x (B, S, D) -> the routing of its token groups; router logits in
-        x's dtype, then f32. Only the real experts' logits are computed: the
-        padded ones are -1e30 whatever their column holds (``route``), so a
-        padded router gives the real experts the logits of the unpadded one
-        bit for bit (the product's kernel may differ with the column count)."""
+    def routing(self, x: torch.Tensor, gs: int | None = None,
+                router: torch.Tensor | None = None) -> Routing:
+        """x (B, S, D) -> the routing of its token groups of ``gs`` tokens
+        (default ``group_size(B S)``); router logits in x's dtype, then
+        f32. Only the real experts' logits are computed: the padded ones are
+        -1e30 whatever their column holds (``route``), so a padded router
+        gives the real experts the logits of the unpadded one bit for bit
+        (the product's kernel may differ with the column count). ``router``
+        is the whole (d, E) router where ``self.router`` is a shard."""
         b, s, d = x.shape
-        gs = group_size(b * s)
+        gs = gs or group_size(b * s)
         xt = x.reshape(-1, gs, d)
         e_real = self.cfg.n_experts
-        logits = (xt @ self.router[:, :e_real].to(x.dtype)).float()
+        router = self.router if router is None else router
+        logits = (xt @ router[:, :e_real].to(x.dtype)).float()
         if self.n_experts > e_real:
             logits = F.pad(logits, (0, self.n_experts - e_real), value=-1e30)
         return route(logits, e_real, self.cfg.n_experts_active, self.cfg.capacity_factor)
 
-    def forward(self, x: torch.Tensor):
-        """x (B, S, D) -> ``(out (B, S, D), aux)`` (``moe_forward``)."""
+    def _combine(self, x: torch.Tensor, r: Routing, e0: int, gate: torch.Tensor,
+                 weights) -> torch.Tensor:
+        """Experts [e0, e0 + E_w) (``weights``: their w_gate, w_up, w_down)
+        on x (B, S, D) under routing ``r``: each token's rows weighted by
+        ``gate`` and summed over its k choices in f32, a choice of another
+        expert adding nothing. Returns (B S, D) f32."""
+        w_gate, w_up, w_down = weights
         b, s, d = x.shape
-        r = self.routing(x)
         n_groups, gs, k = r.expert.shape
-        e, c = self.n_experts, r.capacity
-        # Row of each (token, choice) in the (E * G * C) expert buffer; a
-        # dropped one points at the spare row E * G * C, cut off before the
-        # experts run.
+        e, c = w_gate.shape[0], r.capacity
+        # Row of each (token, choice) in the (E_w * G * C) expert buffer; a
+        # dropped choice, or one of another rank's expert, points at the
+        # spare row E_w * G * C, cut off before the experts run.
         group = torch.arange(n_groups, device=x.device)[:, None, None]
         spare = e * n_groups * c
-        rows = torch.where(r.keep, (r.expert * n_groups + group) * c + r.slot, spare).reshape(-1)
+        local = r.expert - e0
+        mine = r.keep & (local >= 0) & (local < e)
+        rows = torch.where(mine, (local * n_groups + group) * c + r.slot, spare).reshape(-1)
         token = torch.arange(b * s, device=x.device).repeat_interleave(k)
         xf = x.reshape(b * s, d)
         xe = x.new_zeros(spare + 1, d).index_copy(0, rows, xf[token])[:spare]
         xe = xe.view(e, n_groups * c, d)
-        h = F.silu(torch.bmm(xe, self.w_gate)) * torch.bmm(xe, self.w_up)
-        ye = torch.bmm(h, self.w_down).reshape(spare, d)                  # (E G C, D)
+        h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+        ye = torch.bmm(h, w_down).reshape(spare, d)                       # (E_w G C, D)
         ye = torch.cat([ye, ye.new_zeros(1, d)])
         # (token, choice) rows are token-major, so each token's k weighted
         # rows sum in a fixed order (index_add's CUDA atomics would not).
-        contrib = ye[rows].float() * r.gate.reshape(-1, 1).to(x.dtype).float()
-        out = contrib.view(b * s, k, d).sum(1).to(x.dtype).reshape(b, s, d)
-        aux = switch_aux(r, self.cfg.n_experts, k)
+        contrib = ye[rows].float() * gate.reshape(-1, 1).to(x.dtype).float()
+        return contrib.view(b * s, k, d).sum(1)
+
+    def forward(self, x: torch.Tensor):
+        """x (B, S, D) -> ``(out (B, S, D), aux)`` (``moe_forward``)."""
+        if self.shard is not None:
+            return self._forward_sharded(x)
+        b, s, d = x.shape
+        r = self.routing(x)
+        out = self._combine(x, r, 0, r.gate, (self.w_gate, self.w_up, self.w_down))
+        out = out.to(x.dtype).reshape(b, s, d)
+        aux = switch_aux(r, self.cfg.n_experts, r.expert.shape[-1])
         if self.cfg.shared_d_ff:
             out = out + self.shared(x)
         return out, aux
+
+    def _forward_sharded(self, x: torch.Tensor):
+        """This rank's rows x (B, S, D), whole over 'model' -> ``(out, aux)``
+        (the module docstring)."""
+        sh = self.shard
+        b, s, d = x.shape
+        gs = group_size(b * s * sh.n_data)
+        if (b * s) % gs:
+            raise ValueError(
+                f"moe: a dispatch group of {gs} tokens would straddle the data split ({b * s} "
+                f"tokens a rank, {sh.n_data} data ranks); routing a group split over ranks "
+                f"(its tokens gathered over the data axes) is not written")
+        r = self.routing(x, gs, sh.fsdp(self.router, self.specs["router"]))
+        xm = sh.to_model(x)
+        weights = [sh.fsdp(getattr(self, n), self.specs[n]) for n in ("w_gate", "w_up", "w_down")]
+        e0 = sh.tp_index * weights[0].shape[0]
+        part = self._combine(xm, r, e0, sh.to_model(r.gate, tag="moe_gate"), weights)
+        if self.cfg.shared_d_ff:
+            part = part + self.shared.partial(xm).reshape(b * s, d)
+        out = sh.sum_model(part, out_dtype=x.dtype, tag="moe").reshape(b, s, d)
+        return out, switch_aux(r, self.cfg.n_experts, r.expert.shape[-1], sh)

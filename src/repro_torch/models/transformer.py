@@ -26,8 +26,9 @@ is; a model bound to a shard context (``sharding.placement.shard_model``)
 runs its blocks on this rank's heads and hidden features, keeps the norms
 and the residual stream replicated over 'model' and its rows split over the
 data axes, and holds this rank's block of the decode cache (``cache_specs``:
-batch over the data axes, cache heads over 'model'). Only dense attention
-blocks shard (``placement.check_shardable``).
+batch over the data axes, cache heads over 'model'). Attention blocks
+shard, dense or MoE (its experts over 'model', ``models/moe.py``); a
+recurrent stack does not (``placement.check_shardable``).
 """
 from __future__ import annotations
 

@@ -28,7 +28,10 @@ Rules:
   the collective on CPU tensors, one copy back. Every dtype travels as its
   bytes (uint8). An NCCL group for ranks on distinct cards is not written.
 * **Counters.** ``stats[axis][op]`` counts calls, the bytes this rank
-  received from its peers, and the seconds spent (staging included).
+  received from its peers, and the seconds spent (staging included). An
+  all-reduce given a ``tag`` counts under ``"all_reduce:<tag>"`` instead
+  (the MoE's combine ``moe``, its gates' gradient ``moe_gate``, its
+  load-balancing sums ``moe_aux``), so a layer's collectives read apart.
 
 The differentiable forms used by the sharded model are ``gather`` (an
 all-gather whose backward is the reduce-scatter: FSDP), ``sum_over`` (an
@@ -137,7 +140,7 @@ class MeshComm:
         return out.to(device) if device.type != "cpu" else out
 
     def _count(self, axis: str, op: str, nbytes: int, t0: float) -> None:
-        rec = self.stats[axis][op]
+        rec = self.stats[axis].setdefault(op, [0, 0, 0.0])
         rec[0] += 1
         rec[1] += int(nbytes)
         rec[2] += time.perf_counter() - t0
@@ -191,10 +194,10 @@ class MeshComm:
         return acc.to(out_dtype)
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
-                   out_dtype=None) -> torch.Tensor:
+                   out_dtype=None, tag: str | None = None) -> torch.Tensor:
         """The ``axis`` group's element-wise sum (f32, rank order, then
         ``out_dtype``, default ``t``'s) or max, the same bytes on every
-        member."""
+        member; counted as ``all_reduce`` or ``all_reduce:<tag>``."""
         if op not in ("sum", "max"):
             raise ValueError(f"unknown reduction {op!r}")
         n = self.size(axis)
@@ -212,9 +215,9 @@ class MeshComm:
                 flat = torch.cat([flat, flat.new_zeros(pad)])
             piece = self.reduce_scatter(flat, axis, 0, out_dtype=out_dtype)
             out = self.all_gather(piece, axis, 0)[:t.numel()].reshape(t.shape)
-        moved = sum(self.stats[axis][k][1] - stats[k][1] for k in stats)
+        moved = sum(self.stats[axis][k][1] - stats.get(k, [0, 0])[1] for k in self.stats[axis])
         self.stats[axis] = stats
-        self._count(axis, "all_reduce", moved, t0)
+        self._count(axis, "all_reduce" if tag is None else f"all_reduce:{tag}", moved, t0)
         return out
 
     def all_reduce_axes(self, t: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
@@ -262,25 +265,25 @@ class _Gather(torch.autograd.Function):
 
 class _SumOver(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, comm, axis, out_dtype):
+    def forward(ctx, t, comm, axis, out_dtype, tag):
         ctx.dtype = t.dtype
-        return comm.all_reduce(t, axis, "sum", out_dtype=out_dtype)
+        return comm.all_reduce(t, axis, "sum", out_dtype=out_dtype, tag=tag)
 
     @staticmethod
     def backward(ctx, g):
-        return g.to(ctx.dtype), None, None, None
+        return g.to(ctx.dtype), None, None, None, None
 
 
 class _CopyTo(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, t, comm, axis):
-        ctx.args = (comm, axis)
+    def forward(ctx, t, comm, axis, tag):
+        ctx.args = (comm, axis, tag)
         return t.view_as(t)
 
     @staticmethod
     def backward(ctx, g):
-        comm, axis = ctx.args
-        return comm.all_reduce(g, axis, "sum"), None, None
+        comm, axis, tag = ctx.args
+        return comm.all_reduce(g, axis, "sum", tag=tag), None, None, None
 
 
 def gather(t: torch.Tensor, comm: MeshComm, entry, dim: int) -> torch.Tensor:
@@ -293,18 +296,19 @@ def gather(t: torch.Tensor, comm: MeshComm, entry, dim: int) -> torch.Tensor:
     return t
 
 
-def sum_over(t: torch.Tensor, comm: MeshComm, axis: str, out_dtype=None) -> torch.Tensor:
+def sum_over(t: torch.Tensor, comm: MeshComm, axis: str, out_dtype=None,
+             tag: str | None = None) -> torch.Tensor:
     """All-reduce (sum) over ``axis``; the gradient passes through."""
     if comm.size(axis) == 1:
         return t.to(out_dtype or t.dtype)
-    return _SumOver.apply(t, comm, axis, out_dtype)
+    return _SumOver.apply(t, comm, axis, out_dtype, tag)
 
 
-def copy_to(t: torch.Tensor, comm: MeshComm, axis: str) -> torch.Tensor:
+def copy_to(t: torch.Tensor, comm: MeshComm, axis: str, tag: str | None = None) -> torch.Tensor:
     """The identity; the gradient is all-reduced (summed) over ``axis``."""
     if comm.size(axis) == 1:
         return t
-    return _CopyTo.apply(t, comm, axis)
+    return _CopyTo.apply(t, comm, axis, tag)
 
 
 def max_over(t: torch.Tensor, comm: MeshComm, axis: str) -> torch.Tensor:

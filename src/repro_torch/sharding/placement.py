@@ -11,13 +11,16 @@ and ``gather_whole`` (a collective) reverse it.
 (keyed by ``convert.reference_leaves``; a per-layer parameter takes its
 stacked leaf's spec without the leading layer axis) into a model of shards
 bound to a ``ShardContext``; ``bind_shards`` binds shards that exist
-already (a train step's state). The Adam moments take their parameter's
-spec, the batch ``batch_spec`` (``shard_batch``) and the decode cache
-``cache_specs`` (``shard_cache``). Only dense attention stacks shard: an
-MoE or a recurrent stack raises ``NotImplementedError``; a tensor-parallel
-dimension that the model axis does not divide raises ``ValueError``, as
-does a leaf whose spec leaves it whole where the sharded layers need it
-split. Nothing falls back to whole tensors.
+already (a train step's state), and ``init_shards`` draws a rank's shards
+of the seeded weights without the whole model. The Adam moments take their
+parameter's spec, the batch ``batch_spec`` (``shard_batch``) and the
+decode cache ``cache_specs`` (``shard_cache``). Attention stacks shard,
+dense or MoE (the experts over 'model', their D over the data axes; the
+router and the shared expert as the rules give); a recurrent stack raises
+``NotImplementedError``; a tensor-parallel dimension that the model axis
+does not divide raises ``ValueError``, as does a leaf whose spec leaves it
+whole where the sharded layers need it split. Nothing falls back to whole
+tensors.
 """
 from __future__ import annotations
 
@@ -29,9 +32,11 @@ from repro_torch.sharding.rules import batch_spec, cache_specs, dp_axes, local_s
 
 # Where the sharded layers need the model axis (Megatron): the column-
 # parallel leaves' output dimension, the row-parallel leaves' input
-# dimension, the embedding's vocabulary. K and V may stay whole or split
-# inside a head (``models.attention`` gathers them then).
+# dimension, the embedding's vocabulary; an MoE's expert leaves (E, ., .)
+# their expert dimension (EP). K and V may stay whole or split inside a head
+# (``models.attention`` gathers them then).
 _NEEDS_MODEL = {"wq": 1, "w_gate": 1, "w_up": 1, "lm_head": 1, "wo": 0, "w_down": 0, "embed": 0}
+_EXPERTS = ("w_gate", "w_up", "w_down")
 
 
 def _block(entry, mesh, coords) -> tuple[int, int]:
@@ -89,16 +94,12 @@ def gather_whole(shard: torch.Tensor, spec: tuple, comm) -> torch.Tensor:
 
 
 def check_shardable(cfg, mesh) -> None:
-    """Raise unless ``cfg`` is a dense attention stack whose heads divide
-    the model axis."""
+    """Raise unless ``cfg`` is an attention stack (dense or MoE) whose heads
+    divide the model axis."""
     if cfg.block_kind != "attn":
         raise NotImplementedError(
             f"{cfg.name}: a sharded {cfg.block_kind} stack is not written (ROADMAP 13.6, next: "
             f"the recurrent stacks' FULL_BATCH layout, batch over every axis)")
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: a sharded MoE is not written (ROADMAP 13.6, next: the experts' "
-            f"all-to-all over 'model')")
     tp = mesh.shape.get("model", 1)
     if cfg.n_heads % tp:
         raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not divide the model axis "
@@ -122,7 +123,8 @@ def parameter_specs(model, mesh) -> dict:
 
 class ShardContext:
     """What a sharded module reads: the ``MeshComm`` (None for a model that
-    is only cut, not run) and the mesh."""
+    is only cut, not run) and the mesh. ``tag`` names a collective's own
+    counter (``MeshComm.stats[axis]["all_reduce:<tag>"]``)."""
 
     def __init__(self, mesh, rank: int, comm=None):
         self.mesh, self.rank, self.comm = mesh, int(rank), comm
@@ -130,6 +132,9 @@ class ShardContext:
         self.tp = mesh.shape.get("model", 1)
         self.tp_index = self.coords[mesh.axis_names.index("model")] if "model" in mesh.shape else 0
         self.dp = dp_axes(mesh)
+        self.n_data = 1
+        for axis in self.dp:
+            self.n_data *= mesh.shape[axis]
         self.specs: dict = {}
 
     def fsdp(self, w: torch.Tensor, spec: tuple) -> torch.Tensor:
@@ -144,18 +149,18 @@ class ShardContext:
     def gather_model(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return gather(x, self.comm, "model", dim)
 
-    def to_model(self, x: torch.Tensor) -> torch.Tensor:
-        return copy_to(x, self.comm, "model")
+    def to_model(self, x: torch.Tensor, tag: str | None = None) -> torch.Tensor:
+        return copy_to(x, self.comm, "model", tag)
 
-    def sum_model(self, x: torch.Tensor, out_dtype=None) -> torch.Tensor:
-        return sum_over(x, self.comm, "model", out_dtype)
+    def sum_model(self, x: torch.Tensor, out_dtype=None, tag: str | None = None) -> torch.Tensor:
+        return sum_over(x, self.comm, "model", out_dtype, tag)
 
     def max_model(self, x: torch.Tensor) -> torch.Tensor:
         return max_over(x, self.comm, "model")
 
-    def sum_data(self, x: torch.Tensor) -> torch.Tensor:
+    def sum_data(self, x: torch.Tensor, tag: str | None = None) -> torch.Tensor:
         for axis in self.dp:
-            x = sum_over(x, self.comm, axis)
+            x = sum_over(x, self.comm, axis, tag=tag)
         return x
 
 
@@ -175,7 +180,8 @@ def _check_specs(specs: dict, tp: int) -> None:
     if tp == 1:
         return
     for name, spec in specs.items():
-        dim = _NEEDS_MODEL.get(name.rsplit(".", 1)[-1])
+        leaf = name.rsplit(".", 1)[-1]
+        dim = 0 if leaf in _EXPERTS and len(spec) == 3 else _NEEDS_MODEL.get(leaf)
         if dim is not None and "model" not in entry_axes(spec[dim]):
             raise ValueError(f"{name}: spec {spec} leaves dimension {dim} whole; the sharded "
                              f"layers need it split over 'model'")
@@ -188,9 +194,10 @@ def bind_shards(cfg, tensors, mesh, rank: int, comm=None):
     from repro_torch.models.model import TransformerLM
 
     check_shardable(cfg, mesh)
-    model = TransformerLM(cfg, device="meta")
+    tp = mesh.shape.get("model", 1)
+    model = TransformerLM(cfg, device="meta", tp=tp)
     specs = parameter_specs(model, mesh)
-    _check_specs(specs, mesh.shape.get("model", 1))
+    _check_specs(specs, tp)
     names = [n for n, _ in model.named_parameters()]
     if len(names) != len(tensors):
         raise ValueError(f"{len(tensors)} tensors for {len(names)} parameters")
@@ -212,6 +219,40 @@ def shard_tensors(model, tensors, mesh, rank: int) -> list:
     coords = mesh.coords(rank)
     return [local_shard(t.detach(), specs[name], mesh, coords).clone()
             for (name, _), t in zip(model.named_parameters(), tensors)]
+
+
+def init_shards(cfg, generator: torch.Generator, mesh, rank: int, device=None) -> list:
+    """This rank's shards of ``models.model.init_params(cfg, generator,
+    device, tp)`` (tp the mesh's model axis), bitwise, in parameter order,
+    without the whole model: each of ``TransformerLM.init_units`` (the
+    embedding, a layer, the shared block, the final norm, the head) is made
+    whole on ``device`` in ``init_params``' order of draws, cut to this
+    rank's blocks (contiguous copies), and freed before the next. The
+    largest unit is one layer (qwen2-moe: 1.04 GB of bf16 experts). A stack
+    that does not shard raises as ``check_shardable``."""
+    from repro_torch.models.model import TransformerLM
+
+    check_shardable(cfg, mesh)
+    model = TransformerLM(cfg, device="meta", tp=mesh.shape.get("model", 1))
+    specs = parameter_specs(model, mesh)
+    coords = mesh.coords(rank)
+    out = {}
+    for names, fill in model.init_units():
+        held = []
+        for name in names:
+            mod_name, _, pn = name.rpartition(".")
+            mod = model.get_submodule(mod_name) if mod_name else model
+            skel = mod._parameters[pn]
+            mod._parameters[pn] = nn.Parameter(torch.empty_like(skel, device=device),
+                                               requires_grad=skel.requires_grad)
+            held.append((name, mod, pn, skel))
+        with torch.no_grad():
+            fill(generator)
+        for name, mod, pn, skel in held:
+            out[name] = local_shard(mod._parameters[pn].detach(), specs[name], mesh,
+                                    coords).clone()
+            mod._parameters[pn] = skel
+    return [out[name] for name, _ in model.named_parameters()]
 
 
 def shard_model(model, mesh, rank: int, comm=None):

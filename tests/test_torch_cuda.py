@@ -1979,12 +1979,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 mesh = make_mesh(sys.argv[1])
 comm = MeshComm.from_env(mesh)
 dev = torch.device("cuda")
-cfg = get_config("internlm2-1.8b").reduced(dtype="float32", n_layers=2, head_dim=64,
-                                           n_heads=8, n_kv_heads=2)
+arch, seq = sys.argv[2], int(sys.argv[3])
+over = dict(capacity_factor=1.0) if "moe" in arch else {}
+cfg = get_config(arch).reduced(dtype="float32", n_layers=2, head_dim=64, n_heads=8,
+                               n_kv_heads=2, **over)
 whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
                     tp=mesh.shape["model"])
 rng = np.random.default_rng(1)
-tok, lab = (torch.as_tensor(rng.integers(0, cfg.vocab, (4, 128)), device=dev) for _ in range(2))
+tok, lab = (torch.as_tensor(rng.integers(0, cfg.vocab, (4, seq)), device=dev) for _ in range(2))
 loss_w = lm_loss(whole, tok, lab)
 grads_w = torch.autograd.grad(loss_w, tuple(whole.parameters()))
 model = shard_model(whole, mesh, comm.rank, comm)
@@ -1994,11 +1996,13 @@ grads = _sharded_grads(comm, specs, torch.autograd.grad(loss, tuple(model.parame
 err = max(float((gather_whole(g, s, comm) - w).abs().max() / w.abs().max())
           for g, s, w in zip(grads, specs, grads_w))
 with torch.no_grad():
-    lw, _ = prefill_step(whole, tok, 130, tp=mesh.shape["model"])
-    ls, _ = prefill_step(model, shard_batch(tok, mesh, comm.rank), 130, tp=mesh.shape["model"])
+    lw, _ = prefill_step(whole, tok, seq + 2, tp=mesh.shape["model"])
+    ls, _ = prefill_step(model, shard_batch(tok, mesh, comm.rank), seq + 2,
+                         tp=mesh.shape["model"])
 rows = shard_batch(torch.arange(4, device=dev)[:, None], mesh, comm.rank)[:, 0]
 assert grads[0].is_cuda and ls.is_cuda
-print("RESULT", float(loss), float(loss_w), err, float((ls - lw[rows]).abs().max()))
+print("RESULT", float(loss.detach()), float(loss_w.detach()), err,
+      float((ls - lw[rows]).abs().max()))
 comm.shutdown()
 """
 
@@ -2024,6 +2028,22 @@ def test_row_parallel_f32_product_on_card(dev):
     torch.testing.assert_close(gw, rw)
 
 
+def _sharded_on_card(mesh_spec, arch, seq, tmp_path):
+    from repro_torch.multihost import spawn_ranks
+
+    script = tmp_path / "rank.py"
+    script.write_text(_SHARDED_RANK)
+    results = spawn_ranks([sys.executable, str(script), mesh_spec, arch, str(seq)], 4,
+                          timeout_s=300)
+    for r, (code, text) in enumerate(results):
+        assert code == 0, f"rank {r} exited with {code}:\n{text}"
+        line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1]
+        loss, loss_w, err, logit_err = map(float, line.split()[1:5])
+        assert abs(loss - loss_w) <= 1e-5 * abs(loss_w), (r, loss, loss_w)
+        assert err <= 1e-4, (r, err)
+        assert logit_err <= 1e-4, (r, logit_err)
+
+
 @pytest.mark.parametrize("mesh_spec", ["2x2", "1x4"])
 def test_sharded_lm_on_card_matches_the_whole_model(dev, mesh_spec, tmp_path):
     """Four rank processes on the card (gloo, collectives staged through
@@ -2031,14 +2051,13 @@ def test_sharded_lm_on_card_matches_the_whole_model(dev, mesh_spec, tmp_path):
     query and 2 KV heads: at 1 x 4 the expanded cache and gathered K / V
     weights), the sharded loss, gathered gradient and prefill logits
     against the whole model on the same card at the CPU tests' tolerances."""
-    from repro_torch.multihost import spawn_ranks
+    _sharded_on_card(mesh_spec, "internlm2-1.8b", 128, tmp_path)
 
-    script = tmp_path / "rank.py"
-    script.write_text(_SHARDED_RANK)
-    results = spawn_ranks([sys.executable, str(script), mesh_spec], 4, timeout_s=300)
-    for r, (code, text) in enumerate(results):
-        assert code == 0, f"rank {r} exited with {code}:\n{text}"
-        loss, loss_w, err, logit_err = map(float, text.split("RESULT", 1)[1].split()[:4])
-        assert abs(loss - loss_w) <= 1e-5 * abs(loss_w), (r, loss, loss_w)
-        assert err <= 1e-4, (r, err)
-        assert logit_err <= 1e-4, (r, logit_err)
+
+@pytest.mark.parametrize("mesh_spec", ["2x2", "1x4"])
+def test_sharded_moe_on_card_matches_the_whole_model(dev, mesh_spec, tmp_path):
+    """The same for a reduced qwen2-moe (4 experts, one or two a rank; 4 x
+    512 tokens, so each rank's rows fill whole dispatch groups at 2 x 2):
+    the loss with aux, every gathered gradient leaf and the prefill logits
+    against the whole model on the same card."""
+    _sharded_on_card(mesh_spec, "qwen2-moe-a2.7b", 512, tmp_path)
