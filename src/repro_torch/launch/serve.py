@@ -30,8 +30,11 @@ their rows of the prompt and decode on their block of the cache; the greedy
 token comes from the logits gathered over 'model' and is the same on every
 rank. Each rank draws only its shards of the seed-0 weights
 (``sharding.placement.init_shards``). Each rank's ``[mesh]`` line prints
-its shards' bytes beside ``launch.dryrun``'s reckoning. Dense and MoE
-attention stacks shard (an MoE's experts over 'model').
+its shards' bytes beside ``launch.dryrun``'s reckoning. Every stack
+shards: dense and MoE attention stacks (an MoE's experts over 'model') and
+the recurrent stacks, zamba2 and rwkv6 (the prefill's scans in the
+reference's ``FULL_BATCH`` layout; decode on the rank's heads of the
+recurrent states).
 
 GP mode: a ``GPServer`` builds the training index once and serves a
 stream of asynchronous requests; the micro-batcher (or, with

@@ -22,9 +22,11 @@ layer whole at a time, never the whole model), keeps them and their Adam
 moments on ``--device`` and runs ``make_train_step(..., comm=)`` on its
 rows of each global batch; ranks on one CUDA device share it. Each rank's
 ``[mesh]`` line prints the bytes of its shards beside ``launch.dryrun``'s
-reckoning for that mesh. A dense or MoE attention stack shards (an MoE's
-experts over 'model'; its dispatch groups must not straddle the data
-split); a recurrent stack raises ``NotImplementedError``. Rank 0
+reckoning for that mesh. Every stack shards: dense and MoE attention
+stacks (an MoE's experts over 'model'; its dispatch groups must not
+straddle the data split) and the recurrent stacks, zamba2 and rwkv6 (their
+scans in the reference's ``FULL_BATCH`` layout: rows over every axis, every
+head, through an all-to-all over 'model'). Rank 0
 writes checkpoints of the gathered state in the format below, so a sharded
 run's checkpoint resumes in a whole run, the reference or another mesh; a
 resume cuts the loaded whole state into shards. (No SIGTERM save in a

@@ -37,6 +37,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.T
     return (out * (1.0 + scale.float())).to(x.dtype)
 
 
+def rms_norm_split(x: torch.Tensor, scale: torch.Tensor, eps: float, shard,
+                   width: int) -> torch.Tensor:
+    """``rms_norm`` over a last dimension of ``width`` of which ``x`` and
+    ``scale`` hold this rank's block over 'model': the f32 sum of squares
+    summed over 'model' (forward and backward) before the ``rsqrt``."""
+    x32 = x.float()
+    ss = shard.sum_model(shard.to_model(torch.sum(x32 * x32, dim=-1, keepdim=True)), tag="norm")
+    out = x32 * torch.rsqrt(ss / width + eps)
+    return (out * (1.0 + scale.float())).to(x.dtype)
+
+
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     """Gemma-2 style logit soft-capping: ``cap * tanh(x / cap)``."""
     if not cap:

@@ -14,9 +14,39 @@ and reduced over K (with r and k) before the product with v; the factored
 r exp(c), k exp(-c) form, which overflows for strong decay, is not used.
 As in ``ssm.py``, every chunk's state-free terms are evaluated at once and
 only the carry ``S = contrib + exp(c_last) S`` loops over chunks. The
-reference's ``REPRO_RWKV_CHUNK`` switch and its sharding constraints are
-not carried over: the port runs a model on one device, with no ambient mesh
-(``sharding/constraints.py``), and ``tp`` changes nothing here.
+reference's ``REPRO_RWKV_CHUNK`` switch is not carried over.
+
+Bound to a shard context (``sharding.placement``), a layer runs the
+reference's layout over a mesh's 'model' axis:
+
+* the time mix's ``wr``, ``wk``, ``wv``, ``wg`` and ``w_lora_b`` give this
+  rank's channels, whole heads (the channel order is head-major, (H, K));
+  for ``s > 1`` r, k, v, the log-decay and g pass an all-to-all over
+  'model' (``all_to_all:wkv``), the reference's ``FULL_BATCH`` constraint
+  (``rwkv6.py:113-123``): the rank then holds rows / tp rows at every head,
+  runs the chunk scan, the norm over all of H K and the gate on them as on
+  a whole model, and the product returns by the inverse all-to-all to the
+  row-parallel ``wo``; the final state passes it too (heads over 'model',
+  the cache's layout). Where the rows do not divide over 'model' the scan
+  is replicated over it (r, k, v and the log-decay all-gathered over the
+  heads; the rank keeps its own channels and heads). Decode runs on the
+  rank's heads, the norm's sum of squares summed over 'model';
+* the channel mix's ``w_cm_r`` and ``w_cm_1`` are column-parallel and
+  ``w_cm_2`` row-parallel: its f32 partial products are reduce-scattered
+  over 'model' along D (summed in f32, rounded once, as
+  ``layers.row_parallel`` keeps a GEMM's accumulator), multiplied by this
+  rank's D-block of the receptance, and the product all-gathered;
+* the decode cache's ``last1`` / ``last2`` hold this rank's block of D,
+  all-gathered where a step reads the whole token;
+* every column-parallel product (``wr``, ``wk``, ``wv``, ``wg``,
+  ``w_lora_b``, ``w_cm_r``, ``w_cm_1``) reads its input through
+  ``to_model``, as ``ssm.py`` and the attention do, so that the input's
+  gradient is summed over 'model' there: each mix then has its whole
+  gradient on every rank, and ``mu``, ``mu_cm`` and ``w_lora_a`` theirs;
+* the leaves a rank reads whole but computes only part of the gradient of
+  (``w_base`` at this rank's channels, ``u_bonus`` and ``ln_out`` in the
+  region) enter through ``ShardContext.partial_leaves``, whose backward
+  sums their gradients over 'model' once.
 """
 from __future__ import annotations
 
@@ -24,7 +54,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init_, linear_weight, rms_norm
+from .layers import (dense_init_, linear_weight, matmul_f32, rms_norm, rms_norm_split,
+                     row_parallel)
 from .ssm import _carry, _pad_seq
 
 _CHUNK = 16
@@ -38,6 +69,8 @@ class RWKV6(nn.Module):
     ``ln_out`` (H K,) f32, ``wo`` (H K, d); channel mix ``mu_cm`` (2, d),
     ``w_cm_r`` (d, d), ``w_cm_1`` (d, d_ff), ``w_cm_2`` (d_ff, d). The
     matrices and the shifts take ``dtype``."""
+
+    shard = None
 
     def __init__(self, cfg, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -122,24 +155,23 @@ def _decay_log(m: RWKV6, wx: torch.Tensor) -> torch.Tensor:
     return m.w_base + (torch.tanh(wx @ m.w_lora_a) @ m.w_lora_b).float()
 
 
-def rwkv6_time_mix(m: RWKV6, x: torch.Tensor, state: torch.Tensor | None = None,
-                   last_tok: torch.Tensor | None = None):
-    """x (B, S, D) -> (y (B, S, D), final WKV state (B, H, K, K) f32, the
-    last input token (B, 1, D))."""
-    cfg = m.cfg
-    b, s, _ = x.shape
-    h, hk = cfg.n_heads, cfg.head_dim
-    dtype = x.dtype
-    xs = _token_shift(x, last_tok)
-    mix = lambda i: x + m.mu[i] * (xs - x)
-    r = _heads(mix(0) @ m.wr, h, hk)
-    k = _heads(mix(1) @ m.wk, h, hk)
-    v = _heads(mix(2) @ m.wv, h, hk)
-    g = F.silu(mix(3) @ m.wg)
-    logw = _heads(-torch.exp(_decay_log(m, mix(4))), h, hk)         # (B, S, H, K) < 0
+def _col(m: RWKV6):
+    """``col(t, name)``: ``t @ w`` for the column-parallel leaf ``name`` of
+    ``m``, the module's own (whole) or this rank's columns, ``t`` read
+    through ``to_model`` (sharded: its gradient summed over 'model')."""
+    sh = m.shard
+    if sh is None:
+        return lambda t, name: t @ getattr(m, name)
+    return lambda t, name: sh.to_model(t) @ sh.fsdp(getattr(m, name), m.specs[name])
 
+
+def _wkv_region(cfg, r, k, v, logw, u, ln_out, state=None):
+    """The chunk scan and the gated norm's norm: r, k, v, logw (R, S, H, K)
+    at every head -> (rms_norm(y) (R, S, H K) in r's dtype, the final WKV
+    state (R, H, K, K) f32)."""
+    b, s, h, hk = r.shape
     if state is None:
-        state = torch.zeros(b, h, hk, hk, dtype=torch.float32, device=x.device)
+        state = torch.zeros(b, h, hk, hk, dtype=torch.float32, device=r.device)
     q = min(_CHUNK, s)
     pad = (-s) % q
     if pad:
@@ -148,38 +180,109 @@ def rwkv6_time_mix(m: RWKV6, x: torch.Tensor, state: torch.Tensor | None = None,
         r, k, v, logw = (_pad_seq(a, pad) for a in (r, k, v, logw))
     nc = (s + pad) // q
     chunked = lambda a: a.reshape((b, nc, q) + a.shape[2:])
-    y, state = _wkv_chunks(chunked(r), chunked(k), chunked(v), chunked(logw), m.u_bonus, state)
-    y = y.reshape(b, s + pad, h * hk)[:, :s].to(dtype)
-    y = rms_norm(y, m.ln_out, cfg.norm_eps) * g
-    return y @ m.wo, state, x[:, -1:]
+    y, state = _wkv_chunks(chunked(r), chunked(k), chunked(v), chunked(logw), u, state)
+    y = y.reshape(b, s + pad, h * hk)[:, :s].to(r.dtype)
+    return rms_norm(y, ln_out, cfg.norm_eps), state
+
+
+def rwkv6_time_mix(m: RWKV6, x: torch.Tensor, state: torch.Tensor | None = None,
+                   last_tok: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), final WKV state (B, H, K, K) f32, the
+    last input token (B, 1, D)); sharded, the state's heads and the last
+    token's D are this rank's blocks."""
+    if m.shard is not None:
+        if state is not None or last_tok is not None:
+            raise ValueError("a sharded rwkv6 prefill starts from the zero state")
+        return _time_mix_sharded(m, x)
+    cfg = m.cfg
+    h, hk = cfg.n_heads, cfg.head_dim
+    xs = _token_shift(x, last_tok)
+    mix = lambda i: x + m.mu[i] * (xs - x)
+    r = _heads(mix(0) @ m.wr, h, hk)
+    k = _heads(mix(1) @ m.wk, h, hk)
+    v = _heads(mix(2) @ m.wv, h, hk)
+    g = F.silu(mix(3) @ m.wg)
+    logw = _heads(-torch.exp(_decay_log(m, mix(4))), h, hk)         # (B, S, H, K) < 0
+    y, state = _wkv_region(cfg, r, k, v, logw, m.u_bonus, m.ln_out, state)
+    return (y * g) @ m.wo, state, x[:, -1:]
+
+
+def _time_mix_sharded(m: RWKV6, x: torch.Tensor):
+    """The time mix on this rank's shards (the module docstring)."""
+    cfg, sh = m.cfg, m.shard
+    b, s, _ = x.shape
+    hl, hk = cfg.n_heads // sh.tp, cfg.head_dim
+    col = _col(m)
+    w_base, u, ln_out = sh.partial_leaves(m.w_base, m.u_bonus, m.ln_out, tag="wkv")
+    xs = _token_shift(x)
+    mix = lambda i: x + m.mu[i] * (xs - x)
+    r = _heads(col(mix(0), "wr"), hl, hk)                           # (B, S, H / tp, K)
+    k = _heads(col(mix(1), "wk"), hl, hk)
+    v = _heads(col(mix(2), "wv"), hl, hk)
+    g = F.silu(col(mix(3), "wg"))                                   # (B, S, H K / tp)
+    lora = torch.tanh(mix(4) @ sh.fsdp(m.w_lora_a, m.specs["w_lora_a"]))
+    logw = _heads(-torch.exp(sh.channels(w_base) + col(lora, "w_lora_b").float()), hl, hk)
+    if sh.full_batch(b):
+        r, k, v, logw, g = (sh.exchange(t, 0, 2, "wkv") for t in (r, k, v, logw, _heads(g, hl, hk)))
+        y, state = _wkv_region(cfg, r, k, v, logw, u, ln_out)
+        y = sh.exchange(_heads(y * g.flatten(2), cfg.n_heads, hk), 2, 0, "wkv").flatten(2)
+        state = sh.exchange(state, 1, 0, "wkv")                     # (B, H / tp, K, K)
+    else:
+        r, k, v, logw = (sh.gather_model(t, 2) for t in (r, k, v, logw))
+        y, state = _wkv_region(cfg, r, k, v, logw, u, ln_out)
+        y, state = sh.channels(y) * g, sh.channels(state, 1)
+    return row_parallel(y, sh.fsdp(m.wo, m.specs["wo"]), sh), state, sh.channels(x[:, -1:])
 
 
 def rwkv6_time_mix_decode(m: RWKV6, x: torch.Tensor, state: torch.Tensor,
                           last_tok: torch.Tensor):
-    """One-token step: x (B, 1, D). Returns (y, new state, new last token)."""
-    cfg = m.cfg
+    """One-token step: x (B, 1, D). Returns (y, new state, new last token);
+    sharded, the state's heads and the last token's D are this rank's."""
+    cfg, sh = m.cfg, m.shard
     b = x.shape[0]
-    h, hk = cfg.n_heads, cfg.head_dim
+    hk = cfg.head_dim
+    col = _col(m)
+    if sh is None:
+        w_base, u, ln_out, lora_a, new_last = m.w_base, m.u_bonus, m.ln_out, m.w_lora_a, x
+    else:
+        last_tok = sh.gather_replicated(last_tok, -1)
+        new_last = sh.channels(x)
+        w_base, u, ln_out = sh.partial_leaves(m.w_base, m.u_bonus, m.ln_out, tag="wkv")
+        w_base, u, ln_out = sh.channels(w_base), sh.channels(u, 0), sh.channels(ln_out)
+        lora_a = sh.fsdp(m.w_lora_a, m.specs["w_lora_a"])
     mix = lambda i: x + m.mu[i] * (last_tok - x)
-    r = _heads(mix(0) @ m.wr, h, hk)[:, 0]                         # (B, H, K)
-    k = _heads(mix(1) @ m.wk, h, hk)[:, 0]
-    v = _heads(mix(2) @ m.wv, h, hk)[:, 0]
-    g = F.silu(mix(3) @ m.wg)
-    w = torch.exp(-torch.exp(_decay_log(m, mix(4)))).reshape(b, h, hk)
+    r = col(mix(0), "wr").reshape(b, -1, hk)                        # (B, H, K)
+    k = col(mix(1), "wk").reshape(b, -1, hk)
+    v = col(mix(2), "wv").reshape(b, -1, hk)
+    g = F.silu(col(mix(3), "wg"))
+    wlog = w_base + col(torch.tanh(mix(4) @ lora_a), "w_lora_b").float()
+    w_ = torch.exp(-torch.exp(wlog)).reshape(b, -1, hk)
 
     kv = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
-    y = torch.einsum("bhk,bhkv->bhv", r.float(), state + m.u_bonus[None, :, :, None] * kv)
-    state = w[..., None] * state + kv
-    y = y.reshape(b, 1, h * hk).to(x.dtype)
-    y = rms_norm(y, m.ln_out, cfg.norm_eps) * g
-    return y @ m.wo, state, x
+    y = torch.einsum("bhk,bhkv->bhv", r.float(), state + u[None, :, :, None] * kv)
+    state = w_[..., None] * state + kv
+    y = y.reshape(b, 1, -1).to(x.dtype)
+    if sh is None:
+        return (rms_norm(y, ln_out, cfg.norm_eps) * g) @ m.wo, state, new_last
+    y = rms_norm_split(y, ln_out, cfg.norm_eps, sh, cfg.n_heads * hk) * g
+    return row_parallel(y, sh.fsdp(m.wo, m.specs["wo"]), sh), state, new_last
 
 
 def rwkv6_channel_mix(m: RWKV6, x: torch.Tensor, last_tok: torch.Tensor | None = None):
-    """x (B, S, D) -> (y (B, S, D), the last input token (B, 1, D))."""
+    """x (B, S, D) -> (y (B, S, D), the last input token (B, 1, D));
+    sharded, ``last_tok`` and the returned token are this rank's block of
+    D."""
+    sh = m.shard
+    col = _col(m)
+    if sh is not None and last_tok is not None:
+        last_tok = sh.gather_replicated(last_tok, -1)
     xs = _token_shift(x, last_tok)
     xk = x + m.mu_cm[0] * (xs - x)
     xr = x + m.mu_cm[1] * (xs - x)
-    r = torch.sigmoid(xr @ m.w_cm_r)
-    kk = torch.square(F.relu(xk @ m.w_cm_1))
-    return r * (kk @ m.w_cm_2), x[:, -1:]
+    r = torch.sigmoid(col(xr, "w_cm_r"))
+    kk = torch.square(F.relu(col(xk, "w_cm_1")))
+    if sh is None:
+        return r * (kk @ m.w_cm_2), x[:, -1:]
+    out = sh.scatter_model(matmul_f32(kk, sh.fsdp(m.w_cm_2, m.specs["w_cm_2"])), -1,
+                           out_dtype=x.dtype)
+    return sh.gather_replicated(r * out, -1), sh.channels(x[:, -1:])

@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init_, linear_weight, rms_norm
+from .layers import dense_init_, linear_weight, rms_norm, rms_norm_split, row_parallel
 
 _CHUNK = 128
 
@@ -50,6 +50,8 @@ class Mamba2(nn.Module):
     (d, N), ``wdt`` (d, H), ``dt_bias``, ``A_log``, ``D_skip`` (H,) f32,
     ``conv_w`` (K, d_inner), ``norm`` (d_inner,) f32, ``wo`` (d_inner, d).
     The matrices and ``conv_w`` take ``dtype``."""
+
+    shard = None
 
     def __init__(self, cfg, *, dtype=torch.float32, device=None):
         super().__init__()
@@ -156,39 +158,98 @@ def _pad_seq(a: torch.Tensor, pad: int) -> torch.Tensor:
     return F.pad(a, (0, 0) * (a.dim() - 2) + (0, pad))
 
 
-def mamba2_forward(m: Mamba2, x: torch.Tensor, state: torch.Tensor | None = None):
-    """x (B, S, D) -> (y (B, S, D), final SSD state (B, H, P, N) f32, conv
-    tail (B, K - 1, d_inner)). ``state`` is the initial SSD state; the conv
-    tail is what the reference's prefill recomputes as the decode cache's
-    conv window (``conv_tail`` of ``x @ wx``)."""
-    cfg = m.cfg
-    b, s, _ = x.shape
+def _ssd_region(cfg, x, xh, wB, wC, wdt, dt_bias, A_log, D_skip, norm, state=None):
+    """The scan and the gated norm's norm: x (R, S, D) the block's input
+    rows, xh (R, S, H, P) their conv output at every head -> (rms_norm(y)
+    (R, S, d_inner) in x's dtype, the final SSD state (R, H, P, N) f32)."""
+    r, s, _ = x.shape
     h, p, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
     dtype = x.dtype
-    z = x @ m.wz
-    xp = x @ m.wx
-    xr = F.silu(_causal_conv(xp, m.conv_w))
-    bproj = x @ m.wB
-    cproj = x @ m.wC
-    dt = F.softplus((x @ m.wdt).float() + m.dt_bias)               # (B, S, H)
-    loga = -torch.exp(m.A_log) * dt                                 # (B, S, H) in (-inf, 0)
-
-    xh = xr.reshape(b, s, h, p)
+    bproj = x @ wB
+    cproj = x @ wC
+    dt = F.softplus((x @ wdt).float() + dt_bias)                   # (R, S, H)
+    loga = -torch.exp(A_log) * dt                                   # (R, S, H) in (-inf, 0)
     xbar = xh * dt[..., None].to(dtype)
     if state is None:
-        state = torch.zeros(b, h, p, n, dtype=torch.float32, device=x.device)
+        state = torch.zeros(r, h, p, n, dtype=torch.float32, device=x.device)
     q = min(_CHUNK, s)
     pad = (-s) % q
     if pad:
         xbar, bproj, cproj, loga = (_pad_seq(a, pad) for a in (xbar, bproj, cproj, loga))
     nc = (s + pad) // q
-    chunked = lambda a: a.reshape((b, nc, q) + a.shape[2:])
+    chunked = lambda a: a.reshape((r, nc, q) + a.shape[2:])
     y, state = _ssd_chunks(chunked(xbar), chunked(bproj), chunked(cproj), chunked(loga), state)
-    y = y.reshape(b, s + pad, h, p)[:, :s]
-    y = y + m.D_skip[:, None] * xh.float()
-    y = y.reshape(b, s, -1).to(dtype)
-    y = rms_norm(y, m.norm, cfg.norm_eps) * F.silu(z)
-    return y @ m.wo, state, conv_tail(xp, cfg.ssm_conv - 1)
+    y = y.reshape(r, s + pad, h, p)[:, :s]
+    y = y + D_skip[:, None] * xh.float()
+    y = y.reshape(r, s, -1).to(dtype)
+    return rms_norm(y, norm, cfg.norm_eps), state
+
+
+def mamba2_forward(m: Mamba2, x: torch.Tensor, state: torch.Tensor | None = None):
+    """x (B, S, D) -> (y (B, S, D), final SSD state (B, H, P, N) f32, conv
+    tail (B, K - 1, d_inner)). ``state`` is the initial SSD state; the conv
+    tail is what the reference's prefill recomputes as the decode cache's
+    conv window (``conv_tail`` of ``x @ wx``). Bound to a shard context:
+    ``_mamba2_forward_sharded``."""
+    if m.shard is not None:
+        if state is not None:
+            raise ValueError("a sharded mamba2 prefill starts from the zero state")
+        return _mamba2_forward_sharded(m, x)
+    cfg = m.cfg
+    b, s, _ = x.shape
+    z = x @ m.wz
+    xp = x @ m.wx
+    xh = F.silu(_causal_conv(xp, m.conv_w)).reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    y, state = _ssd_region(cfg, x, xh, m.wB, m.wC, m.wdt, m.dt_bias, m.A_log, m.D_skip, m.norm,
+                           state)
+    return (y * F.silu(z)) @ m.wo, state, conv_tail(xp, cfg.ssm_conv - 1)
+
+
+def _mamba2_forward_sharded(m: Mamba2, x: torch.Tensor):
+    """The prefill and training forward on this rank's shards, the
+    reference's layout (``FULL_BATCH`` for ``s > 1``, ``ssm.py:104-110``).
+
+    ``wz``, ``wx`` and ``conv_w`` give this rank's channels, whole heads
+    (the channel order is head-major, (H, P)), for all its rows; the conv
+    output ``xh`` then passes an all-to-all over 'model' (``all_to_all:
+    ssd``), after which the rank holds rows / tp rows at every head. ``wB``,
+    ``wC`` and ``wdt`` (output whole) are applied to those rows alone, the
+    chunk scan and the norm over all of d_inner run on them as on a whole
+    model (``_ssd_region``), and the normed ``y`` goes back by the inverse
+    all-to-all; the gate ``silu(z)`` meets it there, after the exchange, on
+    this rank's channels, before the row-parallel ``wo``. The final state
+    passes the inverse all-to-all too (heads over 'model', as
+    ``cache_specs`` lays out the cache); the conv tail already has this
+    rank's channels. Where the rows do not divide over 'model' the scan is
+    replicated over it instead: ``xh`` is all-gathered over the heads, every
+    rank runs the whole scan on its rows and keeps its own channels and
+    heads.
+
+    Each rank computes only part of the gradient of the leaves read in that
+    region (``wB``, ``wC``, ``wdt``, ``dt_bias``, ``A_log``, ``D_skip``,
+    ``norm``): they enter through ``ShardContext.partial_leaves``, which
+    sums their gradients over 'model' once; the input enters through
+    ``to_model``, which sums its partial gradients over 'model'."""
+    cfg, sh = m.cfg, m.shard
+    b, s, _ = x.shape
+    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    w = lambda name: sh.fsdp(getattr(m, name), m.specs[name])
+    x = sh.to_model(x)
+    z = x @ w("wz")
+    xp = x @ w("wx")                                                # (B, S, d_inner / tp)
+    xh = F.silu(_causal_conv(xp, m.conv_w)).reshape(b, s, h // sh.tp, p)
+    leaves = sh.partial_leaves(w("wB"), w("wC"), w("wdt"), m.dt_bias, m.A_log, m.D_skip, m.norm,
+                               tag="ssd")
+    if sh.full_batch(b):
+        xh = sh.exchange(xh, 0, 2, "ssd")                           # (B / tp, S, H, P)
+        y, state = _ssd_region(cfg, sh.rows(x), xh, *leaves)
+        y = sh.exchange(y.reshape(b // sh.tp, s, h, p), 2, 0, "ssd").reshape(b, s, -1)
+        state = sh.exchange(state, 1, 0, "ssd")                     # (B, H / tp, P, N)
+    else:
+        y, state = _ssd_region(cfg, x, sh.gather_model(xh, 2), *leaves)
+        y, state = sh.channels(y), sh.channels(state, 1)
+    y = row_parallel(y * F.silu(z), w("wo"), sh)
+    return y, state, conv_tail(xp, cfg.ssm_conv - 1)
 
 
 def mamba2_init_cache(cfg, batch: int, dtype, device=None) -> dict:
@@ -200,28 +261,43 @@ def mamba2_init_cache(cfg, batch: int, dtype, device=None) -> dict:
 
 def mamba2_decode(m: Mamba2, x: torch.Tensor, cache: dict):
     """One-token step: x (B, 1, D), cache ``{"ssd", "conv"}`` -> (y (B, 1,
-    D), new cache)."""
-    cfg = m.cfg
+    D), new cache). Bound to a shard context, the cache holds this rank's
+    heads and conv channels (``cache_specs``) and the step runs on them: no
+    all-to-all; the gated norm's sum of squares is summed over 'model'."""
+    cfg, sh = m.cfg, m.shard
     b = x.shape[0]
-    h, p = cfg.ssm_heads, cfg.ssm_head_dim
+    p = cfg.ssm_head_dim
     dtype = x.dtype
-    z = x @ m.wz
-    xp = x @ m.wx                                                   # (B, 1, di)
+    if sh is None:
+        wz, wx, wB, wC, wdt, wo = m.wz, m.wx, m.wB, m.wC, m.wdt, m.wo
+        dt_bias, A_log, D_skip, norm = m.dt_bias, m.A_log, m.D_skip, m.norm
+    else:
+        w = lambda name: sh.fsdp(getattr(m, name), m.specs[name])
+        x = sh.to_model(x)
+        wz, wx, wo = w("wz"), w("wx"), w("wo")
+        wB, wC, wdt, dt_bias, A_log, D_skip, norm = sh.partial_leaves(
+            w("wB"), w("wC"), w("wdt"), m.dt_bias, m.A_log, m.D_skip, m.norm, tag="ssd")
+        wdt, dt_bias, A_log, D_skip, norm = (sh.channels(t) for t in
+                                             (wdt, dt_bias, A_log, D_skip, norm))
+    z = x @ wz
+    xp = x @ wx                                                     # (B, 1, di)
     window = torch.cat([cache["conv"], xp], dim=1)                  # (B, K, di)
     xr = F.silu(_causal_conv(window, m.conv_w)[:, -1:])
     new_conv = window[:, 1:]
 
-    bproj = x @ m.wB                                                # (B, 1, N)
-    cproj = x @ m.wC
-    dt = F.softplus((x @ m.wdt).float() + m.dt_bias)
-    a = torch.exp(-torch.exp(m.A_log) * dt)                         # (B, 1, H)
+    bproj = x @ wB                                                  # (B, 1, N)
+    cproj = x @ wC
+    dt = F.softplus((x @ wdt).float() + dt_bias)
+    a = torch.exp(-torch.exp(A_log) * dt)                           # (B, 1, H)
 
-    xh = xr.reshape(b, h, p)
+    xh = xr.reshape(b, -1, p)
     xbar = (xh * dt[:, 0, :, None].to(dtype)).float()
     ssd = cache["ssd"] * a[:, 0, :, None, None] + torch.einsum(
         "bhp,bn->bhpn", xbar, bproj[:, 0].float())
     y = torch.einsum("bn,bhpn->bhp", cproj[:, 0].float(), ssd)
-    y = y + m.D_skip[None, :, None] * xh.float()
+    y = y + D_skip[None, :, None] * xh.float()
     y = y.reshape(b, 1, -1).to(dtype)
-    y = rms_norm(y, m.norm, cfg.norm_eps) * F.silu(z)
-    return y @ m.wo, {"ssd": ssd, "conv": new_conv}
+    if sh is None:
+        return (rms_norm(y, norm, cfg.norm_eps) * F.silu(z)) @ wo, {"ssd": ssd, "conv": new_conv}
+    y = rms_norm_split(y, norm, cfg.norm_eps, sh, cfg.d_inner) * F.silu(z)
+    return row_parallel(y, wo, sh), {"ssd": ssd, "conv": new_conv}

@@ -26,9 +26,13 @@ is; a model bound to a shard context (``sharding.placement.shard_model``)
 runs its blocks on this rank's heads and hidden features, keeps the norms
 and the residual stream replicated over 'model' and its rows split over the
 data axes, and holds this rank's block of the decode cache (``cache_specs``:
-batch over the data axes, cache heads over 'model'). Attention blocks
-shard, dense or MoE (its experts over 'model', ``models/moe.py``); a
-recurrent stack does not (``placement.check_shardable``).
+batch over the data axes, cache heads over 'model'). Every block shards:
+attention, dense or MoE (its experts over 'model', ``models/moe.py``), and
+the recurrent blocks, whose scans run in the reference's ``FULL_BATCH``
+layout (``models/ssm.py``, ``models/rwkv6.py``: rows over every axis, every
+head; their decode caches hold this rank's heads, conv channels and block of
+the last tokens' D); zamba2's shared block shards as an attention block
+does, its KV cache per group.
 """
 from __future__ import annotations
 

@@ -13,7 +13,11 @@ group (``LMMesh.axis_groups``). On a tensor it provides
   rank order;
 * ``all_reduce(t, axis, op)``: ``"sum"`` is a reduce-scatter of the flat
   tensor followed by an all-gather of the summed pieces, ``"max"`` an
-  all-gather and a max.
+  all-gather and a max;
+* ``all_to_all(t, axis, split_dim, cat_dim)``: ``t`` cut into the group's
+  pieces along ``split_dim``, piece j sent to member j, and the pieces
+  received concatenated along ``cat_dim`` in coordinate order (the
+  recurrent layers' exchange between channels and rows over 'model').
 
 Rules:
 
@@ -31,17 +35,25 @@ Rules:
   received from its peers, and the seconds spent (staging included). An
   all-reduce given a ``tag`` counts under ``"all_reduce:<tag>"`` instead
   (the MoE's combine ``moe``, its gates' gradient ``moe_gate``, its
-  load-balancing sums ``moe_aux``), so a layer's collectives read apart.
+  load-balancing sums ``moe_aux``), and an all-to-all given one under
+  ``"all_to_all:<tag>"`` (mamba2's ``ssd``, rwkv6's ``wkv``), so a layer's
+  collectives read apart.
 
 The differentiable forms used by the sharded model are ``gather`` (an
 all-gather whose backward is the reduce-scatter: FSDP), ``sum_over`` (an
-all-reduce whose backward is the identity: Megatron's row-parallel output)
-and ``copy_to`` (the identity whose backward is an all-reduce: Megatron's
-column-parallel input). A one-rank mesh needs no process group: every
+all-reduce whose backward is the identity: Megatron's row-parallel output),
+``copy_to`` (the identity whose backward is an all-reduce: Megatron's
+column-parallel input), ``exchange`` (an all-to-all whose backward is the
+inverse all-to-all: it moves bytes and never sums, so a round trip is
+bitwise, forward and backward), ``scatter_sum`` (a reduce-scatter whose
+backward is the all-gather) and ``gather_replicated`` (an all-gather of a
+result every member then uses alike, whose backward keeps the member's own
+piece of the gradient). A one-rank mesh needs no process group: every
 collective is then the identity.
 """
 from __future__ import annotations
 
+import math
 import os
 import time
 
@@ -193,6 +205,34 @@ class MeshComm:
         self._count(axis, "reduce_scatter", (n - 1) * recv.shape[1], t0)
         return acc.to(out_dtype)
 
+    def all_to_all(self, t: torch.Tensor, axis: str, split_dim: int, cat_dim: int,
+                   tag: str | None = None) -> torch.Tensor:
+        """``t`` cut along ``split_dim`` into the ``axis`` group's pieces,
+        piece j sent to the member at coordinate j; the pieces this rank
+        receives concatenated along ``cat_dim`` in coordinate order. Counted
+        as ``all_to_all`` or ``all_to_all:<tag>``."""
+        import torch.distributed as dist
+
+        n = self.size(axis)
+        if n == 1:
+            return t
+        split_dim, cat_dim = split_dim % t.dim(), cat_dim % t.dim()
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(t.shape)} does not "
+                             f"divide into {n}")
+        t0 = time.perf_counter()
+        pieces = t.unflatten(split_dim, (n, t.shape[split_dim] // n)).movedim(split_dim, 0)
+        wire = self._wire(pieces, rows=n)
+        recv = torch.empty(wire.shape, dtype=torch.uint8, pin_memory=t.device.type != "cpu")
+        dist.all_to_all_single(recv, wire, group=self._groups[axis])
+        parts = self._unwire(recv, t.dtype, tuple(pieces.shape), t.device)
+        shape = parts.shape[1:]
+        out = parts.movedim(0, cat_dim).reshape(shape[:cat_dim] + (n * shape[cat_dim],)
+                                                + shape[cat_dim + 1:])
+        self._count(axis, "all_to_all" if tag is None else f"all_to_all:{tag}",
+                    (n - 1) * recv.shape[1], t0)
+        return out
+
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum",
                    out_dtype=None, tag: str | None = None) -> torch.Tensor:
         """The ``axis`` group's element-wise sum (f32, rank order, then
@@ -286,6 +326,88 @@ class _CopyTo(torch.autograd.Function):
         return comm.all_reduce(g, axis, "sum", tag=tag), None, None, None
 
 
+class _CopyToMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, axis, tag, *ts):
+        ctx.args = (comm, axis, tag, [(t.shape, t.dtype) for t in ts])
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        comm, axis, tag, meta = ctx.args
+        flat = comm.all_reduce(torch.cat([g.float().reshape(-1) for g in gs]), axis, "sum",
+                               tag=tag)
+        out, at = [], 0
+        for shape, dtype in meta:
+            n = math.prod(shape)
+            out.append(flat[at:at + n].reshape(shape).to(dtype))
+            at += n
+        return (None, None, None, *out)
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axis, split_dim, cat_dim, tag):
+        ctx.args = (comm, axis, split_dim, cat_dim, tag)
+        return comm.all_to_all(t, axis, split_dim, cat_dim, tag)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, split_dim, cat_dim, tag = ctx.args
+        return comm.all_to_all(g, axis, cat_dim, split_dim, tag), None, None, None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axis, dim, out_dtype):
+        ctx.args = (comm, axis, dim, t.dtype)
+        return comm.reduce_scatter(t, axis, dim, out_dtype=out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, dim, dtype = ctx.args
+        return comm.all_gather(g, axis, dim).to(dtype), None, None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, comm, axis, dim):
+        ctx.args = (comm, axis, dim % t.dim(), t.shape[dim])
+        return comm.all_gather(t, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm, axis, dim, n = ctx.args
+        return g.narrow(dim, comm.index(axis) * n, n), None, None, None
+
+
+def exchange(t: torch.Tensor, comm: MeshComm, axis: str, split_dim: int, cat_dim: int,
+             tag: str | None = None) -> torch.Tensor:
+    """All-to-all over ``axis`` (``MeshComm.all_to_all``); the backward is
+    the inverse all-to-all (``split_dim`` and ``cat_dim`` swapped)."""
+    if comm.size(axis) == 1:
+        return t
+    return _Exchange.apply(t, comm, axis, split_dim, cat_dim, tag)
+
+
+def scatter_sum(t: torch.Tensor, comm: MeshComm, axis: str, dim: int,
+                out_dtype=None) -> torch.Tensor:
+    """This rank's piece along ``dim`` of the sum over ``axis`` (f32, rank
+    order, then ``out_dtype``); the backward all-gathers the gradient."""
+    if comm.size(axis) == 1:
+        return t.to(out_dtype or t.dtype)
+    return _ScatterSum.apply(t, comm, axis, dim, out_dtype)
+
+
+def gather_replicated(t: torch.Tensor, comm: MeshComm, axis: str, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axis`` of a piece whose gathered
+    whole every member then uses alike (so its gradient is the same on
+    every member): the backward keeps this rank's piece of the gradient."""
+    if comm.size(axis) == 1:
+        return t
+    return _GatherReplicated.apply(t, comm, axis, dim)
+
+
 def gather(t: torch.Tensor, comm: MeshComm, entry, dim: int) -> torch.Tensor:
     """All-gather ``t`` along ``dim`` over the axes of a spec entry (the
     minor axis first, so that the pieces land in the spec's order); the
@@ -309,6 +431,15 @@ def copy_to(t: torch.Tensor, comm: MeshComm, axis: str, tag: str | None = None) 
     if comm.size(axis) == 1:
         return t
     return _CopyTo.apply(t, comm, axis, tag)
+
+
+def copy_to_many(ts, comm: MeshComm, axis: str, tag: str | None = None) -> tuple:
+    """``copy_to`` of several tensors at once: the identity on each; their
+    gradients are summed over ``axis`` in one all-reduce (in f32, each then
+    rounded once to its tensor's dtype)."""
+    if comm.size(axis) == 1:
+        return tuple(ts)
+    return _CopyToMany.apply(comm, axis, tag, *ts)
 
 
 def max_over(t: torch.Tensor, comm: MeshComm, axis: str) -> torch.Tensor:

@@ -14,20 +14,24 @@ bound to a ``ShardContext``; ``bind_shards`` binds shards that exist
 already (a train step's state), and ``init_shards`` draws a rank's shards
 of the seeded weights without the whole model. The Adam moments take their
 parameter's spec, the batch ``batch_spec`` (``shard_batch``) and the
-decode cache ``cache_specs`` (``shard_cache``). Attention stacks shard,
-dense or MoE (the experts over 'model', their D over the data axes; the
-router and the shared expert as the rules give); a recurrent stack raises
-``NotImplementedError``; a tensor-parallel dimension that the model axis
-does not divide raises ``ValueError``, as does a leaf whose spec leaves it
-whole where the sharded layers need it split. Nothing falls back to whole
-tensors.
+decode cache ``cache_specs`` (``shard_cache``). Every stack of the repo
+shards: attention stacks, dense or MoE (the experts over 'model', their D
+over the data axes; the router and the shared expert as the rules give),
+and the recurrent stacks, mamba2 (with zamba2's shared attention block) and
+rwkv6 (their in-projections column-parallel over 'model' in whole heads,
+the scans in the reference's ``FULL_BATCH`` layout: ``models/ssm.py``,
+``models/rwkv6.py``). A tensor-parallel dimension that the model axis does
+not divide raises ``ValueError`` (query heads, SSD heads, rwkv6's heads,
+d_model and d_ff), as does a leaf whose spec leaves it whole where the
+sharded layers need it split. Nothing falls back to whole tensors.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from repro_torch.sharding.collectives import copy_to, entry_axes, gather, max_over, sum_over
+from repro_torch.sharding.collectives import (copy_to, copy_to_many, entry_axes, exchange, gather,
+                                              gather_replicated, max_over, scatter_sum, sum_over)
 from repro_torch.sharding.rules import batch_spec, cache_specs, dp_axes, local_shape, param_specs
 
 # Where the sharded layers need the model axis (Megatron): the column-
@@ -37,6 +41,11 @@ from repro_torch.sharding.rules import batch_spec, cache_specs, dp_axes, local_s
 # (``models.attention`` gathers them then).
 _NEEDS_MODEL = {"wq": 1, "w_gate": 1, "w_up": 1, "lm_head": 1, "wo": 0, "w_down": 0, "embed": 0}
 _EXPERTS = ("w_gate", "w_up", "w_down")
+# The recurrent layers' (``.mamba.`` and ``.rwkv.`` parameters, per layer):
+# the column-parallel leaves' output dimension (whole heads), the conv taps'
+# and the decay LoRA's channels, the row-parallel leaves' input dimension.
+_NEEDS_MODEL_RECURRENT = {"wz": 1, "wx": 1, "conv_w": 1, "wr": 1, "wk": 1, "wv": 1, "wg": 1,
+                          "w_lora_b": 1, "w_cm_r": 1, "w_cm_1": 1, "wo": 0, "w_cm_2": 0}
 
 
 def _block(entry, mesh, coords) -> tuple[int, int]:
@@ -94,16 +103,21 @@ def gather_whole(shard: torch.Tensor, spec: tuple, comm) -> torch.Tensor:
 
 
 def check_shardable(cfg, mesh) -> None:
-    """Raise unless ``cfg`` is an attention stack (dense or MoE) whose heads
-    divide the model axis."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: a sharded {cfg.block_kind} stack is not written (ROADMAP 13.6, next: "
-            f"the recurrent stacks' FULL_BATCH layout, batch over every axis)")
+    """Raise unless the model axis divides every dimension that the sharded
+    layers of ``cfg`` split over it: the query heads of an attention stack
+    (and of zamba2's shared block), mamba2's SSD heads, rwkv6's heads,
+    d_model (its channel mix's ``w_cm_r`` columns and its decode cache's
+    last tokens) and d_ff."""
     tp = mesh.shape.get("model", 1)
-    if cfg.n_heads % tp:
-        raise ValueError(f"{cfg.name}: {cfg.n_heads} query heads do not divide the model axis "
-                         f"of {tp}")
+    split = {"attn": [("query heads", cfg.n_heads)],
+             "mamba2": [("SSD heads", cfg.ssm_heads)]
+             + ([("shared-block query heads", cfg.n_heads)] if cfg.attn_every else []),
+             "rwkv6": [("heads", cfg.n_heads), ("d_model", cfg.d_model), ("d_ff", cfg.d_ff)]}
+    if cfg.block_kind not in split:
+        raise NotImplementedError(f"{cfg.name}: a sharded {cfg.block_kind} stack is not written")
+    for what, n in split[cfg.block_kind]:
+        if n % tp:
+            raise ValueError(f"{cfg.name}: {n} {what} do not divide the model axis of {tp}")
 
 
 def parameter_specs(model, mesh) -> dict:
@@ -163,6 +177,50 @@ class ShardContext:
             x = sum_over(x, self.comm, axis, tag=tag)
         return x
 
+    # -- the recurrent layers' FULL_BATCH region --------------------------
+
+    def full_batch(self, rows: int) -> bool:
+        """Whether a scan over this rank's ``rows`` (its block over the data
+        axes) splits them over 'model' too: the reference's ``FULL_BATCH``
+        = ('pod', 'data', 'model') where the global batch divides over every
+        axis; where it does not, ``constraints._resolve`` keeps the longest
+        dividing prefix, which leaves 'model' out, and the scan is
+        replicated over 'model'."""
+        return self.tp > 1 and rows % self.tp == 0
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block over 'model' of the rows (dim 0) of ``x``."""
+        n = x.shape[0] // self.tp
+        return x.narrow(0, self.tp_index * n, n)
+
+    def channels(self, x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """This rank's block over 'model' of dimension ``dim`` of ``x``."""
+        n = x.shape[dim] // self.tp
+        return x.narrow(dim, self.tp_index * n, n)
+
+    def exchange(self, x: torch.Tensor, split_dim: int, cat_dim: int,
+                 tag: str | None = None) -> torch.Tensor:
+        """All-to-all over 'model' (``collectives.exchange``)."""
+        return exchange(x, self.comm, "model", split_dim, cat_dim, tag)
+
+    def partial_leaves(self, *leaves: torch.Tensor, tag: str | None = None) -> tuple:
+        """Leaves whole on every 'model' rank of which each rank computes
+        only part of the gradient (they enter the FULL_BATCH region, where a
+        rank holds its rows, or are read at this rank's channels): the
+        identity forward; backward, their gradients summed over 'model' in
+        one all-reduce, so that each is summed exactly once."""
+        return copy_to_many(leaves, self.comm, "model", tag)
+
+    def scatter_model(self, x: torch.Tensor, dim: int, out_dtype=None) -> torch.Tensor:
+        """This rank's block along ``dim`` of the sum over 'model' (f32,
+        rank order, then ``out_dtype``); the backward all-gathers."""
+        return scatter_sum(x, self.comm, "model", dim, out_dtype)
+
+    def gather_replicated(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """All-gather over 'model' of a piece whose whole every rank then
+        uses alike; the backward keeps this rank's piece."""
+        return gather_replicated(x, self.comm, "model", dim)
+
 
 def attach(model: nn.Module, shard: ShardContext, specs: dict) -> nn.Module:
     """Bind ``shard`` to every module of ``model`` and give each module the
@@ -181,7 +239,10 @@ def _check_specs(specs: dict, tp: int) -> None:
         return
     for name, spec in specs.items():
         leaf = name.rsplit(".", 1)[-1]
-        dim = 0 if leaf in _EXPERTS and len(spec) == 3 else _NEEDS_MODEL.get(leaf)
+        if ".mamba." in name or ".rwkv." in name:
+            dim = _NEEDS_MODEL_RECURRENT.get(leaf)
+        else:
+            dim = 0 if leaf in _EXPERTS and len(spec) == 3 else _NEEDS_MODEL.get(leaf)
         if dim is not None and "model" not in entry_axes(spec[dim]):
             raise ValueError(f"{name}: spec {spec} leaves dimension {dim} whole; the sharded "
                              f"layers need it split over 'model'")
@@ -228,8 +289,8 @@ def init_shards(cfg, generator: torch.Generator, mesh, rank: int, device=None) -
     embedding, a layer, the shared block, the final norm, the head) is made
     whole on ``device`` in ``init_params``' order of draws, cut to this
     rank's blocks (contiguous copies), and freed before the next. The
-    largest unit is one layer (qwen2-moe: 1.04 GB of bf16 experts). A stack
-    that does not shard raises as ``check_shardable``."""
+    largest unit is one layer (qwen2-moe: 1.04 GB of bf16 experts). A
+    configuration that does not shard raises as ``check_shardable``."""
     from repro_torch.models.model import TransformerLM
 
     check_shardable(cfg, mesh)

@@ -2061,3 +2061,52 @@ def test_sharded_moe_on_card_matches_the_whole_model(dev, mesh_spec, tmp_path):
     the loss with aux, every gathered gradient leaf and the prefill logits
     against the whole model on the same card."""
     _sharded_on_card(mesh_spec, "qwen2-moe-a2.7b", 512, tmp_path)
+
+
+_RECURRENT_RANK = """
+import sys, numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import init_params, prefill_step
+from repro_torch.sharding.collectives import MeshComm
+from repro_torch.sharding.placement import shard_batch, shard_model
+torch.backends.cuda.matmul.allow_tf32 = False
+mesh = make_mesh("1x4")
+comm = MeshComm.from_env(mesh)
+dev = torch.device("cuda")
+rng = np.random.default_rng(2)
+for arch in ("zamba2-2.7b", "rwkv6-3b"):
+    cfg = get_config(arch).reduced(dtype="float32")
+    whole = init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab, (4, 200)))
+    with torch.inference_mode():
+        want, cache_w = prefill_step(whole, tok, 204)
+        model = shard_model(whole.to(dev), mesh, comm.rank, comm)
+        got, cache = prefill_step(model, shard_batch(tok, mesh, comm.rank).to(dev), 204, tp=4)
+    calls = comm.summary()["model"]
+    tag = "all_to_all:ssd" if arch.startswith("zamba2") else "all_to_all:wkv"
+    assert got.is_cuda and calls[tag]["calls"] > 0
+    err = float((got.cpu() - want).abs().max() / want.abs().max())
+    print("RESULT", arch, err)
+    comm.reset_stats()
+comm.shutdown()
+"""
+
+
+def test_sharded_recurrent_prefill_on_card_matches_the_cpu(dev, tmp_path):
+    """Four rank processes on the card: the reduced zamba2 (two groups, the
+    shared block on the flash kernel) and rwkv6 in f32 split at 1 x 4, their
+    scans' rows over every axis (4 rows, one a rank, through the all-to-all
+    over 'model'): the prefill's last-token logits against the whole model
+    on the CPU within 1e-4 of the largest."""
+    from repro_torch.multihost import spawn_ranks
+
+    script = tmp_path / "rank.py"
+    script.write_text(_RECURRENT_RANK)
+    results = spawn_ranks([sys.executable, str(script)], 4, timeout_s=300)
+    for r, (code, text) in enumerate(results):
+        assert code == 0, f"rank {r} exited with {code}:\n{text}"
+        lines = [x.split() for x in text.splitlines() if x.startswith("RESULT ")]
+        assert [x[1] for x in lines] == ["zamba2-2.7b", "rwkv6-3b"]
+        for _, arch, err in lines:
+            assert float(err) <= 1e-4, (r, arch, err)

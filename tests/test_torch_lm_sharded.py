@@ -18,8 +18,9 @@ timeout) first serve at 1 x 4 and then train at 2 x 2, on the reference's
   r = 2, split one head a rank): prefill logits, cache blocks and decode
   logits (teacher-forced) against the reference's ``serve_step`` at tp = 4;
 * (e) a sharded checkpoint resumes bitwise and the reference reads it;
-* (f) recurrent and sequence-split sharded runs and a failed rendezvous
-  raise (the MoE's split: tests/test_torch_moe_sharded.py).
+* (f) a sequence-split sharded cache and a failed rendezvous raise (the
+  MoE's split: tests/test_torch_moe_sharded.py; the recurrent stacks':
+  tests/test_torch_recurrent_sharded.py).
 
 Tolerances are tests/test_torch_tensor_parallel.py's: losses and grad
 norms at rtol 1e-5, f32 tensors (logits, caches, gradients) at 1e-4. After
@@ -55,12 +56,11 @@ from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.attention import cache_heads_local  # noqa: E402
-from repro_torch.models.model import (TransformerLM, init_params, lm_loss,  # noqa: E402
-                                      prefill_step)
+from repro_torch.models.model import init_params, lm_loss, prefill_step  # noqa: E402
 from repro_torch.multihost import spawn_ranks  # noqa: E402
 from repro_torch.sharding.collectives import MeshComm  # noqa: E402
 from repro_torch.sharding.placement import (assemble, local_shard, parameter_specs,  # noqa: E402
-                                            shard_batch, shard_cache, shard_model)
+                                            shard_batch, shard_cache)
 from repro_torch.sharding.rules import cache_specs  # noqa: E402
 from repro_torch.training.train_step import make_train_step, train_state_init  # noqa: E402
 
@@ -446,17 +446,6 @@ def test_row_parallel_f32_product_backward_is_the_16_bit_products():
 
 
 # -- (f) refusals ------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch,what", [("zamba2-2.7b", "mamba2"), ("rwkv6-3b", "rwkv6")])
-def test_sharded_moe_and_recurrent_stacks_raise(arch, what):
-    """A recurrent stack raises, naming the next item of ROADMAP 13.6 (an
-    MoE shards since its experts split over 'model':
-    tests/test_torch_moe_sharded.py)."""
-    cfg = tconfigs.get_config(arch).reduced()
-    model = TransformerLM(cfg, device="meta", tp=2)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP 13.6.*FULL_BATCH"):
-        shard_model(model, make_mesh("2x2"), 0)
-
 
 def test_sequence_split_cache_and_failed_rendezvous_raise():
     cfg = tconfigs.get_config(R.ARCH).reduced(n_heads=6, n_kv_heads=3)
