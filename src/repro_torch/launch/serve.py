@@ -31,10 +31,14 @@ token comes from the logits gathered over 'model' and is the same on every
 rank. Each rank draws only its shards of the seed-0 weights
 (``sharding.placement.init_shards``). Each rank's ``[mesh]`` line prints
 its shards' bytes beside ``launch.dryrun``'s reckoning. Every stack
-shards: dense and MoE attention stacks (an MoE's experts over 'model') and
-the recurrent stacks, zamba2 and rwkv6 (the prefill's scans in the
-reference's ``FULL_BATCH`` layout; decode on the rank's heads of the
-recurrent states).
+shards: dense and MoE attention stacks (an MoE's experts over 'model'; a
+dispatch group larger than a rank's tokens, as at the default prompt at
+``--mesh 2x2``, straddles the data split) and the recurrent stacks, zamba2
+and rwkv6 (the prefill's scans in the reference's ``FULL_BATCH`` layout;
+decode on the rank's heads of the recurrent states), on whatever
+placement the sharding rules give, their fallbacks included.
+``--override field=value`` changes a configuration field (``--override
+dtype=float32``), as on ``launch.train``.
 
 GP mode: a ``GPServer`` builds the training index once and serves a
 stream of asynchronous requests; the micro-batcher (or, with
@@ -539,6 +543,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="internlm2-1.8b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--override", action="append", default=[],
+                    help="config field override, e.g. --override dtype=float32")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--max-new", type=int, default=32)
@@ -565,10 +571,10 @@ def main(argv=None):
             launch_ranks("repro_torch.launch.serve", argv, mesh, args.timeout)
             return None
 
+    from repro_torch.launch.train import configure
+
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
+    cfg = configure(get_config(args.arch), args.reduced, args.override)
     cache_len = args.prompt_len + args.max_new
 
     gen = torch.Generator(device=device).manual_seed(0)

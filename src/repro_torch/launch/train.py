@@ -138,6 +138,18 @@ def sharded_mesh_line(cfg, mesh, rank: int, measured: dict, shape) -> str:
     return f"[mesh] {mesh} rank {rank} ({coords}), sharded: " + "; ".join(parts)
 
 
+def configure(cfg, reduced: bool, overrides: list):
+    """``cfg`` (reduced with ``reduced``) with the ``--override field=value``
+    strings applied, each value of its field's type."""
+    over = {}
+    for kv in overrides:
+        k, v = kv.split("=", 1)
+        over[k] = type(getattr(cfg, k))(v) if not isinstance(getattr(cfg, k), bool) else v == "True"
+    if reduced:
+        return cfg.reduced(**over)
+    return dataclasses.replace(cfg, **over) if over else cfg
+
+
 def launch_ranks(module: str, argv: list, mesh, timeout_s: float) -> list:
     """Run ``python -m module argv`` as the mesh's rank processes, print
     each rank's output, and raise if one failed: ``[(rc, output), ...]``."""
@@ -196,15 +208,7 @@ def main(argv=None, log: list | None = None) -> TrainState | None:
     dev = torch.device(args.device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu to train on the CPU")
-    cfg = get_config(args.arch)
-    over = {}
-    for kv in args.override:
-        k, v = kv.split("=", 1)
-        over[k] = type(getattr(cfg, k))(v) if not isinstance(getattr(cfg, k), bool) else v == "True"
-    if args.reduced:
-        cfg = cfg.reduced(**over)
-    elif over:
-        cfg = dataclasses.replace(cfg, **over)
+    cfg = configure(get_config(args.arch), args.reduced, args.override)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     if comm is None:

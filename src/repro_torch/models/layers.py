@@ -19,7 +19,10 @@ that the reference's ``constrain`` calls ask XLA for:
   to the activation dtype, as one whole GEMM rounds its accumulator once;
   summing bf16 partials would add one more bf16 rounding per rank;
 * the weight gradients go back to the shards' layout by the gathers'
-  backward, a reduce-scatter over the data axes.
+  backward, a reduce-scatter over the data axes;
+* where the model axis does not divide d_ff, ``_fit`` replicates all three
+  MLP leaves over 'model' and the MLP runs whole on every model rank
+  (``MLP.split`` False): no ``copy_to``, no sum.
 """
 from __future__ import annotations
 
@@ -83,6 +86,13 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator, scale: float | None
         w.copy_(draw * scale)
 
 
+def leaf(m: nn.Module, name: str) -> torch.Tensor:
+    """``m``'s parameter ``name``, gathered over the data axes (FSDP) when
+    ``m`` is bound to a shard context."""
+    w = getattr(m, name)
+    return w if m.shard is None else m.shard.fsdp(w, m.specs[name])
+
+
 def linear_weight(d_in: int, d_out: int, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(d_in, d_out, dtype=dtype, device=device))
 
@@ -130,7 +140,8 @@ def row_parallel(x: torch.Tensor, w: torch.Tensor, shard) -> torch.Tensor:
 class MLP(nn.Module):
     """``swiglu``: ``down(silu(x @ gate) * (x @ up))``; ``relu2``
     (nemotron/minitron): ``down(relu(x @ up) ** 2)``. Bound to a shard
-    context, the hidden features are this rank's (``d_ff / tp``)."""
+    context, the hidden features are this rank's (``d_ff / tp``), or all of
+    them where the model axis does not divide d_ff (``split`` False)."""
 
     shard = None
 
@@ -151,20 +162,25 @@ class MLP(nn.Module):
         dense_init_(self.w_up, generator)
         dense_init_(self.w_down, generator, scale=self.w_down.shape[0] ** -0.5)
 
+    @property
+    def split(self) -> bool:
+        """Sharded, whether the hidden features are split over 'model'."""
+        return self.shard.split(self.specs["w_up"], 1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sh = self.shard
-        if sh is None:
+        if sh is None or not self.split:
+            w = lambda name: leaf(self, name)
             if self.kind == "swiglu":
-                return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
-            return torch.square(F.relu(x @ self.w_up)) @ self.w_down
+                return (F.silu(x @ w("w_gate")) * (x @ w("w_up"))) @ w("w_down")
+            return torch.square(F.relu(x @ w("w_up"))) @ w("w_down")
         return sh.sum_model(self.partial(sh.to_model(x)), out_dtype=x.dtype)
 
     def partial(self, x: torch.Tensor) -> torch.Tensor:
         """Sharded: this rank's f32 partial of the output (its hidden
         features through its ``w_down`` rows, ``matmul_f32``), before the
         sum over 'model'; ``x`` has passed ``to_model``."""
-        sh = self.shard
-        w = lambda name: sh.fsdp(getattr(self, name), self.specs[name])
+        w = lambda name: leaf(self, name)
         if self.kind == "swiglu":
             h = F.silu(x @ w("w_gate")) * (x @ w("w_up"))
         else:

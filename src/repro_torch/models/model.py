@@ -80,9 +80,14 @@ class TransformerLM(nn.Module):
             return sh.fsdp(self.embed, sh.specs["embed"]).T
         return sh.fsdp(self.lm_head, sh.specs["lm_head"])
 
+    @property
+    def vocab_split(self) -> bool:
+        """Sharded, whether the vocabulary is split over 'model'."""
+        return self.shard is not None and self.shard.split(self.shard.specs["embed"], 0)
+
     def vocab_block(self) -> tuple[int, int]:
         """(first token, count) of this rank's vocabulary block."""
-        if self.shard is None:
+        if not self.vocab_split:
             return 0, self.cfg.vocab
         n = self.cfg.vocab // self.shard.tp
         return self.shard.tp_index * n, n
@@ -143,6 +148,8 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
     sh = model.shard
     if sh is None:
         x = model.embed[tokens.long()]
+    elif not model.vocab_split:
+        x = sh.fsdp(model.embed, sh.specs["embed"])[tokens.long()]
     else:
         v0, n = model.vocab_block()
         local = tokens.long() - v0
@@ -159,7 +166,7 @@ def logits_fn(model: TransformerLM, hidden: torch.Tensor) -> torch.Tensor:
     """``hidden @ head`` in the model dtype, then f32 and the final softcap
     (sharded: each rank's vocabulary block, all-gathered over 'model')."""
     sh = model.shard
-    if sh is None:
+    if not model.vocab_split:
         return softcap((hidden @ model.head_matrix()).float(), model.cfg.logit_softcap)
     local = softcap((sh.to_model(hidden) @ model.head_matrix()).float(), model.cfg.logit_softcap)
     return sh.gather_model(local, -1)
@@ -208,7 +215,7 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor, labels: torch.Tensor, tp
     chunk = min(_LOSS_CHUNK, s)
     if s % chunk:
         raise ValueError(f"lm_loss: sequence length {s} is not a multiple of {chunk}")
-    fn, extra = ((_chunk_loss, ()) if sh is None
+    fn, extra = ((_chunk_loss, ()) if not model.vocab_split
                  else (_chunk_loss_sharded, (sh, model.vocab_block()[0])))
     total = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for c in range(0, s, chunk):

@@ -43,7 +43,19 @@ keep the gradient whole:
 
 The group size comes from the global token count (``group_size`` of the
 local count times the data axes' size), so capacity and drops are the
-whole run's; a dispatch group that would straddle the data split raises.
+whole run's. Groups follow the reference's (b, s) order over the global
+batch, in which a rank's tokens are one contiguous run. Where a group is
+larger than a rank's run (a short prompt, or a decode step: 2 tokens a rank
+against a group of 4 at 2 x 2), it straddles the data split: the rank
+gathers the f32 router logits over the data axes, routes every group its
+tokens fall in exactly as ``route`` does (capacity, slots and the cumsum
+over the group's tokens), and keeps its own tokens' dispatch and combine
+(``_straddling_routing``). The other ranks' logits enter as constants, so
+the gradient reaches this rank's own. The load-balancing loss reads only a
+token's own selection and probabilities, so it stays the sum over the data
+axes of each rank's tokens' terms: the reference's value. Where the model
+axis does not divide ``shared_d_ff`` the shared expert is replicated over
+'model' and runs whole on every rank, added after the sum.
 """
 from __future__ import annotations
 
@@ -163,6 +175,15 @@ class MoE(nn.Module):
         if self.cfg.shared_d_ff:
             self.shared.reset_parameters(generator)
 
+    def logits(self, x: torch.Tensor, router: torch.Tensor | None = None) -> torch.Tensor:
+        """x (..., D) -> the f32 router logits (..., E) (``routing``)."""
+        e_real = self.cfg.n_experts
+        router = self.router if router is None else router
+        logits = (x @ router[:, :e_real].to(x.dtype)).float()
+        if self.n_experts > e_real:
+            logits = F.pad(logits, (0, self.n_experts - e_real), value=-1e30)
+        return logits
+
     def routing(self, x: torch.Tensor, gs: int | None = None,
                 router: torch.Tensor | None = None) -> Routing:
         """x (B, S, D) -> the routing of its token groups of ``gs`` tokens
@@ -174,20 +195,35 @@ class MoE(nn.Module):
         is the whole (d, E) router where ``self.router`` is a shard."""
         b, s, d = x.shape
         gs = gs or group_size(b * s)
-        xt = x.reshape(-1, gs, d)
-        e_real = self.cfg.n_experts
-        router = self.router if router is None else router
-        logits = (xt @ router[:, :e_real].to(x.dtype)).float()
-        if self.n_experts > e_real:
-            logits = F.pad(logits, (0, self.n_experts - e_real), value=-1e30)
-        return route(logits, e_real, self.cfg.n_experts_active, self.cfg.capacity_factor)
+        return route(self.logits(x.reshape(-1, gs, d), router), self.cfg.n_experts,
+                     self.cfg.n_experts_active, self.cfg.capacity_factor)
+
+    def _straddling_routing(self, x: torch.Tensor, gs: int, router: torch.Tensor):
+        """This rank's tokens' routing where their groups of ``gs`` tokens
+        straddle the data split (the module docstring): a ``Routing`` of
+        shape (1, B S, ...) and, for ``_combine``, each token's group (B S,)
+        and the group count."""
+        sh = self.shard
+        t = x.shape[0] * x.shape[1]
+        logits = self.logits(x.reshape(t, -1), router)
+        whole = sh.gather_data(logits.detach())                         # (T, E), (b, s) order
+        o = sh.data_index * t
+        g0, g1 = o // gs, -(-(o + t) // gs)
+        span = torch.cat([whole[g0 * gs:o], logits, whole[o + t:g1 * gs]])
+        r = route(span.view(g1 - g0, gs, -1), self.cfg.n_experts, self.cfg.n_experts_active,
+                  self.cfg.capacity_factor)
+        mine = lambda f: f.reshape(-1, f.shape[-1])[o - g0 * gs:o - g0 * gs + t][None]
+        group = torch.arange(o, o + t, device=x.device) // gs - g0
+        return Routing(*map(mine, r[:6]), r.capacity), (group, g1 - g0)
 
     def _combine(self, x: torch.Tensor, r: Routing, e0: int, gate: torch.Tensor,
-                 weights) -> torch.Tensor:
+                 weights, groups=None) -> torch.Tensor:
         """Experts [e0, e0 + E_w) (``weights``: their w_gate, w_up, w_down)
         on x (B, S, D) under routing ``r``: each token's rows weighted by
         ``gate`` and summed over its k choices in f32, a choice of another
-        expert adding nothing. Returns (B S, D) f32."""
+        expert adding nothing. ``groups``: (each token's group, the group
+        count) where ``r`` is not laid out by group (a straddling group's).
+        Returns (B S, D) f32."""
         w_gate, w_up, w_down = weights
         b, s, d = x.shape
         n_groups, gs, k = r.expert.shape
@@ -195,7 +231,10 @@ class MoE(nn.Module):
         # Row of each (token, choice) in the (E_w * G * C) expert buffer; a
         # dropped choice, or one of another rank's expert, points at the
         # spare row E_w * G * C, cut off before the experts run.
-        group = torch.arange(n_groups, device=x.device)[:, None, None]
+        if groups is None:
+            group = torch.arange(n_groups, device=x.device)[:, None, None]
+        else:
+            group, n_groups = groups[0].view(1, -1, 1), groups[1]
         spare = e * n_groups * c
         local = r.expert - e0
         mine = r.keep & (local >= 0) & (local < e)
@@ -231,17 +270,19 @@ class MoE(nn.Module):
         sh = self.shard
         b, s, d = x.shape
         gs = group_size(b * s * sh.n_data)
+        router = sh.fsdp(self.router, self.specs["router"])
         if (b * s) % gs:
-            raise ValueError(
-                f"moe: a dispatch group of {gs} tokens would straddle the data split ({b * s} "
-                f"tokens a rank, {sh.n_data} data ranks); routing a group split over ranks "
-                f"(its tokens gathered over the data axes) is not written")
-        r = self.routing(x, gs, sh.fsdp(self.router, self.specs["router"]))
+            r, groups = self._straddling_routing(x, gs, router)
+        else:
+            r, groups = self.routing(x, gs, router), None
         xm = sh.to_model(x)
         weights = [sh.fsdp(getattr(self, n), self.specs[n]) for n in ("w_gate", "w_up", "w_down")]
         e0 = sh.tp_index * weights[0].shape[0]
-        part = self._combine(xm, r, e0, sh.to_model(r.gate, tag="moe_gate"), weights)
-        if self.cfg.shared_d_ff:
+        part = self._combine(xm, r, e0, sh.to_model(r.gate, tag="moe_gate"), weights, groups)
+        shared_split = self.cfg.shared_d_ff and self.shared.split
+        if shared_split:
             part = part + self.shared.partial(xm).reshape(b * s, d)
         out = sh.sum_model(part, out_dtype=x.dtype, tag="moe").reshape(b, s, d)
+        if self.cfg.shared_d_ff and not shared_split:
+            out = out + self.shared(x)
         return out, switch_aux(r, self.cfg.n_experts, r.expert.shape[-1], sh)

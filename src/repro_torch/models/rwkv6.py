@@ -20,17 +20,23 @@ Bound to a shard context (``sharding.placement``), a layer runs the
 reference's layout over a mesh's 'model' axis:
 
 * the time mix's ``wr``, ``wk``, ``wv``, ``wg`` and ``w_lora_b`` give this
-  rank's channels, whole heads (the channel order is head-major, (H, K));
+  rank's channels (the channel order is head-major, (H, K); where the model
+  axis does not divide the heads a rank's block holds part of a head);
   for ``s > 1`` r, k, v, the log-decay and g pass an all-to-all over
-  'model' (``all_to_all:wkv``), the reference's ``FULL_BATCH`` constraint
-  (``rwkv6.py:113-123``): the rank then holds rows / tp rows at every head,
-  runs the chunk scan, the norm over all of H K and the gate on them as on
-  a whole model, and the product returns by the inverse all-to-all to the
-  row-parallel ``wo``; the final state passes it too (heads over 'model',
-  the cache's layout). Where the rows do not divide over 'model' the scan
-  is replicated over it (r, k, v and the log-decay all-gathered over the
-  heads; the rank keeps its own channels and heads). Decode runs on the
-  rank's heads, the norm's sum of squares summed over 'model';
+  'model' from channels to rows (``all_to_all:wkv``), the reference's
+  ``FULL_BATCH`` constraint (``rwkv6.py:113-123``): the rank then holds
+  rows / tp rows at every channel, so every head whole, runs the chunk
+  scan, the norm over all of H K and the gate on them as on a whole model,
+  and the product returns by the inverse all-to-all to the row-parallel
+  ``wo``; the final state passes it too (heads over 'model', the cache's
+  layout) where the axis divides the heads, and is all-gathered over the
+  rows where it does not (``cache_specs`` keeps it whole). Where the rows
+  do not divide over 'model' the scan is replicated over it (r, k, v and
+  the log-decay all-gathered over the channels; the rank keeps its own
+  channels, and its heads of the state where they are whole). Decode runs
+  on the rank's heads, the norm's sum of squares summed over 'model'; where
+  its channels are not whole heads it all-gathers r, k, v and the decay
+  over the channels and steps every head (the state is whole there);
 * the channel mix's ``w_cm_r`` and ``w_cm_1`` are column-parallel and
   ``w_cm_2`` row-parallel: its f32 partial products are reduce-scattered
   over 'model' along D (summed in f32, rounded once, as
@@ -46,7 +52,13 @@ reference's layout over a mesh's 'model' axis:
 * the leaves a rank reads whole but computes only part of the gradient of
   (``w_base`` at this rank's channels, ``u_bonus`` and ``ln_out`` in the
   region) enter through ``ShardContext.partial_leaves``, whose backward
-  sums their gradients over 'model' once.
+  sums their gradients over 'model' once;
+* a leaf the rules replicate over 'model' (H K, D or d_ff that the axis
+  does not divide) is used whole: the time mix runs whole on every rank
+  where H K does not divide, the channel mix's hidden features where d_ff
+  does not (its product then not summed over 'model'), its receptance and
+  the last tokens where D does not; a whole leaf's input does not pass
+  ``to_model``.
 """
 from __future__ import annotations
 
@@ -54,7 +66,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import (dense_init_, linear_weight, matmul_f32, rms_norm, rms_norm_split,
+from .layers import (dense_init_, leaf, linear_weight, matmul_f32, rms_norm, rms_norm_split,
                      row_parallel)
 from .ssm import _carry, _pad_seq
 
@@ -150,19 +162,25 @@ def _heads(x: torch.Tensor, h: int, hk: int) -> torch.Tensor:
     return x.reshape(x.shape[0], x.shape[1], h, hk)
 
 
-def _decay_log(m: RWKV6, wx: torch.Tensor) -> torch.Tensor:
-    """wlog = w_base + tanh(wx @ A) @ B, in f32."""
-    return m.w_base + (torch.tanh(wx @ m.w_lora_a) @ m.w_lora_b).float()
-
-
 def _col(m: RWKV6):
     """``col(t, name)``: ``t @ w`` for the column-parallel leaf ``name`` of
-    ``m``, the module's own (whole) or this rank's columns, ``t`` read
-    through ``to_model`` (sharded: its gradient summed over 'model')."""
-    sh = m.shard
-    if sh is None:
-        return lambda t, name: t @ getattr(m, name)
-    return lambda t, name: sh.to_model(t) @ sh.fsdp(getattr(m, name), m.specs[name])
+    ``m``: the module's own (whole), this rank's columns with ``t`` read
+    through ``to_model`` (sharded: its gradient summed over 'model'), or,
+    where the rules replicate the leaf over 'model', the whole leaf on
+    ``t`` as it is."""
+    return lambda t, name: (m.shard.to_model(t) if _split(m, name) else t) @ leaf(m, name)
+
+
+def _split(m: RWKV6, name: str = "wr") -> bool:
+    """Whether the leaf ``name`` is split over 'model' (sharded): ``wr``
+    for the time mix's H K, ``w_cm_r`` for D, ``w_cm_1`` for d_ff."""
+    return m.shard is not None and m.shard.split(m.specs[name], 1)
+
+
+def _last(m: RWKV6, x: torch.Tensor) -> torch.Tensor:
+    """The last token of ``x`` as the decode cache holds it: this rank's
+    block of D where D is split over 'model'."""
+    return m.shard.channels(x[:, -1:]) if _split(m, "w_cm_r") else x[:, -1:]
 
 
 def _wkv_region(cfg, r, k, v, logw, u, ln_out, state=None):
@@ -189,92 +207,104 @@ def rwkv6_time_mix(m: RWKV6, x: torch.Tensor, state: torch.Tensor | None = None,
                    last_tok: torch.Tensor | None = None):
     """x (B, S, D) -> (y (B, S, D), final WKV state (B, H, K, K) f32, the
     last input token (B, 1, D)); sharded, the state's heads and the last
-    token's D are this rank's blocks."""
-    if m.shard is not None:
+    token's D are this rank's blocks where the model axis divides them."""
+    if _split(m):
         if state is not None or last_tok is not None:
             raise ValueError("a sharded rwkv6 prefill starts from the zero state")
         return _time_mix_sharded(m, x)
-    cfg = m.cfg
+    cfg, col = m.cfg, _col(m)
     h, hk = cfg.n_heads, cfg.head_dim
     xs = _token_shift(x, last_tok)
     mix = lambda i: x + m.mu[i] * (xs - x)
-    r = _heads(mix(0) @ m.wr, h, hk)
-    k = _heads(mix(1) @ m.wk, h, hk)
-    v = _heads(mix(2) @ m.wv, h, hk)
-    g = F.silu(mix(3) @ m.wg)
-    logw = _heads(-torch.exp(_decay_log(m, mix(4))), h, hk)         # (B, S, H, K) < 0
+    r = _heads(col(mix(0), "wr"), h, hk)
+    k = _heads(col(mix(1), "wk"), h, hk)
+    v = _heads(col(mix(2), "wv"), h, hk)
+    g = F.silu(col(mix(3), "wg"))
+    wlog = m.w_base + col(torch.tanh(mix(4) @ leaf(m, "w_lora_a")), "w_lora_b").float()
+    logw = _heads(-torch.exp(wlog), h, hk)                          # (B, S, H, K) < 0
     y, state = _wkv_region(cfg, r, k, v, logw, m.u_bonus, m.ln_out, state)
-    return (y * g) @ m.wo, state, x[:, -1:]
+    out = (y * g) @ leaf(m, "wo")
+    return out, state, (x[:, -1:] if m.shard is None else _last(m, x))
 
 
 def _time_mix_sharded(m: RWKV6, x: torch.Tensor):
     """The time mix on this rank's shards (the module docstring)."""
     cfg, sh = m.cfg, m.shard
     b, s, _ = x.shape
-    hl, hk = cfg.n_heads // sh.tp, cfg.head_dim
+    h, hk = cfg.n_heads, cfg.head_dim
+    heads = h % sh.tp == 0
     col = _col(m)
     w_base, u, ln_out = sh.partial_leaves(m.w_base, m.u_bonus, m.ln_out, tag="wkv")
     xs = _token_shift(x)
     mix = lambda i: x + m.mu[i] * (xs - x)
-    r = _heads(col(mix(0), "wr"), hl, hk)                           # (B, S, H / tp, K)
-    k = _heads(col(mix(1), "wk"), hl, hk)
-    v = _heads(col(mix(2), "wv"), hl, hk)
-    g = F.silu(col(mix(3), "wg"))                                   # (B, S, H K / tp)
+    r = col(mix(0), "wr")                                           # (B, S, H K / tp)
+    k = col(mix(1), "wk")
+    v = col(mix(2), "wv")
+    g = F.silu(col(mix(3), "wg"))
     lora = torch.tanh(mix(4) @ sh.fsdp(m.w_lora_a, m.specs["w_lora_a"]))
-    logw = _heads(-torch.exp(sh.channels(w_base) + col(lora, "w_lora_b").float()), hl, hk)
+    logw = -torch.exp(sh.channels(w_base) + col(lora, "w_lora_b").float())
     if sh.full_batch(b):
-        r, k, v, logw, g = (sh.exchange(t, 0, 2, "wkv") for t in (r, k, v, logw, _heads(g, hl, hk)))
-        y, state = _wkv_region(cfg, r, k, v, logw, u, ln_out)
-        y = sh.exchange(_heads(y * g.flatten(2), cfg.n_heads, hk), 2, 0, "wkv").flatten(2)
-        state = sh.exchange(state, 1, 0, "wkv")                     # (B, H / tp, K, K)
+        r, k, v, logw, g = (sh.exchange(t, 0, 2, "wkv") for t in (r, k, v, logw, g))
+        y, state = _wkv_region(cfg, *(_heads(t, h, hk) for t in (r, k, v, logw)), u, ln_out)
+        y = sh.exchange(y * g, 2, 0, "wkv")                         # (B, S, H K / tp)
+        state = sh.exchange(state, 1, 0, "wkv") if heads else sh.gather_model(state, 0)
     else:
-        r, k, v, logw = (sh.gather_model(t, 2) for t in (r, k, v, logw))
+        r, k, v, logw = (_heads(sh.gather_model(t, 2), h, hk) for t in (r, k, v, logw))
         y, state = _wkv_region(cfg, r, k, v, logw, u, ln_out)
-        y, state = sh.channels(y) * g, sh.channels(state, 1)
-    return row_parallel(y, sh.fsdp(m.wo, m.specs["wo"]), sh), state, sh.channels(x[:, -1:])
+        y, state = sh.channels(y) * g, (sh.channels(state, 1) if heads else state)
+    return row_parallel(y, sh.fsdp(m.wo, m.specs["wo"]), sh), state, _last(m, x)
 
 
 def rwkv6_time_mix_decode(m: RWKV6, x: torch.Tensor, state: torch.Tensor,
                           last_tok: torch.Tensor):
     """One-token step: x (B, 1, D). Returns (y, new state, new last token);
-    sharded, the state's heads and the last token's D are this rank's."""
+    sharded, the state's heads and the last token's D are this rank's
+    where the model axis divides them."""
     cfg, sh = m.cfg, m.shard
     b = x.shape[0]
     hk = cfg.head_dim
     col = _col(m)
-    if sh is None:
-        w_base, u, ln_out, lora_a, new_last = m.w_base, m.u_bonus, m.ln_out, m.w_lora_a, x
-    else:
+    split = _split(m)
+    heads = split and cfg.n_heads % sh.tp == 0
+    w_base, u, ln_out, new_last = m.w_base, m.u_bonus, m.ln_out, x
+    if sh is not None and _split(m, "w_cm_r"):
         last_tok = sh.gather_replicated(last_tok, -1)
         new_last = sh.channels(x)
-        w_base, u, ln_out = sh.partial_leaves(m.w_base, m.u_bonus, m.ln_out, tag="wkv")
-        w_base, u, ln_out = sh.channels(w_base), sh.channels(u, 0), sh.channels(ln_out)
-        lora_a = sh.fsdp(m.w_lora_a, m.specs["w_lora_a"])
+    if split:
+        w_base, u, ln_out = sh.partial_leaves(w_base, u, ln_out, tag="wkv")
+        w_base = sh.channels(w_base)
+    if heads:
+        u, ln_out = sh.channels(u, 0), sh.channels(ln_out)
     mix = lambda i: x + m.mu[i] * (last_tok - x)
-    r = col(mix(0), "wr").reshape(b, -1, hk)                        # (B, H, K)
-    k = col(mix(1), "wk").reshape(b, -1, hk)
-    v = col(mix(2), "wv").reshape(b, -1, hk)
+    r, k, v = (col(mix(i), name) for i, name in enumerate(("wr", "wk", "wv")))
     g = F.silu(col(mix(3), "wg"))
-    wlog = w_base + col(torch.tanh(mix(4) @ lora_a), "w_lora_b").float()
+    wlog = w_base + col(torch.tanh(mix(4) @ leaf(m, "w_lora_a")), "w_lora_b").float()
+    if split and not heads:
+        r, k, v, wlog = (sh.gather_model(t, -1) for t in (r, k, v, wlog))
+    r, k, v = (t.reshape(b, -1, hk) for t in (r, k, v))            # (B, H, K)
     w_ = torch.exp(-torch.exp(wlog)).reshape(b, -1, hk)
 
     kv = torch.einsum("bhk,bhv->bhkv", k.float(), v.float())
     y = torch.einsum("bhk,bhkv->bhv", r.float(), state + u[None, :, :, None] * kv)
     state = w_[..., None] * state + kv
     y = y.reshape(b, 1, -1).to(x.dtype)
-    if sh is None:
-        return (rms_norm(y, ln_out, cfg.norm_eps) * g) @ m.wo, state, new_last
-    y = rms_norm_split(y, ln_out, cfg.norm_eps, sh, cfg.n_heads * hk) * g
-    return row_parallel(y, sh.fsdp(m.wo, m.specs["wo"]), sh), state, new_last
+    if not split:
+        return (rms_norm(y, ln_out, cfg.norm_eps) * g) @ leaf(m, "wo"), state, new_last
+    if heads:
+        y = rms_norm_split(y, ln_out, cfg.norm_eps, sh, cfg.n_heads * hk)
+    else:
+        y = sh.channels(rms_norm(y, ln_out, cfg.norm_eps))
+    return row_parallel(y * g, leaf(m, "wo"), sh), state, new_last
 
 
 def rwkv6_channel_mix(m: RWKV6, x: torch.Tensor, last_tok: torch.Tensor | None = None):
     """x (B, S, D) -> (y (B, S, D), the last input token (B, 1, D));
     sharded, ``last_tok`` and the returned token are this rank's block of
-    D."""
+    D where the model axis divides D."""
     sh = m.shard
     col = _col(m)
-    if sh is not None and last_tok is not None:
+    dsplit = _split(m, "w_cm_r")
+    if dsplit and last_tok is not None:
         last_tok = sh.gather_replicated(last_tok, -1)
     xs = _token_shift(x, last_tok)
     xk = x + m.mu_cm[0] * (xs - x)
@@ -283,6 +313,12 @@ def rwkv6_channel_mix(m: RWKV6, x: torch.Tensor, last_tok: torch.Tensor | None =
     kk = torch.square(F.relu(col(xk, "w_cm_1")))
     if sh is None:
         return r * (kk @ m.w_cm_2), x[:, -1:]
-    out = sh.scatter_model(matmul_f32(kk, sh.fsdp(m.w_cm_2, m.specs["w_cm_2"])), -1,
-                           out_dtype=x.dtype)
-    return sh.gather_replicated(r * out, -1), sh.channels(x[:, -1:])
+    w2 = sh.fsdp(m.w_cm_2, m.specs["w_cm_2"])
+    if not _split(m, "w_cm_1"):             # d_ff whole on every rank: no sum
+        out = (sh.gather_replicated(r, -1) if dsplit else r) * (kk @ w2)
+    elif dsplit:
+        out = sh.gather_replicated(
+            r * sh.scatter_model(matmul_f32(kk, w2), -1, out_dtype=x.dtype), -1)
+    else:
+        out = r * sh.sum_model(matmul_f32(kk, w2), out_dtype=x.dtype)
+    return out, _last(m, x)

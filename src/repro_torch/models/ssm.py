@@ -40,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import dense_init_, linear_weight, rms_norm, rms_norm_split, row_parallel
+from .layers import dense_init_, leaf, linear_weight, rms_norm, rms_norm_split, row_parallel
 
 _CHUNK = 128
 
@@ -185,45 +185,54 @@ def _ssd_region(cfg, x, xh, wB, wC, wdt, dt_bias, A_log, D_skip, norm, state=Non
     return rms_norm(y, norm, cfg.norm_eps), state
 
 
+def _split(m: Mamba2) -> bool:
+    """Whether the layer is split over 'model': sharded, with the model axis
+    dividing d_inner (else ``_fit`` replicates ``wz``, ``wx``, ``conv_w``
+    and ``wo`` and the layer runs whole on every model rank)."""
+    return m.shard is not None and m.shard.split(m.specs["wx"], 1)
+
+
 def mamba2_forward(m: Mamba2, x: torch.Tensor, state: torch.Tensor | None = None):
     """x (B, S, D) -> (y (B, S, D), final SSD state (B, H, P, N) f32, conv
     tail (B, K - 1, d_inner)). ``state`` is the initial SSD state; the conv
     tail is what the reference's prefill recomputes as the decode cache's
-    conv window (``conv_tail`` of ``x @ wx``). Bound to a shard context:
+    conv window (``conv_tail`` of ``x @ wx``). Split over 'model':
     ``_mamba2_forward_sharded``."""
-    if m.shard is not None:
+    if _split(m):
         if state is not None:
             raise ValueError("a sharded mamba2 prefill starts from the zero state")
         return _mamba2_forward_sharded(m, x)
     cfg = m.cfg
     b, s, _ = x.shape
-    z = x @ m.wz
-    xp = x @ m.wx
+    z = x @ leaf(m, "wz")
+    xp = x @ leaf(m, "wx")
     xh = F.silu(_causal_conv(xp, m.conv_w)).reshape(b, s, cfg.ssm_heads, cfg.ssm_head_dim)
-    y, state = _ssd_region(cfg, x, xh, m.wB, m.wC, m.wdt, m.dt_bias, m.A_log, m.D_skip, m.norm,
-                           state)
-    return (y * F.silu(z)) @ m.wo, state, conv_tail(xp, cfg.ssm_conv - 1)
+    y, state = _ssd_region(cfg, x, xh, leaf(m, "wB"), leaf(m, "wC"), leaf(m, "wdt"), m.dt_bias,
+                           m.A_log, m.D_skip, m.norm, state)
+    return (y * F.silu(z)) @ leaf(m, "wo"), state, conv_tail(xp, cfg.ssm_conv - 1)
 
 
 def _mamba2_forward_sharded(m: Mamba2, x: torch.Tensor):
     """The prefill and training forward on this rank's shards, the
     reference's layout (``FULL_BATCH`` for ``s > 1``, ``ssm.py:104-110``).
 
-    ``wz``, ``wx`` and ``conv_w`` give this rank's channels, whole heads
-    (the channel order is head-major, (H, P)), for all its rows; the conv
-    output ``xh`` then passes an all-to-all over 'model' (``all_to_all:
-    ssd``), after which the rank holds rows / tp rows at every head. ``wB``,
+    ``wz``, ``wx`` and ``conv_w`` give this rank's channels for all its
+    rows (the channel order is head-major, (H, P); a rank's block need not
+    be whole heads); the conv output ``xh`` then passes an all-to-all over
+    'model' (``all_to_all:ssd``) from channels to rows, after which the
+    rank holds rows / tp rows at every channel, so every head whole. ``wB``,
     ``wC`` and ``wdt`` (output whole) are applied to those rows alone, the
     chunk scan and the norm over all of d_inner run on them as on a whole
     model (``_ssd_region``), and the normed ``y`` goes back by the inverse
     all-to-all; the gate ``silu(z)`` meets it there, after the exchange, on
     this rank's channels, before the row-parallel ``wo``. The final state
-    passes the inverse all-to-all too (heads over 'model', as
-    ``cache_specs`` lays out the cache); the conv tail already has this
-    rank's channels. Where the rows do not divide over 'model' the scan is
-    replicated over it instead: ``xh`` is all-gathered over the heads, every
-    rank runs the whole scan on its rows and keeps its own channels and
-    heads.
+    passes the inverse all-to-all too where the model axis divides the
+    heads (heads over 'model', as ``cache_specs`` lays out the cache), and
+    is all-gathered over the rows where it does not (``cache_specs`` then
+    keeps it whole); the conv tail already has this rank's channels. Where
+    the rows do not divide over 'model' the scan is replicated over it
+    instead: ``xh`` is all-gathered over the channels, every rank runs the
+    whole scan on its rows and keeps its own channels (and heads).
 
     Each rank computes only part of the gradient of the leaves read in that
     region (``wB``, ``wC``, ``wdt``, ``dt_bias``, ``A_log``, ``D_skip``,
@@ -233,22 +242,22 @@ def _mamba2_forward_sharded(m: Mamba2, x: torch.Tensor):
     cfg, sh = m.cfg, m.shard
     b, s, _ = x.shape
     h, p = cfg.ssm_heads, cfg.ssm_head_dim
-    w = lambda name: sh.fsdp(getattr(m, name), m.specs[name])
+    heads = h % sh.tp == 0
     x = sh.to_model(x)
-    z = x @ w("wz")
-    xp = x @ w("wx")                                                # (B, S, d_inner / tp)
-    xh = F.silu(_causal_conv(xp, m.conv_w)).reshape(b, s, h // sh.tp, p)
-    leaves = sh.partial_leaves(w("wB"), w("wC"), w("wdt"), m.dt_bias, m.A_log, m.D_skip, m.norm,
-                               tag="ssd")
+    z = x @ leaf(m, "wz")
+    xp = x @ leaf(m, "wx")                                          # (B, S, d_inner / tp)
+    xh = F.silu(_causal_conv(xp, m.conv_w))
+    leaves = sh.partial_leaves(leaf(m, "wB"), leaf(m, "wC"), leaf(m, "wdt"), m.dt_bias, m.A_log,
+                               m.D_skip, m.norm, tag="ssd")
     if sh.full_batch(b):
-        xh = sh.exchange(xh, 0, 2, "ssd")                           # (B / tp, S, H, P)
+        xh = sh.exchange(xh, 0, 2, "ssd").reshape(b // sh.tp, s, h, p)
         y, state = _ssd_region(cfg, sh.rows(x), xh, *leaves)
-        y = sh.exchange(y.reshape(b // sh.tp, s, h, p), 2, 0, "ssd").reshape(b, s, -1)
-        state = sh.exchange(state, 1, 0, "ssd")                     # (B, H / tp, P, N)
+        y = sh.exchange(y, 2, 0, "ssd")                             # (B, S, d_inner / tp)
+        state = sh.exchange(state, 1, 0, "ssd") if heads else sh.gather_model(state, 0)
     else:
-        y, state = _ssd_region(cfg, x, sh.gather_model(xh, 2), *leaves)
-        y, state = sh.channels(y), sh.channels(state, 1)
-    y = row_parallel(y * F.silu(z), w("wo"), sh)
+        y, state = _ssd_region(cfg, x, sh.gather_model(xh, 2).reshape(b, s, h, p), *leaves)
+        y, state = sh.channels(y), (sh.channels(state, 1) if heads else state)
+    y = row_parallel(y * F.silu(z), leaf(m, "wo"), sh)
     return y, state, conv_tail(xp, cfg.ssm_conv - 1)
 
 
@@ -261,22 +270,24 @@ def mamba2_init_cache(cfg, batch: int, dtype, device=None) -> dict:
 
 def mamba2_decode(m: Mamba2, x: torch.Tensor, cache: dict):
     """One-token step: x (B, 1, D), cache ``{"ssd", "conv"}`` -> (y (B, 1,
-    D), new cache). Bound to a shard context, the cache holds this rank's
-    heads and conv channels (``cache_specs``) and the step runs on them: no
-    all-to-all; the gated norm's sum of squares is summed over 'model'."""
+    D), new cache). Split over 'model', the cache holds this rank's heads
+    (or, where they do not divide the axis, all of them) and conv channels
+    (``cache_specs``): the conv runs on the rank's channels, which are
+    all-gathered where its heads are not whole, and the gated norm's sum of
+    squares is summed over 'model' where they are."""
     cfg, sh = m.cfg, m.shard
     b = x.shape[0]
     p = cfg.ssm_head_dim
     dtype = x.dtype
-    if sh is None:
-        wz, wx, wB, wC, wdt, wo = m.wz, m.wx, m.wB, m.wC, m.wdt, m.wo
-        dt_bias, A_log, D_skip, norm = m.dt_bias, m.A_log, m.D_skip, m.norm
-    else:
-        w = lambda name: sh.fsdp(getattr(m, name), m.specs[name])
+    split = _split(m)
+    heads = split and cfg.ssm_heads % sh.tp == 0
+    wz, wx, wo, wB, wC, wdt = (leaf(m, n) for n in ("wz", "wx", "wo", "wB", "wC", "wdt"))
+    dt_bias, A_log, D_skip, norm = m.dt_bias, m.A_log, m.D_skip, m.norm
+    if split:
         x = sh.to_model(x)
-        wz, wx, wo = w("wz"), w("wx"), w("wo")
         wB, wC, wdt, dt_bias, A_log, D_skip, norm = sh.partial_leaves(
-            w("wB"), w("wC"), w("wdt"), m.dt_bias, m.A_log, m.D_skip, m.norm, tag="ssd")
+            wB, wC, wdt, dt_bias, A_log, D_skip, norm, tag="ssd")
+    if heads:
         wdt, dt_bias, A_log, D_skip, norm = (sh.channels(t) for t in
                                              (wdt, dt_bias, A_log, D_skip, norm))
     z = x @ wz
@@ -290,14 +301,17 @@ def mamba2_decode(m: Mamba2, x: torch.Tensor, cache: dict):
     dt = F.softplus((x @ wdt).float() + dt_bias)
     a = torch.exp(-torch.exp(A_log) * dt)                           # (B, 1, H)
 
-    xh = xr.reshape(b, -1, p)
+    xh = (sh.gather_model(xr, -1) if split and not heads else xr).reshape(b, -1, p)
     xbar = (xh * dt[:, 0, :, None].to(dtype)).float()
     ssd = cache["ssd"] * a[:, 0, :, None, None] + torch.einsum(
         "bhp,bn->bhpn", xbar, bproj[:, 0].float())
     y = torch.einsum("bn,bhpn->bhp", cproj[:, 0].float(), ssd)
     y = y + D_skip[None, :, None] * xh.float()
     y = y.reshape(b, 1, -1).to(dtype)
-    if sh is None:
+    if not split:
         return (rms_norm(y, norm, cfg.norm_eps) * F.silu(z)) @ wo, {"ssd": ssd, "conv": new_conv}
-    y = rms_norm_split(y, norm, cfg.norm_eps, sh, cfg.d_inner) * F.silu(z)
-    return row_parallel(y, wo, sh), {"ssd": ssd, "conv": new_conv}
+    if heads:
+        y = rms_norm_split(y, norm, cfg.norm_eps, sh, cfg.d_inner)
+    else:
+        y = sh.channels(rms_norm(y, norm, cfg.norm_eps))
+    return row_parallel(y * F.silu(z), wo, sh), {"ssd": ssd, "conv": new_conv}

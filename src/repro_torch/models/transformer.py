@@ -26,7 +26,10 @@ is; a model bound to a shard context (``sharding.placement.shard_model``)
 runs its blocks on this rank's heads and hidden features, keeps the norms
 and the residual stream replicated over 'model' and its rows split over the
 data axes, and holds this rank's block of the decode cache (``cache_specs``:
-batch over the data axes, cache heads over 'model'). Every block shards:
+batch over the data axes, cache heads over 'model', or where they do not
+divide it the cache's sequence, or neither). A sharded cache with K/V
+carries ``len``, its whole length, beside ``pos``: a rank's block of a
+sequence split does not show it. Every block shards:
 attention, dense or MoE (its experts over 'model', ``models/moe.py``), and
 the recurrent blocks, whose scans run in the reference's ``FULL_BATCH``
 layout (``models/ssm.py``, ``models/rwkv6.py``: rows over every axis, every
@@ -42,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.sharding.rules import cache_specs, local_shape
 
-from .attention import Attention, cache_expand_factor, cache_heads_local
+from .attention import Attention, cache_expand_factor
 from .layers import MLP, rms_norm
 from .moe import MoE
 from .rwkv6 import RWKV6, rwkv6_channel_mix, rwkv6_time_mix, rwkv6_time_mix_decode
@@ -100,9 +103,9 @@ class AttnBlock(nn.Module):
         return x, k, v, aux
 
     def decode(self, x: torch.Tensor, cache_k: torch.Tensor, cache_v: torch.Tensor, pos: int,
-               window: int = 0) -> torch.Tensor:
+               window: int = 0, cache_len: int | None = None) -> torch.Tensor:
         h = self.attn.decode(rms_norm(x, self.ln1, self.cfg.norm_eps), cache_k, cache_v, pos,
-                             window)
+                             window, cache_len)
         return self._ffn_residual(x, h)[0]
 
 
@@ -277,31 +280,37 @@ def prefill(layers: nn.ModuleList, x: torch.Tensor, cfg, positions: torch.Tensor
         return x, {"wkv": wkv, "last1": last1, "last2": last2, "pos": s}
     if kv_layers:
         attn = (layers[0] if cfg.block_kind == "attn" else shared_attn).attn
-        hc = (cfg.n_kv_heads * r if attn.shard is None
-              else cache_heads_local(cfg, r, attn.shard.tp))
-        shape = (kv_layers, b, cache_len, hc, cfg.head_dim)
+        p0, n_pos, _, hc = attn.cache_block(r, cache_len)
+        shape = (kv_layers, b, n_pos, hc, cfg.head_dim)
         ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
         cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+        lo, hi = p0, min(s, p0 + n_pos)     # the prompt's positions this rank holds
+
+        def write(i, k, v):
+            if lo < hi:
+                ck[i, :, :hi - lo] = attn.cache_heads(k[:, lo:hi], r)
+                cv[i, :, :hi - lo] = attn.cache_heads(v[:, lo:hi], r)
+
+        kv = {"k": ck, "v": cv, "pos": s}
+        if attn.shard is not None:
+            kv["len"] = cache_len
     if cfg.block_kind == "attn":
         for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
             x, k, v, _ = layer(x, positions, w)
-            ck[i, :, :s] = layer.attn.cache_heads(k, r)
-            cv[i, :, :s] = layer.attn.cache_heads(v, r)
-        return x, {"k": ck, "v": cv, "pos": s}
+            write(i, k, v)
+        return x, kv
     states = []
     for i, layer in enumerate(layers):
         x, ssd, conv = layer(x)
         states.append((ssd, conv))
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
-            g = i // cfg.attn_every
             x, k, v, _ = shared_attn(x, positions, 0)
-            ck[g, :, :s] = shared_attn.attn.cache_heads(k, r)
-            cv[g, :, :s] = shared_attn.attn.cache_heads(v, r)
+            write(i // cfg.attn_every, k, v)
     ssd, conv = (torch.stack(t) for t in zip(*states))
     if not cfg.attn_every:
         return x, {"ssd": ssd, "conv": conv, "pos": s}
     grouped = lambda t: t.reshape((kv_layers, cfg.attn_every) + t.shape[1:])
-    return x, {"ssd": grouped(ssd), "conv": grouped(conv), "k": ck, "v": cv, "pos": s}
+    return x, {"ssd": grouped(ssd), "conv": grouped(conv), **kv}
 
 
 def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
@@ -312,13 +321,14 @@ def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
     KV repetition from the cache's head count (``Attention.decode``)."""
     _check_tp(layers, cfg, tp)
     pos = int(cache["pos"])
-    if "k" in cache and not 0 <= pos < cache["k"].shape[2]:
-        raise ValueError(f"decode: position {pos} outside the cache of length "
-                         f"{cache['k'].shape[2]}")
+    kv = {k: cache[k] for k in ("k", "v", "len") if k in cache}
+    cache_len = cache.get("len", cache["k"].shape[2]) if "k" in cache else None
+    if "k" in cache and not 0 <= pos < cache_len:
+        raise ValueError(f"decode: position {pos} outside the cache of length {cache_len}")
     if cfg.block_kind == "attn":
         for i, (layer, w) in enumerate(zip(layers, layer_windows(cfg))):
-            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, w)
-        return x, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+            x = layer.decode(x, cache["k"][i], cache["v"][i], pos, w, cache_len)
+        return x, {**kv, "pos": pos + 1}
     if cfg.block_kind == "rwkv6":
         states = []
         for i, layer in enumerate(layers):
@@ -334,13 +344,12 @@ def decode_step(layers: nn.ModuleList, x: torch.Tensor, cfg, cache: dict,
         states.append(st)
         if cfg.attn_every and (i + 1) % cfg.attn_every == 0:
             g = i // cfg.attn_every
-            x = shared_attn.decode(x, cache["k"][g], cache["v"][g], pos, 0)
+            x = shared_attn.decode(x, cache["k"][g], cache["v"][g], pos, 0, cache_len)
     ssd, conv = (torch.stack(t) for t in zip(*states))
     if not cfg.attn_every:
         return x, {"ssd": ssd, "conv": conv, "pos": pos + 1}
     grouped = lambda t: t.reshape(cache["ssd"].shape[:2] + t.shape[1:])
-    return x, {"ssd": grouped(ssd), "conv": grouped(conv), "k": cache["k"], "v": cache["v"],
-               "pos": pos + 1}
+    return x, {"ssd": grouped(ssd), "conv": grouped(conv), **kv, "pos": pos + 1}
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype, device, tp: int = 1,
@@ -353,15 +362,14 @@ def init_cache(cfg, batch: int, cache_len: int, dtype, device, tp: int = 1,
     d_inner), grouped as (G, attn_every, ...) in the hybrid, whose shared
     block's K/V are (G, B, cache_len, Hkv r, hd). With a ``shard``
     context: this rank's block of each leaf under ``cache_specs`` (``batch``
-    is the global batch)."""
+    is the global batch) and, with K/V, ``len``."""
     if shard is not None:
         whole = init_cache(cfg, batch, cache_len, dtype, "meta", tp)
         specs = cache_specs(whole, shard.mesh)
-        if "k" in whole:
-            cache_heads_local(cfg, cache_expand_factor(cfg, tp), shard.tp)
-        return {k: (torch.zeros(local_shape(v.shape, specs[k], shard.mesh), dtype=v.dtype,
-                                device=device) if torch.is_tensor(v) else v)
-                for k, v in whole.items()}
+        out = {k: (torch.zeros(local_shape(v.shape, specs[k], shard.mesh), dtype=v.dtype,
+                               device=device) if torch.is_tensor(v) else v)
+               for k, v in whole.items()}
+        return dict(out, len=cache_len) if "k" in out else out
     zeros = lambda shape, dt=dtype: torch.zeros(shape, dtype=dt, device=device)
     kv = lambda n: (n, batch, cache_len, cfg.n_kv_heads * cache_expand_factor(cfg, tp),
                     cfg.head_dim)

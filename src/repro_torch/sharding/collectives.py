@@ -26,13 +26,19 @@ Rules:
   order, as ``MultihostContext.allreduce`` does, so every rank gets the same
   bytes from run to run whatever algorithm gloo picks. A sum comes back in
   the input's dtype unless ``out_dtype`` says otherwise.
-* **gloo, staged through the host.** The ranks may share one card, which
-  NCCL refuses (two ranks on one device), so the backend is gloo and device
-  tensors go through pinned host buffers explicitly: a copy to the host,
-  the collective on CPU tensors, one copy back. Every dtype travels as its
-  bytes (uint8). An NCCL group for ranks on distinct cards is not written.
+* **gloo for CPU tensors; the card's memory for CUDA tensors.** The ranks
+  share one card, which NCCL refuses (two ranks on one device), so the
+  backend is gloo. CPU tensors travel through gloo as their bytes (uint8).
+  CUDA tensors move on the card (``DeviceExchange``): each rank's exchange
+  buffer is opened by the others through CUDA IPC, and a round is a copy
+  into this rank's buffer, a barrier (each rank's count of barriers in a
+  file every rank maps, waited on by spinning, which also checks that the
+  ranks are in step), copies out of the peers' buffers and a second
+  barrier. Either way the same bytes arrive and every
+  sum is formed here, so the result does not depend on the tensors'
+  device. Ranks on distinct cards (an NCCL group) are not written.
 * **Counters.** ``stats[axis][op]`` counts calls, the bytes this rank
-  received from its peers, and the seconds spent (staging included). An
+  received from its peers, and the seconds spent (barriers included). An
   all-reduce given a ``tag`` counts under ``"all_reduce:<tag>"`` instead
   (the MoE's combine ``moe``, its gates' gradient ``moe_gate``, its
   load-balancing sums ``moe_aux``), and an all-to-all given one under
@@ -57,6 +63,7 @@ import math
 import os
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.multihost import (DEFAULT_TIMEOUT_S, ENV_COORD, ENV_NPROCS, ENV_RANK,
@@ -96,6 +103,9 @@ class MeshComm:
                 if self.rank in ranks:
                     self._groups[axis] = group
         self.stats = {a: {op: [0, 0, 0.0] for op in OPS} for a in mesh.axis_names}
+        ex = getattr(world, "_device_exchange", None)
+        if ex is not None:
+            ex.align()
 
     # -- construction --------------------------------------------------
 
@@ -131,25 +141,37 @@ class MeshComm:
     def size(self, axis: str) -> int:
         return self.mesh.shape[axis]
 
-    # -- staging --------------------------------------------------------
+    # -- transport ------------------------------------------------------
 
     @staticmethod
     def _wire(t: torch.Tensor, rows: int = 1) -> torch.Tensor:
-        """``t`` as a contiguous CPU (rows, bytes) uint8 tensor, the bytes
-        gloo moves whatever the dtype, through a pinned buffer when ``t``
-        lies on a device."""
-        if t.device.type != "cpu":
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t)
-        else:
-            host = t.contiguous()
-        return host.reshape(-1).view(torch.uint8).reshape(rows, -1)
+        """``t`` as a contiguous (rows, bytes) uint8 tensor: the bytes that
+        move, whatever the dtype."""
+        return t.contiguous().reshape(-1).view(torch.uint8).reshape(rows, -1)
 
-    @staticmethod
-    def _unwire(buf: torch.Tensor, dtype, shape, device) -> torch.Tensor:
-        """The inverse of ``_wire`` for ``buf`` holding tensors of ``shape``."""
-        out = buf.reshape(-1).view(dtype).reshape(shape)
-        return out.to(device) if device.type != "cpu" else out
+    def _gather_bytes(self, wire: torch.Tensor, axis: str) -> torch.Tensor:
+        """(1, bytes) -> (n, bytes): every member's, in coordinate order."""
+        import torch.distributed as dist
+
+        if wire.is_cuda:
+            return DeviceExchange.of(self.world, wire.device).all_gather(wire[0], self, axis)
+        buf = torch.empty((self.size(axis), wire.shape[1]), dtype=torch.uint8)
+        dist.all_gather(list(buf.split(1)), wire, group=self._groups[axis])
+        return buf
+
+    def _exchange(self, pieces: torch.Tensor, axis: str) -> tuple:
+        """Piece j of ``pieces`` (n, ...) to the member at coordinate j, and
+        the n pieces received: ``(their (n, bytes) uint8 wire, the pieces
+        as tensors)``."""
+        import torch.distributed as dist
+
+        wire = self._wire(pieces, rows=pieces.shape[0])
+        if wire.is_cuda:
+            recv = DeviceExchange.of(self.world, wire.device).all_to_all(wire, self, axis)
+        else:
+            recv = torch.empty_like(wire)
+            dist.all_to_all_single(recv, wire, group=self._groups[axis])
+        return recv, recv.view(pieces.dtype).reshape(pieces.shape)
 
     def _count(self, axis: str, op: str, nbytes: int, t0: float) -> None:
         rec = self.stats[axis].setdefault(op, [0, 0, 0.0])
@@ -162,17 +184,12 @@ class MeshComm:
     def all_gather(self, t: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
         """The ``axis`` group's tensors concatenated along ``dim`` in
         coordinate order (identical bytes on every member)."""
-        import torch.distributed as dist
-
         n = self.size(axis)
         if n == 1:
             return t
         t0 = time.perf_counter()
         wire = self._wire(t)
-        buf = torch.empty((n, wire.shape[1]), dtype=torch.uint8,
-                          pin_memory=t.device.type != "cpu")
-        dist.all_gather(list(buf.split(1)), wire, group=self._groups[axis])
-        out = self._unwire(buf, t.dtype, (n,) + tuple(t.shape), t.device)
+        out = self._gather_bytes(wire, axis).view(t.dtype).reshape((n,) + tuple(t.shape))
         dim = dim % t.dim()
         out = out.movedim(0, dim).reshape(t.shape[:dim] + (n * t.shape[dim],) + t.shape[dim + 1:])
         self._count(axis, "all_gather", (n - 1) * wire.numel(), t0)
@@ -183,8 +200,6 @@ class MeshComm:
         """This rank's piece (by its coordinate) of the sum over the
         ``axis`` group of ``t``, cut along ``dim``; added in f32 in rank
         order, returned in ``out_dtype`` (default ``t``'s)."""
-        import torch.distributed as dist
-
         n = self.size(axis)
         out_dtype = out_dtype or t.dtype
         if n == 1:
@@ -195,10 +210,7 @@ class MeshComm:
                              f"divide into {n}")
         t0 = time.perf_counter()
         pieces = t.unflatten(dim, (n, t.shape[dim] // n)).movedim(dim, 0)
-        wire = self._wire(pieces, rows=n)
-        recv = torch.empty(wire.shape, dtype=torch.uint8, pin_memory=t.device.type != "cpu")
-        dist.all_to_all_single(recv, wire, group=self._groups[axis])
-        parts = self._unwire(recv, t.dtype, tuple(pieces.shape), t.device)
+        recv, parts = self._exchange(pieces, axis)
         acc = parts[0].float()
         for p in parts[1:]:
             acc = acc + p.float()
@@ -211,8 +223,6 @@ class MeshComm:
         piece j sent to the member at coordinate j; the pieces this rank
         receives concatenated along ``cat_dim`` in coordinate order. Counted
         as ``all_to_all`` or ``all_to_all:<tag>``."""
-        import torch.distributed as dist
-
         n = self.size(axis)
         if n == 1:
             return t
@@ -222,10 +232,7 @@ class MeshComm:
                              f"divide into {n}")
         t0 = time.perf_counter()
         pieces = t.unflatten(split_dim, (n, t.shape[split_dim] // n)).movedim(split_dim, 0)
-        wire = self._wire(pieces, rows=n)
-        recv = torch.empty(wire.shape, dtype=torch.uint8, pin_memory=t.device.type != "cpu")
-        dist.all_to_all_single(recv, wire, group=self._groups[axis])
-        parts = self._unwire(recv, t.dtype, tuple(pieces.shape), t.device)
+        recv, parts = self._exchange(pieces, axis)
         shape = parts.shape[1:]
         out = parts.movedim(0, cat_dim).reshape(shape[:cat_dim] + (n * shape[cat_dim],)
                                                 + shape[cat_dim + 1:])
@@ -248,6 +255,15 @@ class MeshComm:
         stats = {k: list(v) for k, v in self.stats[axis].items()}
         if op == "max":
             out = self.all_gather(t.unsqueeze(0), axis, 0).amax(0).to(out_dtype)
+        elif t.is_cuda and n * t.numel() * t.element_size() <= DeviceExchange.BYTES:
+            # On the card, where the gathered tensors fit one buffer: one
+            # round, every member's whole tensor summed here in the same f32
+            # rank order (the reduce-scatter's sums).
+            parts = self.all_gather(t.unsqueeze(0), axis, 0)
+            acc = parts[0].float()
+            for p in parts[1:]:
+                acc = acc + p.float()
+            out = acc.to(out_dtype)
         else:
             flat = t.reshape(-1)
             pad = -flat.numel() % n
@@ -287,6 +303,159 @@ class MeshComm:
         if self.world is not None:
             self.world.shutdown()
             self.world = None
+
+
+class DeviceExchange:
+    """One rank's exchange buffer on the card that every rank of the world
+    shares, opened by the other ranks through CUDA IPC (made once per
+    world, ``of``). A round of a collective over an axis: this rank writes
+    its bytes into its buffer, waits for the write, passes the axis group's
+    barrier, copies what it needs out of its peers' buffers, waits for the
+    copies and passes a second barrier, after which no peer reads its
+    buffer (so it may write the next round, or exit). Tensors larger than
+    the buffer go in several rounds.
+
+    The barrier is a file in the temporary directory mapped by every rank
+    (the ranks share a host, as they share the card): each rank writes its
+    count of the axis's barriers into its slot and waits until every member
+    of its group has reached that count (a gloo collective costs
+    milliseconds). The counts of a group's members must start equal: an
+    earlier mesh may have grouped the axis's ranks otherwise (two pairs of
+    a 2 x 2 mesh before a 1 x 4 one), and its groups may have passed
+    different numbers of barriers. So every ``MeshComm`` made after the
+    exchange aligns them (``align``). From there every member passes the
+    same barriers in the same order, so none can be more than one ahead of
+    a rank waiting (it would have passed a barrier without it); one that is
+    has run other collectives, and it raises, as it does when a member does
+    not come within the world's timeout."""
+
+    BYTES = 64 << 20
+    AXES = ("pod", "data", "model")
+
+    def __init__(self, world, device):
+        import atexit
+        import tempfile
+        import uuid
+
+        import torch.distributed as dist
+
+        self.device, self.timeout_s, self.rank = device, world.timeout_s, world.rank
+        path = None
+        if world.rank == 0:
+            path = os.path.join(tempfile.gettempdir(), f"repro_torch_exchange_{uuid.uuid4().hex}")
+            np.zeros((world.size, len(self.AXES)), dtype=np.int64).tofile(path)
+            atexit.register(lambda: os.path.exists(path) and os.remove(path))
+        self.buf, handle = self._allocate()
+        every = [None] * world.size
+        dist.all_gather_object(every, (world.rank, self._place(), path, handle))
+        if len({p for _, p, _, _ in every}) != 1:
+            raise RuntimeError("a device exchange needs every rank on one card")
+        self.peers = {r: self.buf if r == world.rank else self._open(h) for r, _, _, h in every}
+        self.flags = np.memmap(every[0][2], dtype=np.int64, mode="r+",
+                               shape=(world.size, len(self.AXES)))
+
+    # The card's side (a test may stand in for it with shared files):
+    def _allocate(self) -> tuple:
+        """This rank's buffer and the handle its peers open it by."""
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        buf = torch.empty(self.BYTES, dtype=torch.uint8, device=self.device)
+        return buf, reduce_tensor(buf)
+
+    @staticmethod
+    def _open(handle) -> torch.Tensor:
+        fn, args = handle
+        return fn(*args)
+
+    def _place(self) -> str:
+        """Where the buffers live: the card's UUID."""
+        return str(torch.cuda.get_device_properties(self.device).uuid)
+
+    def _sync(self) -> None:
+        torch.cuda.current_stream(self.device).synchronize()
+
+    @classmethod
+    def of(cls, world, device) -> "DeviceExchange":
+        """The world's exchange, made on its first call (collectively), as
+        normal tensors even when that call runs under ``inference_mode``
+        (a later call outside it writes into the buffer)."""
+        ex = getattr(world, "_device_exchange", None)
+        if ex is None:
+            with torch.inference_mode(False):
+                ex = world._device_exchange = cls(world, device)
+        return ex
+
+    def align(self) -> None:
+        """Set this rank's count on each axis to the largest of the world's
+        (a gloo all-reduce, so every rank has left its last barrier before
+        any count moves), as every rank does when it makes a mesh's
+        ``MeshComm``: every group of the new mesh starts in step."""
+        import torch.distributed as dist
+
+        row = torch.from_numpy(np.array(self.flags[self.rank]))
+        dist.all_reduce(row, op=dist.ReduceOp.MAX)
+        self.flags[self.rank] = row.numpy()
+
+    def _barrier(self, comm, axis: str) -> None:
+        """Wait for this rank's copies, then for the ``axis`` group."""
+        self._sync()
+        a = self.AXES.index(axis)
+        k = int(self.flags[self.rank, a]) + 1
+        self.flags[self.rank, a] = k
+        members = list(self._members(comm, axis))
+        deadline, spins = time.monotonic() + self.timeout_s, 0
+        while True:
+            counts = self.flags[members, a]
+            if counts.min() >= k:
+                return
+            if counts.max() > k + 1:
+                raise RuntimeError(f"device exchange on {axis!r}: the ranks are at barriers "
+                                   f"{counts.tolist()}, this one at {k}")
+            spins += 1
+            if spins % 64 == 0:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"device exchange on {axis!r}: members {members} at "
+                                       f"barriers {counts.tolist()}, this one waited for {k}")
+                time.sleep(20e-6)
+            else:
+                os.sched_yield()
+
+    @staticmethod
+    def _members(comm, axis: str) -> tuple:
+        return next(g for g in comm.mesh.axis_groups(axis) if comm.rank in g)
+
+    def _round(self, comm, axis: str, rows: torch.Tensor, read) -> None:
+        """One round: ``rows`` (k, m) written into this rank's buffer,
+        ``read(member index, its buffer)`` for each member of the group."""
+        self.buf[:rows.numel()].view(rows.shape).copy_(rows)
+        self._barrier(comm, axis)
+        for j, r in enumerate(self._members(comm, axis)):
+            read(j, self.peers[r])
+        self._barrier(comm, axis)
+
+    def all_gather(self, wire: torch.Tensor, comm, axis: str) -> torch.Tensor:
+        """(bytes,) uint8 on the card -> (n, bytes): every member's, in
+        coordinate order."""
+        n, nb = comm.size(axis), wire.numel()
+        out = torch.empty((n, nb), dtype=torch.uint8, device=wire.device)
+        for a in range(0, nb, self.BYTES):
+            m = min(self.BYTES, nb - a)
+            self._round(comm, axis, wire[None, a:a + m],
+                        lambda j, peer: out[j, a:a + m].copy_(peer[:m]))
+        return out
+
+    def all_to_all(self, wire: torch.Tensor, comm, axis: str) -> torch.Tensor:
+        """(n, bytes) uint8 on the card, row j for the member at coordinate
+        j -> (n, bytes): row j from the member at coordinate j."""
+        n, nb = wire.shape
+        me = comm.index(axis)
+        out = torch.empty_like(wire)
+        step = max(1, self.BYTES // n)
+        for a in range(0, nb, step):
+            m = min(step, nb - a)
+            self._round(comm, axis, wire[:, a:a + m],
+                        lambda j, peer: out[j, a:a + m].copy_(peer[me * m:(me + 1) * m]))
+        return out
 
 
 # -- differentiable forms ---------------------------------------------------

@@ -18,12 +18,28 @@ decode cache ``cache_specs`` (``shard_cache``). Every stack of the repo
 shards: attention stacks, dense or MoE (the experts over 'model', their D
 over the data axes; the router and the shared expert as the rules give),
 and the recurrent stacks, mamba2 (with zamba2's shared attention block) and
-rwkv6 (their in-projections column-parallel over 'model' in whole heads,
-the scans in the reference's ``FULL_BATCH`` layout: ``models/ssm.py``,
-``models/rwkv6.py``). A tensor-parallel dimension that the model axis does
-not divide raises ``ValueError`` (query heads, SSD heads, rwkv6's heads,
-d_model and d_ff), as does a leaf whose spec leaves it whole where the
-sharded layers need it split. Nothing falls back to whole tensors.
+rwkv6 (their in-projections column-parallel over 'model', the scans in the
+reference's ``FULL_BATCH`` layout: ``models/ssm.py``, ``models/rwkv6.py``).
+
+A leaf takes exactly the placement its spec gives, the reference's
+fallbacks included, and the layers compute the same function on it:
+
+* a column-parallel leaf whose columns the model axis divides but not in
+  whole heads (query heads, SSD heads or rwkv6's heads that it does not
+  divide) is split by features; the layer gathers its output columns over
+  'model' (or exchanges them for rows) before the head reshape, runs the
+  per-head work on whole heads and takes this rank's columns for the
+  row-parallel product (``ShardContext.split`` tells a layer which);
+* a leaf that ``_fit`` replicates over 'model' (a dimension the axis does
+  not divide: heads times head_dim, d_inner, d_ff, the vocabulary) is used
+  whole on every model rank, and the block it belongs to runs whole there:
+  its input is not summed over 'model' and its product is not either;
+* the decode cache follows ``cache_specs``: heads over 'model', or its
+  sequence where the heads do not divide, or whole (``models/attention``);
+* an MoE dispatch group larger than a rank's tokens spans the data split:
+  its router logits are gathered over the data axes (``models/moe``).
+
+Only a ``block_kind`` without sharded layers raises (``check_shardable``).
 """
 from __future__ import annotations
 
@@ -33,20 +49,6 @@ from torch import nn
 from repro_torch.sharding.collectives import (copy_to, copy_to_many, entry_axes, exchange, gather,
                                               gather_replicated, max_over, scatter_sum, sum_over)
 from repro_torch.sharding.rules import batch_spec, cache_specs, dp_axes, local_shape, param_specs
-
-# Where the sharded layers need the model axis (Megatron): the column-
-# parallel leaves' output dimension, the row-parallel leaves' input
-# dimension, the embedding's vocabulary; an MoE's expert leaves (E, ., .)
-# their expert dimension (EP). K and V may stay whole or split inside a head
-# (``models.attention`` gathers them then).
-_NEEDS_MODEL = {"wq": 1, "w_gate": 1, "w_up": 1, "lm_head": 1, "wo": 0, "w_down": 0, "embed": 0}
-_EXPERTS = ("w_gate", "w_up", "w_down")
-# The recurrent layers' (``.mamba.`` and ``.rwkv.`` parameters, per layer):
-# the column-parallel leaves' output dimension (whole heads), the conv taps'
-# and the decay LoRA's channels, the row-parallel leaves' input dimension.
-_NEEDS_MODEL_RECURRENT = {"wz": 1, "wx": 1, "conv_w": 1, "wr": 1, "wk": 1, "wv": 1, "wg": 1,
-                          "w_lora_b": 1, "w_cm_r": 1, "w_cm_1": 1, "wo": 0, "w_cm_2": 0}
-
 
 def _block(entry, mesh, coords) -> tuple[int, int]:
     """(pieces, this rank's piece index) of a spec entry at ``coords``."""
@@ -103,21 +105,12 @@ def gather_whole(shard: torch.Tensor, spec: tuple, comm) -> torch.Tensor:
 
 
 def check_shardable(cfg, mesh) -> None:
-    """Raise unless the model axis divides every dimension that the sharded
-    layers of ``cfg`` split over it: the query heads of an attention stack
-    (and of zamba2's shared block), mamba2's SSD heads, rwkv6's heads,
-    d_model (its channel mix's ``w_cm_r`` columns and its decode cache's
-    last tokens) and d_ff."""
-    tp = mesh.shape.get("model", 1)
-    split = {"attn": [("query heads", cfg.n_heads)],
-             "mamba2": [("SSD heads", cfg.ssm_heads)]
-             + ([("shared-block query heads", cfg.n_heads)] if cfg.attn_every else []),
-             "rwkv6": [("heads", cfg.n_heads), ("d_model", cfg.d_model), ("d_ff", cfg.d_ff)]}
-    if cfg.block_kind not in split:
+    """Raise unless ``cfg`` is a stack whose layers have sharded forms: an
+    attention stack (dense or MoE), mamba2 (with zamba2's shared block) or
+    rwkv6. Any dimension may leave the model axis undivided: its leaves
+    then take the reference's fallback placement (the module docstring)."""
+    if cfg.block_kind not in ("attn", "mamba2", "rwkv6"):
         raise NotImplementedError(f"{cfg.name}: a sharded {cfg.block_kind} stack is not written")
-    for what, n in split[cfg.block_kind]:
-        if n % tp:
-            raise ValueError(f"{cfg.name}: {n} {what} do not divide the model axis of {tp}")
 
 
 def parameter_specs(model, mesh) -> dict:
@@ -146,10 +139,14 @@ class ShardContext:
         self.tp = mesh.shape.get("model", 1)
         self.tp_index = self.coords[mesh.axis_names.index("model")] if "model" in mesh.shape else 0
         self.dp = dp_axes(mesh)
-        self.n_data = 1
-        for axis in self.dp:
-            self.n_data *= mesh.shape[axis]
+        self.n_data, self.data_index = _block(self.dp, mesh, self.coords)
         self.specs: dict = {}
+
+    @staticmethod
+    def split(spec: tuple, dim: int) -> bool:
+        """Whether ``spec`` splits dimension ``dim`` over 'model' (else
+        ``_fit`` replicated it there)."""
+        return "model" in entry_axes(spec[dim])
 
     def fsdp(self, w: torch.Tensor, spec: tuple) -> torch.Tensor:
         """``w`` gathered over every axis but 'model' that its spec splits
@@ -171,6 +168,11 @@ class ShardContext:
 
     def max_model(self, x: torch.Tensor) -> torch.Tensor:
         return max_over(x, self.comm, "model")
+
+    def gather_data(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """All-gather along ``dim`` over the data axes, in the global
+        batch's order (``data_index``)."""
+        return gather(x, self.comm, self.dp, dim) if self.dp else x
 
     def sum_data(self, x: torch.Tensor, tag: str | None = None) -> torch.Tensor:
         for axis in self.dp:
@@ -234,20 +236,6 @@ def attach(model: nn.Module, shard: ShardContext, specs: dict) -> nn.Module:
     return model
 
 
-def _check_specs(specs: dict, tp: int) -> None:
-    if tp == 1:
-        return
-    for name, spec in specs.items():
-        leaf = name.rsplit(".", 1)[-1]
-        if ".mamba." in name or ".rwkv." in name:
-            dim = _NEEDS_MODEL_RECURRENT.get(leaf)
-        else:
-            dim = 0 if leaf in _EXPERTS and len(spec) == 3 else _NEEDS_MODEL.get(leaf)
-        if dim is not None and "model" not in entry_axes(spec[dim]):
-            raise ValueError(f"{name}: spec {spec} leaves dimension {dim} whole; the sharded "
-                             f"layers need it split over 'model'")
-
-
 def bind_shards(cfg, tensors, mesh, rank: int, comm=None):
     """A ``TransformerLM`` skeleton whose parameters are ``tensors`` (this
     rank's shards, in parameter order; no copy), bound to a
@@ -258,7 +246,6 @@ def bind_shards(cfg, tensors, mesh, rank: int, comm=None):
     tp = mesh.shape.get("model", 1)
     model = TransformerLM(cfg, device="meta", tp=tp)
     specs = parameter_specs(model, mesh)
-    _check_specs(specs, tp)
     names = [n for n, _ in model.named_parameters()]
     if len(names) != len(tensors):
         raise ValueError(f"{len(tensors)} tensors for {len(names)} parameters")
@@ -287,17 +274,22 @@ def init_shards(cfg, generator: torch.Generator, mesh, rank: int, device=None) -
     device, tp)`` (tp the mesh's model axis), bitwise, in parameter order,
     without the whole model: each of ``TransformerLM.init_units`` (the
     embedding, a layer, the shared block, the final norm, the head) is made
-    whole on ``device`` in ``init_params``' order of draws, cut to this
-    rank's blocks (contiguous copies), and freed before the next. The
-    largest unit is one layer (qwen2-moe: 1.04 GB of bf16 experts). A
-    configuration that does not shard raises as ``check_shardable``."""
+    whole on ``device`` in ``init_params``' order of draws, copied into
+    this rank's blocks, and freed before the next. The largest unit is one
+    layer (qwen2-moe: 1.04 GB of bf16 experts) or the embedding
+    (minitron-4b: 1.57 GB, drawn in f32). The blocks are made before the
+    first draw, so none lies in the segments the units' draws held: on a
+    card, those are released at the end, and a rank keeps only its shards.
+    A configuration that does not shard raises as ``check_shardable``."""
     from repro_torch.models.model import TransformerLM
 
     check_shardable(cfg, mesh)
     model = TransformerLM(cfg, device="meta", tp=mesh.shape.get("model", 1))
     specs = parameter_specs(model, mesh)
     coords = mesh.coords(rank)
-    out = {}
+    out = {name: torch.empty(local_shape(skel.shape, specs[name], mesh), dtype=skel.dtype,
+                             device=device)
+           for name, skel in model.named_parameters()}
     for names, fill in model.init_units():
         held = []
         for name in names:
@@ -310,10 +302,11 @@ def init_shards(cfg, generator: torch.Generator, mesh, rank: int, device=None) -
         with torch.no_grad():
             fill(generator)
         for name, mod, pn, skel in held:
-            out[name] = local_shard(mod._parameters[pn].detach(), specs[name], mesh,
-                                    coords).clone()
+            out[name].copy_(local_shard(mod._parameters[pn].detach(), specs[name], mesh, coords))
             mod._parameters[pn] = skel
-    return [out[name] for name, _ in model.named_parameters()]
+    if torch.device(device if device is not None else "cpu").type == "cuda":
+        torch.cuda.empty_cache()
+    return list(out.values())
 
 
 def shard_model(model, mesh, rank: int, comm=None):
@@ -331,8 +324,9 @@ def shard_batch(x: torch.Tensor, mesh, rank: int) -> torch.Tensor:
 
 def shard_cache(cache: dict, mesh, rank: int) -> dict:
     """This rank's blocks of a whole decode cache under ``cache_specs``
-    (``pos`` kept)."""
+    (``pos`` kept; with K/V, ``len`` the whole cache's length)."""
     specs = cache_specs(cache, mesh)
     coords = mesh.coords(rank)
-    return {k: (local_shard(v, specs[k], mesh, coords).clone() if torch.is_tensor(v) else v)
-            for k, v in cache.items()}
+    out = {k: (local_shard(v, specs[k], mesh, coords).clone() if torch.is_tensor(v) else v)
+           for k, v in cache.items()}
+    return dict(out, len=cache["k"].shape[2]) if "k" in cache else out

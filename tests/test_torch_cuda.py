@@ -2110,3 +2110,73 @@ def test_sharded_recurrent_prefill_on_card_matches_the_cpu(dev, tmp_path):
         assert [x[1] for x in lines] == ["zamba2-2.7b", "rwkv6-3b"]
         for _, arch, err in lines:
             assert float(err) <= 1e-4, (r, arch, err)
+
+
+_FALLBACK_RANK = """
+import sys, numpy as np, torch
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.model import init_params, prefill_step, serve_step
+from repro_torch.sharding.collectives import MeshComm
+from repro_torch.sharding.placement import shard_model
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda")
+mesh = make_mesh("1x4")
+comm = MeshComm.from_env(mesh)
+g = torch.Generator(device=dev).manual_seed(100 + comm.rank)
+equal = []
+for shape, dt in (((4, 256, 96), torch.float32), ((3, 5), torch.bfloat16),
+                  ((8, 2048, 2048), torch.bfloat16)):
+    x = torch.randn(shape, generator=g, device=dev).to(dt)
+    for t in (x, x.cpu()):
+        ops = [comm.all_gather(t, "model", 1), comm.all_reduce(t, "model"),
+               comm.all_reduce(t, "model", "max")]
+        if shape[0] % 4 == 0:
+            ops.append(comm.all_to_all(t, "model", 0, -1))
+        if shape[-1] % 4 == 0:
+            ops.append(comm.reduce_scatter(t, "model", -1))
+        if t.is_cuda:
+            on_card = ops
+    equal.append(all(a.is_cuda and torch.equal(a.cpu(), b) for a, b in zip(on_card, ops)))
+# 6 query heads of 64 (1.5 a rank), 2 KV heads: the cache of 64 slots split
+# over its sequence; prefill and teacher-forced decode against the whole model.
+cfg = get_config("minitron-4b").reduced(dtype="float32", n_heads=6, n_kv_heads=2, head_dim=64)
+whole = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev, tp=4)
+tok = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab, (2, 60)), device=dev)
+with torch.inference_mode():
+    model = shard_model(whole, mesh, comm.rank, comm)
+    errs = []
+    for m in (whole, model):
+        logits, cache = prefill_step(m, tok, 64, tp=4)
+        out = [logits]
+        for i in range(3):
+            logits, cache = serve_step(m, tok[:, i:i + 1], cache, tp=4)
+            out.append(logits)
+        errs.append(out)
+    err = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(errs[1], errs[0]))
+    assert cache["k"].shape[2] == 16 and cache["len"] == 64
+print("RESULT", all(equal), err, comm.summary()["model"]["all_reduce:decode"]["calls"])
+comm.shutdown()
+"""
+
+
+def test_device_exchange_and_fallback_layout_on_card(dev, tmp_path):
+    """Four rank processes on the card: the collectives of CUDA tensors
+    (through the card's memory: ``DeviceExchange``, CUDA IPC) bitwise those
+    of the same tensors on the CPU (through gloo), in f32 and bf16, one of
+    them larger than the exchange buffer; and
+    a reduced attention stack in f32 whose 6 query heads the model axis does
+    not divide (1.5 a rank) with its decode cache split over the sequence
+    (64 slots, 16 a rank), prefill and 3 teacher-forced decode steps within
+    1e-4 of the largest logit of the whole model on the same card."""
+    from repro_torch.multihost import spawn_ranks
+
+    script = tmp_path / "rank.py"
+    script.write_text(_FALLBACK_RANK)
+    results = spawn_ranks([sys.executable, str(script)], 4, timeout_s=300)
+    for r, (code, text) in enumerate(results):
+        assert code == 0, f"rank {r} exited with {code}:\n{text}"
+        line = [x for x in text.splitlines() if x.startswith("RESULT ")][-1].split()
+        assert line[1] == "True", (r, line)
+        assert float(line[2]) <= 1e-4, (r, line)
+        assert int(line[3]) == 2 * 4 * 3, (r, line)   # (max's sum, P.V) x layers x steps

@@ -18,9 +18,10 @@ timeout) first serve at 1 x 4 and then train at 2 x 2, on the reference's
   r = 2, split one head a rank): prefill logits, cache blocks and decode
   logits (teacher-forced) against the reference's ``serve_step`` at tp = 4;
 * (e) a sharded checkpoint resumes bitwise and the reference reads it;
-* (f) a sequence-split sharded cache and a failed rendezvous raise (the
-  MoE's split: tests/test_torch_moe_sharded.py; the recurrent stacks':
-  tests/test_torch_recurrent_sharded.py).
+* (f) a failed rendezvous raises (the MoE's split:
+  tests/test_torch_moe_sharded.py; the recurrent stacks':
+  tests/test_torch_recurrent_sharded.py; the sharding rules' fallbacks, the
+  sequence-split cache among them: tests/test_torch_fallback_sharded.py).
 
 Tolerances are tests/test_torch_tensor_parallel.py's: losses and grad
 norms at rtol 1e-5, f32 tensors (logits, caches, gradients) at 1e-4. After
@@ -447,17 +448,7 @@ def test_row_parallel_f32_product_backward_is_the_16_bit_products():
 
 # -- (f) refusals ------------------------------------------------------------------
 
-def test_sequence_split_cache_and_failed_rendezvous_raise():
-    cfg = tconfigs.get_config(R.ARCH).reduced(n_heads=6, n_kv_heads=3)
-    with pytest.raises(NotImplementedError, match="splits the sequence"):
-        cache_heads_local(cfg, 1, 2)
-    # No configuration of the repo reaches that branch at 2 x 2 or 1 x 4.
-    from repro_torch.models.attention import cache_expand_factor
-
-    for arch in ARCHS:
-        c = tconfigs.get_config(arch)
-        for tp in (2, 4):
-            assert c.n_kv_heads * cache_expand_factor(c, tp) % tp == 0, (arch, tp)
+def test_failed_rendezvous_raises():
     import socket
 
     with socket.socket() as s:

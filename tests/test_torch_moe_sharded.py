@@ -20,9 +20,10 @@ reference's values:
 * layer 0's MoE alone: the gradients with respect to its input and its
   router against the whole layer's, a planted fault (the router's input
   gradient counted once per model rank) beyond the limit;
-* a dispatch group that would straddle the data split raises; the
-  shard-only initialisation is bitwise the whole weights cut; every rank's
-  shard bytes of the full-width configurations equal the dry run's.
+* the shard-only initialisation is bitwise the whole weights cut; every
+  rank's shard bytes of the full-width configurations equal the dry run's
+  (a dispatch group that straddles the data split:
+  tests/test_torch_fallback_sharded.py).
 
 Tolerances are tests/test_torch_lm_sharded.py's: losses at rtol 1e-5, f32
 tensors (logits, gradients) at 1e-4 of their largest entry.
@@ -278,16 +279,6 @@ def test_router_gradient_counts_the_routers_input_gradient_once(run):
 
 
 # -- without processes ------------------------------------------------------------
-
-def test_dispatch_group_straddling_the_data_split_raises():
-    cfg = tconfigs.get_config("qwen2-moe-a2.7b").reduced(dtype="float32")
-    mesh = make_mesh("2x2")
-    model = bind_shards(cfg, init_shards(cfg, torch.Generator().manual_seed(0), mesh, 0, "cpu"),
-                        mesh, 0)
-    x = torch.zeros(1, 256, cfg.d_model)      # 256 tokens a rank: a group of 512 straddles
-    with pytest.raises(ValueError, match="straddle the data split"):
-        model.layers[0].moe(x)
-
 
 @pytest.mark.parametrize("mesh_spec", ["1x4", "2x2"])
 @pytest.mark.parametrize("arch,over", [("qwen2-moe-a2.7b", {}), ("dbrx-132b", {}),

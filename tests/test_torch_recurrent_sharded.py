@@ -56,8 +56,8 @@ from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models.model import (TransformerLM, init_params, lm_loss,  # noqa: E402
                                       prefill_step)
 from repro_torch.multihost import spawn_ranks  # noqa: E402
-from repro_torch.sharding.placement import (assemble, check_shardable,  # noqa: E402
-                                            init_shards, local_shard, parameter_specs,
+from repro_torch.sharding.placement import (assemble, init_shards,  # noqa: E402
+                                            local_shard, parameter_specs,
                                             shard_model, shard_tensors)
 from repro_torch.sharding.rules import cache_specs  # noqa: E402
 
@@ -368,14 +368,3 @@ def test_full_width_shards_match_the_dry_run(arch, mesh_spec):
         cache = make_empty_cache(model, 4, 4128, tp=mesh.shape["model"])
         assert sum(v.numel() * v.element_size() for v in cache.values()
                    if torch.is_tensor(v)) == serve["cache_bytes"]
-
-
-@pytest.mark.parametrize("arch,over,what", [
-    ("zamba2-2.7b", dict(d_model=96, ssm_head_dim=32), "6 SSD heads"),
-    ("rwkv6-3b", dict(n_heads=6), "6 heads"),
-    ("rwkv6-3b", dict(d_ff=258), "258 d_ff")])
-def test_recurrent_dimensions_that_do_not_divide_the_model_axis_raise(arch, over, what):
-    cfg = tconfigs.get_config(arch).reduced(**over)
-    check_shardable(cfg, make_mesh("2x2"))
-    with pytest.raises(ValueError, match=f"{what} do not divide the model axis of 4"):
-        check_shardable(cfg, make_mesh("1x4"))
